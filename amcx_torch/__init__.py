@@ -15,8 +15,24 @@ from .engine import (
     price_option,
     resolve_regression_spec,
 )
+from .engine_pallas import (
+    backward_induction_fused,
+    lsmc_option_pricing_fused,
+    precompute_standardization,
+)
+from .greeks import fast_greeks, fused_price_diff, gamma_fd, price_and_greeks
 from .interop import config_from_jax, tensor_from_numpy
-from .oracle import bs_price, crr_price, norm_cdf
+from .oracle import (
+    barrier_price,
+    bs_greeks,
+    bs_price,
+    crr_barrier_price,
+    crr_down_in_price,
+    crr_price,
+    discrete_barrier_shift,
+    down_in_price,
+    norm_cdf,
+)
 from .paths import brownian_normals, gbm_standardization, simulate_gbm, to_path_major
 from .payoff import (
     barrier_gate,
@@ -42,22 +58,35 @@ __all__ = [
     "RegressionSpec",
     "SimConfig",
     "backward_induction",
+    "backward_induction_fused",
     "barrier_gate",
     "barrier_knocked",
+    "barrier_price",
     "brownian_normals",
+    "bs_greeks",
     "bs_price",
     "config_from_jax",
+    "crr_barrier_price",
+    "crr_down_in_price",
     "crr_price",
     "design_matrix",
+    "discrete_barrier_shift",
+    "down_in_price",
     "exercise_allow_row",
+    "fast_greeks",
     "fit_continuation",
     "fit_continuation_with_coeffs",
+    "fused_price_diff",
+    "gamma_fd",
     "gbm_standardization",
     "intrinsic_value",
     "lsmc_option_pricing",
+    "lsmc_option_pricing_fused",
     "norm_cdf",
     "payoff_fn_for",
     "pinv_solve",
+    "precompute_standardization",
+    "price_and_greeks",
     "price_option",
     "regression_fitted_values",
     "resolve_regression_spec",

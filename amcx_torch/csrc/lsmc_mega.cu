@@ -13,6 +13,10 @@
 //            refinement steps against the UN-ridged Gram, de-equilibrate;
 //   apply:   cont = max(sum c_a B_a(x), 0), ex = max(phi(S-K), 0), and
 //            V <- ex / c_t where ex > cont. V is never touched otherwise.
+//            With the cf/tau planes (amcx's return_cf_tau) the same select
+//            also writes cf <- ex and tau <- t; maturity sets cf = V_T and
+//            tau = n_steps (SURVEY Q5/Q7). V's arithmetic is the same with
+//            or without them.
 // V is carried in time-T units (value * e^{+r dt (T - tau)}): written only
 // at exercise, discounted by the scalar c_t, never multiplied per step.
 // Finally sum c_0 V and sum (c_0 V)^2.
@@ -56,105 +60,23 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "lsmc_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using namespace amcx;
 
-enum Basis : int { kPower = 0, kChebyshev = 1, kLegendre = 2, kLaguerre = 3, kHermite = 4 };
-
-template <int K>
-struct Layout {
-  static constexpr int kPairs = K * (K + 1) / 2;
-  static constexpr int kMoments = kPairs + K;
-};
-
-// Index of Gram entry (a, b), a <= b, in the packed upper-triangle order
-// [(0,0), (0,1), ..., (0,K-1), (1,1), ...] that amcx's _pairs uses.
-__host__ __device__ constexpr int pair_index(int K, int a, int b) {
-  return a * K - a * (a - 1) / 2 + (b - a);
-}
-
-// Basis columns by the same recurrences and operation order as
-// amcx.basis / amcx_torch.basis.
-template <int K>
-__device__ __forceinline__ void basis_cols(float x, int basis, float (&cols)[K]) {
-  cols[0] = 1.0f;
-  if constexpr (K >= 2) {
-    cols[1] = basis == kLaguerre ? 1.0f - x : (basis == kHermite ? 2.0f * x : x);
-  }
-#pragma unroll
-  for (int n = 2; n < K; ++n) {
-    const float fn = static_cast<float>(n);
-    const float prev = cols[n - 1];
-    const float prev2 = cols[n - 2];
-    float v;
-    switch (basis) {
-      case kPower:
-        v = prev * x;
-        break;
-      case kChebyshev:
-        v = 2.0f * x * prev - prev2;
-        break;
-      case kLegendre:
-        v = ((2.0f * fn - 1.0f) * x * prev - (fn - 1.0f) * prev2) / fn;
-        break;
-      case kLaguerre:
-        v = ((2.0f * fn - 1.0f - x) * prev - (fn - 1.0f) * prev2) / fn;
-        break;
-      default:  // kHermite
-        v = 2.0f * x * prev - 2.0f * (fn - 1.0f) * prev2;
-        break;
-    }
-    cols[n] = v;
-  }
-}
-
-// Fixed-order block reduction of P per-thread sums; thread p < P writes the
-// block's total of sum p to dst[p]. Requires blockDim.x == kThreads.
-template <int P>
-__device__ __forceinline__ void block_reduce_store(double (&acc)[P], double* __restrict__ dst) {
-  __shared__ double warp_sums[kWarps][P];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    double v = acc[p];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) warp_sums[warp][p] = v;
-  }
-  __syncthreads();
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    double v = warp_sums[0][p];
-    for (int w = 1; w < kWarps; ++w) v += warp_sums[w][p];
-    dst[p] = v;
-  }
-}
-
-// Fixed-order sum of the (n_blocks, P) partial rows, by one block, rounded
-// once to f32 into out[0..P): warp w owns sums p = w, w + kWarps, ...; lane
-// l adds blocks l, l + 32, ... in order, then the lanes fold by shuffles.
-template <int P>
-__device__ __forceinline__ void sum_partials(const double* __restrict__ partials,
-                                             int n_blocks, float* out) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int p = warp; p < P; p += kWarps) {
-    double v = 0.0;
-    for (int b = lane; b < n_blocks; b += 32) v += partials[static_cast<size_t>(b) * P + p];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) out[p] = static_cast<float>(v);
-  }
-}
-
-// V_T = max(phi (S_T - K), 0).
+// V_T = max(phi (S_T - K), 0); cf = V_T and tau = n_steps where asked.
 __global__ void __launch_bounds__(kThreads)
-maturity_kernel(const float* __restrict__ S, float* __restrict__ V, int n_paths,
-                float strike, float phi) {
+maturity_kernel(const float* __restrict__ S, float* __restrict__ V, float* __restrict__ cf,
+                float* __restrict__ tau, int n_steps, int n_paths, float strike, float phi) {
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_paths; i += gridDim.x * kThreads) {
-    V[i] = fmaxf(phi * (S[i] - strike), 0.0f);
+    const float v = fmaxf(phi * (S[i] - strike), 0.0f);
+    V[i] = v;
+    if (cf != nullptr) {
+      cf[i] = v;
+      tau[i] = static_cast<float>(n_steps);
+    }
   }
 }
 
@@ -265,9 +187,10 @@ solve_kernel(const double* __restrict__ partials, int n_blocks, float* __restric
 
 template <int K>
 __global__ void __launch_bounds__(kThreads)
-apply_kernel(const float* __restrict__ S, float* __restrict__ V,
-             const float* __restrict__ stats, const float* __restrict__ coeffs_row,
-             int t, int n_steps, int n_paths, float strike, float phi, int basis) {
+apply_kernel(const float* __restrict__ S, float* __restrict__ V, float* __restrict__ cf,
+             float* __restrict__ tau, const float* __restrict__ stats,
+             const float* __restrict__ coeffs_row, int t, int n_steps, int n_paths,
+             float strike, float phi, int basis) {
   const int T1 = n_steps + 1;
   const float mean = stats[t];
   const float inv_std = stats[T1 + t];
@@ -288,7 +211,13 @@ apply_kernel(const float* __restrict__ S, float* __restrict__ V,
     const float cont = fitted > 0.0f ? fitted : (fitted != fitted ? fitted : 0.0f);
     const float ex = fmaxf(phi * (s - strike), 0.0f);
     // ex > cont implies ex > 0 (cont >= 0): the ITM clause is implied
-    if (ex > cont) V[i] = ex * inv_c_t;
+    if (ex > cont) {
+      V[i] = ex * inv_c_t;
+      if (cf != nullptr) {
+        cf[i] = ex;
+        tau[i] = static_cast<float>(t);
+      }
+    }
   }
 }
 
@@ -311,20 +240,14 @@ final_sum_kernel(const double* __restrict__ partials, int n_blocks, float* __res
   sum_partials<2>(partials, n_blocks, sums);
 }
 
-#define AMCX_LAUNCH_CHECK()                      \
-  do {                                           \
-    const cudaError_t err_ = cudaGetLastError(); \
-    if (err_ != cudaSuccess) return err_;        \
-  } while (0)
-
 template <int K>
-cudaError_t run_mega(const float* paths, const float* stats, float* V, double* partials,
-                     float* coeffs, float* sums, int n_steps, int n_paths, int n_blocks,
-                     float strike, float phi, float rcond, int basis, int american,
-                     int itm_weights, cudaStream_t stream) {
+cudaError_t run_mega(const float* paths, const float* stats, float* V, float* cf, float* tau,
+                     double* partials, float* coeffs, float* sums, int n_steps, int n_paths,
+                     int n_blocks, float strike, float phi, float rcond, int basis,
+                     int american, int itm_weights, cudaStream_t stream) {
   const size_t row = static_cast<size_t>(n_paths);
   maturity_kernel<<<n_blocks, kThreads, 0, stream>>>(
-      paths + static_cast<size_t>(n_steps) * row, V, n_paths, strike, phi);
+      paths + static_cast<size_t>(n_steps) * row, V, cf, tau, n_steps, n_paths, strike, phi);
   AMCX_LAUNCH_CHECK();
   for (int t = n_steps - 1; t >= 0; --t) {
     const float* S_t = paths + static_cast<size_t>(t) * row;
@@ -338,7 +261,7 @@ cudaError_t run_mega(const float* paths, const float* stats, float* V, double* p
     // time-T-units carry needs no update at all
     if (american) {
       apply_kernel<K><<<n_blocks, kThreads, 0, stream>>>(
-          S_t, V, stats, coeffs_row, t, n_steps, n_paths, strike, phi, basis);
+          S_t, V, cf, tau, stats, coeffs_row, t, n_steps, n_paths, strike, phi, basis);
       AMCX_LAUNCH_CHECK();
     }
   }
@@ -351,22 +274,24 @@ cudaError_t run_mega(const float* paths, const float* stats, float* V, double* p
 }  // namespace
 
 // paths (n_steps+1, n_paths) f32; stats 4 (n_steps+1) f32 rows
-// [mean_t, inv_std_t, c_t, 1/c_t]; V (n_paths) scratch; partials
-// (n_blocks, max(P, 2)) f64 scratch; coeffs (n_steps+1, degree+1), zeroed by the
-// caller (the maturity row stays 0); sums (2) out. Returns a cudaError_t.
-extern "C" int amcx_lsmc_mega(const float* paths, const float* stats, float* V,
-                              double* partials, float* coeffs, float* sums, int n_steps,
-                              int n_paths, int n_blocks, float strike, float phi,
-                              float rcond, int basis, int degree, int american,
+// [mean_t, inv_std_t, c_t, 1/c_t]; V (n_paths) scratch; cf, tau (n_paths)
+// out, or both null; partials (n_blocks, max(P, 2)) f64 scratch; coeffs
+// (n_steps+1, degree+1), zeroed by the caller (the maturity row stays 0);
+// sums (2) out. Returns a cudaError_t.
+extern "C" int amcx_lsmc_mega(const float* paths, const float* stats, float* V, float* cf,
+                              float* tau, double* partials, float* coeffs, float* sums,
+                              int n_steps, int n_paths, int n_blocks, float strike,
+                              float phi, float rcond, int basis, int degree, int american,
                               int itm_weights, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_steps < 1 || n_paths < 1 || n_blocks < 1 || basis < 0 || basis > 4) {
+  if (n_steps < 1 || n_paths < 1 || n_blocks < 1 || basis < 0 || basis > 4 ||
+      (cf == nullptr) != (tau == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-#define AMCX_MEGA_CASE(KK)                                                              \
-  case KK:                                                                              \
-    return static_cast<int>(run_mega<KK>(paths, stats, V, partials, coeffs, sums,       \
-                                         n_steps, n_paths, n_blocks, strike, phi, rcond, \
+#define AMCX_MEGA_CASE(KK)                                                                \
+  case KK:                                                                                \
+    return static_cast<int>(run_mega<KK>(paths, stats, V, cf, tau, partials, coeffs, sums, \
+                                         n_steps, n_paths, n_blocks, strike, phi, rcond,   \
                                          basis, american, itm_weights, s));
   switch (degree + 1) {
     AMCX_MEGA_CASE(1)

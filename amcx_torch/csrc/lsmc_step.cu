@@ -1,0 +1,223 @@
+// One backward step of the fused LSMC engine as two passes over the step's
+// path rows: the regression moments (amcx_step_moments) and the exercise
+// apply (amcx_step_apply). The k x k solve between them stays in torch
+// (amcx_torch.regress.pinv_solve), as amcx leaves it to XLA.
+//
+// Replaces: amcx/ops/lsmc_pallas.py::_moments_kernel (via step_moments) and
+// amcx/ops/lsmc_pallas.py::_apply_kernel (via step_apply).
+//
+// Moments, per path i of row t (time-major, any n_paths):
+//   y = cf * expf(-rdt * (tau - t)), x = (S - mean_t) * inv_std_t, the basis
+//   by recurrence, w = 1[phi(S-K) > 0] * knocked (forced to 1 where the
+//   step's use_w flag is 0; no w at all for all-paths fits), and the
+//   P = k(k+1)/2 + k explicit-pair moments sum w B_a B_b (a <= b) and
+//   sum w y B_a, accumulated in f64 per thread and rounded once to f32.
+// Apply, per path: cont = max(sum c_a B_a(x), 0) (a NaN fit stays NaN);
+//   where ex = max(phi(S-K), 0) > cont, the path is knocked and the step is
+//   an exercise date, cf <- ex and tau <- t IN PLACE (amcx donates these
+//   buffers); with a surface row, cont is written to it.
+//
+// Bound on the H100: device-memory traffic. Per step the moments read S_t,
+// cf and tau (and the 1-byte knocked row) and the apply reads them again
+// and writes cf and tau only where a path exercises, plus the 4-byte
+// surface row when asked: about 25 B per path-step, ~2.6 GB per 1M x 100
+// induction, ~0.8 ms at 3.35 TB/s; at 1M paths a step's rows (12-16 MB)
+// mostly stay in the 50 MB L2 between the two passes. The per-step Gram is
+// a grid-wide dependency and the solve runs on the host's stream between
+// the passes, so launches and the solve's small torch ops bound the step,
+// not DRAM. Design: as csrc/lsmc_mega.cu (shared helpers in
+// lsmc_common.cuh) - grid-stride loops, P f64 sums in registers, a
+// fixed-order block reduction into per-block partial rows, then a one-block
+// fixed-order sum that writes the packed (P,) f32 vector; no float atomics,
+// so two runs give identical bits, and with -fmad=false the kernel and its
+// plain version (ops/lsmc_pallas.py) agree to the bit on the card. The
+// per-step scalars (mean_t, inv_std_t, use_w_t, allow_t) come from a device
+// array, so the host loop never reads a value back. The TPU's (rows, 512)
+// layout and its n_paths % 4096 rule are dropped.
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+#include "lsmc_common.cuh"
+
+namespace {
+
+using namespace amcx;
+
+// stats: four (n_steps+1) f32 rows [mean_t, inv_std_t, use_w_t, allow_t].
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+step_moments_kernel(const float* __restrict__ S, const float* __restrict__ cf,
+                    const float* __restrict__ tau, const uint8_t* __restrict__ knocked,
+                    const float* __restrict__ stats, double* __restrict__ partials, int t,
+                    int n_steps, int n_paths, float rdt, float strike, float phi, int basis,
+                    int itm_weights) {
+  constexpr int P = Layout<K>::kMoments;
+  constexpr int kPairs = Layout<K>::kPairs;
+  const int T1 = n_steps + 1;
+  const float mean = stats[t];
+  const float inv_std = stats[T1 + t];
+  const bool use_w = itm_weights && stats[2 * T1 + t] > 0.0f;
+  const float tf = static_cast<float>(t);
+  double acc[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) acc[p] = 0.0;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_paths; i += gridDim.x * kThreads) {
+    const float s = S[i];
+    const float y = cf[i] * expf(-rdt * (tau[i] - tf));
+    const float xhat = (s - mean) * inv_std;
+    // w is 0 or 1, so multiplying by it is exact: the all-paths fit (w = 1)
+    // rounds as the plain version's unweighted products
+    float w = 1.0f;
+    if (use_w) {
+      w = fmaxf(phi * (s - strike), 0.0f) > 0.0f ? 1.0f : 0.0f;
+      if (knocked != nullptr && knocked[i] == 0) w = 0.0f;
+    }
+    float cols[K];
+    basis_cols<K>(xhat, basis, cols);
+    const float yw = y * w;
+#pragma unroll
+    for (int a = 0; a < K; ++a) {
+      const float ca = cols[a] * w;
+#pragma unroll
+      for (int b = a; b < K; ++b) acc[pair_index(K, a, b)] += static_cast<double>(ca * cols[b]);
+    }
+#pragma unroll
+    for (int a = 0; a < K; ++a) acc[kPairs + a] += static_cast<double>(cols[a] * yw);
+  }
+  block_reduce_store<P>(acc, partials + static_cast<size_t>(blockIdx.x) * P);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+moments_sum_kernel(const double* __restrict__ partials, int n_blocks, float* __restrict__ packed) {
+  sum_partials<Layout<K>::kMoments>(partials, n_blocks, packed);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+step_apply_kernel(const float* __restrict__ S, float* __restrict__ cf, float* __restrict__ tau,
+                  const uint8_t* __restrict__ knocked, const float* __restrict__ stats,
+                  const float* __restrict__ coeffs, float* __restrict__ surface_row, int t,
+                  int n_steps, int n_paths, float strike, float phi, int basis, int select) {
+  const int T1 = n_steps + 1;
+  const float mean = stats[t];
+  const float inv_std = stats[T1 + t];
+  const bool exercise = select && stats[3 * T1 + t] > 0.0f;
+  const float tf = static_cast<float>(t);
+  float coef[K];
+#pragma unroll
+  for (int a = 0; a < K; ++a) coef[a] = coeffs[a];
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_paths; i += gridDim.x * kThreads) {
+    const float s = S[i];
+    const float xhat = (s - mean) * inv_std;
+    float cols[K];
+    basis_cols<K>(xhat, basis, cols);
+    float fitted = cols[0] * coef[0];
+#pragma unroll
+    for (int a = 1; a < K; ++a) fitted = fitted + cols[a] * coef[a];
+    // max(fitted, 0) that keeps a NaN fit NaN (then no path exercises), as
+    // torch.clamp_min and jnp.maximum do; fmaxf would return 0
+    const float cont = fitted > 0.0f ? fitted : (fitted != fitted ? fitted : 0.0f);
+    if (surface_row != nullptr) surface_row[i] = cont;
+    if (exercise) {
+      const float ex = fmaxf(phi * (s - strike), 0.0f);
+      // ex > cont implies ex > 0 (cont >= 0): the ITM clause is implied
+      if (ex > cont && (knocked == nullptr || knocked[i] != 0)) {
+        cf[i] = ex;
+        tau[i] = tf;
+      }
+    }
+  }
+}
+
+template <int K>
+cudaError_t run_moments(const float* S, const float* cf, const float* tau, const uint8_t* knocked,
+                        const float* stats, double* partials, float* packed, int t, int n_steps,
+                        int n_paths, int n_blocks, float rdt, float strike, float phi, int basis,
+                        int itm_weights, cudaStream_t stream) {
+  step_moments_kernel<K><<<n_blocks, kThreads, 0, stream>>>(
+      S, cf, tau, knocked, stats, partials, t, n_steps, n_paths, rdt, strike, phi, basis,
+      itm_weights);
+  AMCX_LAUNCH_CHECK();
+  moments_sum_kernel<K><<<1, kThreads, 0, stream>>>(partials, n_blocks, packed);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t run_apply(const float* S, float* cf, float* tau, const uint8_t* knocked,
+                      const float* stats, const float* coeffs, float* surface_row, int t,
+                      int n_steps, int n_paths, int n_blocks, float strike, float phi, int basis,
+                      int select, cudaStream_t stream) {
+  step_apply_kernel<K><<<n_blocks, kThreads, 0, stream>>>(
+      S, cf, tau, knocked, stats, coeffs, surface_row, t, n_steps, n_paths, strike, phi, basis,
+      select);
+  return cudaGetLastError();
+}
+
+bool bad_args(int t, int n_steps, int n_paths, int n_blocks, int basis) {
+  return n_steps < 1 || t < 0 || t >= n_steps || n_paths < 1 || n_blocks < 1 || basis < 0 ||
+         basis > 4;
+}
+
+}  // namespace
+
+#define AMCX_DEGREE_SWITCH(CALL) \
+  switch (degree + 1) {          \
+    CALL(1)                      \
+    CALL(2)                      \
+    CALL(3)                      \
+    CALL(4)                      \
+    CALL(5)                      \
+    CALL(6)                      \
+    CALL(7)                      \
+    CALL(8)                      \
+    CALL(9)                      \
+    CALL(10)                     \
+    CALL(11)                     \
+    default:                     \
+      return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
+// Row t of the paths, cf, tau (n_paths) f32; knocked (n_paths) bytes or
+// null; stats 4 (n_steps+1) f32 rows; partials (n_blocks, P) f64 scratch;
+// packed (P) f32 out. Returns a cudaError_t.
+extern "C" int amcx_step_moments(const float* S, const float* cf, const float* tau,
+                                 const unsigned char* knocked, const float* stats,
+                                 double* partials, float* packed, int t, int n_steps, int n_paths,
+                                 int n_blocks, float rdt, float strike, float phi, int basis,
+                                 int degree, int itm_weights, void* stream) {
+  if (bad_args(t, n_steps, n_paths, n_blocks, basis)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define AMCX_MOMENTS_CASE(KK)                                                              \
+  case KK:                                                                                 \
+    return static_cast<int>(run_moments<KK>(S, cf, tau, knocked, stats, partials, packed, t, \
+                                            n_steps, n_paths, n_blocks, rdt, strike, phi,  \
+                                            basis, itm_weights, s));
+  AMCX_DEGREE_SWITCH(AMCX_MOMENTS_CASE)
+#undef AMCX_MOMENTS_CASE
+}
+
+// Row t of the paths (n_paths) f32; cf, tau (n_paths) f32, updated in place;
+// knocked as above; coeffs (degree+1) f32 on the device; surface_row
+// (n_paths) f32 out or null; select 0 runs the fit for the surface only
+// (European). Returns a cudaError_t.
+extern "C" int amcx_step_apply(const float* S, float* cf, float* tau, const unsigned char* knocked,
+                               const float* stats, const float* coeffs, float* surface_row, int t,
+                               int n_steps, int n_paths, int n_blocks, float strike, float phi,
+                               int basis, int degree, int select, void* stream) {
+  if (bad_args(t, n_steps, n_paths, n_blocks, basis)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define AMCX_APPLY_CASE(KK)                                                                   \
+  case KK:                                                                                    \
+    return static_cast<int>(run_apply<KK>(S, cf, tau, knocked, stats, coeffs, surface_row, t, \
+                                          n_steps, n_paths, n_blocks, strike, phi, basis,     \
+                                          select, s));
+  AMCX_DEGREE_SWITCH(AMCX_APPLY_CASE)
+#undef AMCX_APPLY_CASE
+}

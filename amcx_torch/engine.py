@@ -4,7 +4,8 @@
 ``lax.scan`` step for step; it is the port's in-package reference engine
 (``engine="xla"`` keeps amcx's name, so callers switch packages without
 renaming). ``engine="mega"`` runs the pathgen and induction kernels of
-`amcx_torch.ops`.
+`amcx_torch.ops`; ``engine="fused"`` the per-step kernels of
+`amcx_torch.engine_pallas`.
 
 Behavioural parity points (amcx's SURVEY quirks):
 
@@ -208,11 +209,14 @@ def price_option(
 ) -> LSMCResult:
     """Simulate → price on ``device``.
 
-    ``engine``: ``"xla"`` (the reference loop engine of this module) or
-    ``"mega"`` (the pathgen and induction kernels; plain versions on the
-    CPU). ``"fused"`` and ``"fusedpath"`` are not ported yet. ``seed``: an
-    integer (either simulator) or a ``torch.Generator`` (``"torch"``
-    backend). ``return_coeffs`` fills ``coeffs``.
+    ``engine``: ``"xla"`` (the reference loop engine of this module),
+    ``"fused"`` (the per-step moments/apply kernels) or ``"mega"`` (the
+    induction kernel); the kernels run their plain versions on the CPU.
+    ``"fusedpath"`` is not ported yet. ``seed``: an integer (either
+    simulator) or a ``torch.Generator`` (``"torch"`` backend).
+    ``return_coeffs`` fills ``coeffs`` ("xla", "mega"); ``return_cf_tau``
+    fills ``cashflows``/``exercise_times`` for "mega" ("xla" and "fused"
+    always return them).
     """
     from .paths import gbm_standardization, simulate_gbm
 
@@ -223,8 +227,16 @@ def price_option(
     if exercise_steps is not None:
         exercise_steps = tuple(int(i) for i in exercise_steps)
     if engine == "fused":
-        raise NotImplementedError(
-            "engine='fused' is not ported yet (ROADMAP A7 / B3)")
+        from .engine_pallas import lsmc_option_pricing_fused
+        from .paths import simulate_gbm
+
+        if return_coeffs:
+            raise ValueError("engine='fused' does not export coeffs; use 'xla' or 'mega'")
+        paths = simulate_gbm(seed, market, product.T, sim, device)
+        return lsmc_option_pricing_fused(paths, product, market.r, spec,
+                                         return_surface=return_surface,
+                                         exercise_steps=exercise_steps,
+                                         antithetic=sim.antithetic)
     if engine == "fusedpath":
         raise NotImplementedError(
             "engine='fusedpath' is not ported yet (ROADMAP A10 / B5)")
@@ -233,7 +245,7 @@ def price_option(
 
         if return_surface:
             raise ValueError(
-                "engine='mega' is price-only for dense surfaces; use engine='xla'")
+                "engine='mega' is price-only for dense surfaces; use 'fused' or 'xla'")
         n_steps = sim.n_steps
         mean_t, inv_std_t = gbm_standardization(market, product.T, n_steps, device=device)
         paths = simulate_gbm(seed, market, product.T, sim, device)
@@ -247,8 +259,9 @@ def price_option(
             exercise_steps=exercise_steps, return_cf_tau=return_cf_tau,
             return_coeffs=return_coeffs, antithetic=sim.antithetic,
         )
-        if return_coeffs:
-            return LSMCResult(out.price, out.stderr, None, None, None, coeffs=out.coeffs)
+        if return_cf_tau or return_coeffs:
+            return LSMCResult(out.price, out.stderr, out.cashflows, out.exercise_times, None,
+                              coeffs=out.coeffs)
         return LSMCResult(out[0], out[1], None, None, None)
     if engine != "xla":
         raise ValueError(f"engine must be 'xla', 'fused', 'mega', or 'fusedpath', got {engine!r}")

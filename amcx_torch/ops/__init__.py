@@ -4,5 +4,7 @@ first use) with their plain-torch versions.
 - `amcx_torch.ops.gbm`: Philox GBM pathgen (``csrc/gbm.cu``);
 - `amcx_torch.ops.lsmc_megakernel`: LSMC backward induction
   (``csrc/lsmc_mega.cu``);
+- `amcx_torch.ops.lsmc_pallas`: the fused engine's per-step moments and
+  apply kernels (``csrc/lsmc_step.cu``);
 - `amcx_torch.ops._build`: the ``nvcc`` build and ``ctypes`` loader.
 """

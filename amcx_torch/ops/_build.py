@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``amcx_torch/csrc/*.cu`` is compiled by ONE ``nvcc`` call into a
-shared library with a plain C interface, at first use, into
-``amcx_torch/build/`` (named by a hash of the sources and flags, so an edit
-rebuilds and an unchanged tree reuses the library). The library is loaded
-with ``ctypes``. Nothing here runs at import: importing the port never
-touches CUDA or ``nvcc``.
+Each ``amcx_torch/csrc/*.cu`` is compiled into a shared library of its own
+with a plain C interface, at first use, into ``amcx_torch/build/`` (named by
+a hash of that source, the shared headers and the flags, so an edit rebuilds
+and an unchanged tree reuses the library). The ``nvcc`` processes of all
+missing libraries are started together and run in parallel. The libraries
+are loaded with ``ctypes``. Nothing here runs at import: importing the port
+never touches CUDA or ``nvcc``.
 
 No ``--use_fast_math``: it swaps ``expf``/``logf``/division for
 approximations, and the induction's exercise boundaries flip on f32 noise
@@ -29,7 +30,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "library", "function", "check", "build_info"]
+__all__ = ["NVCC_FLAGS", "libraries", "function", "check", "build_info"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -37,7 +38,7 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-build_info = {"seconds": None, "path": None, "built": None}
+build_info = {"seconds": None, "paths": None, "built": None}
 
 
 def _nvcc() -> str:
@@ -51,51 +52,59 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
-
-
-def _digest() -> str:
+def _digest(src: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    cu, cuh = _sources()
-    for f in cu + cuh:
+    for f in [src, *sorted(CSRC.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library."""
+def libraries() -> dict:
+    """Build (if needed) and load every kernel library: source stem → CDLL."""
     t0 = time.perf_counter()
-    out = BUILD_DIR / f"libamcx_torch_{_digest()}.so"
-    built = False
-    if not out.exists():
+    outs = {src: BUILD_DIR / f"lib{src.stem}_{_digest(src)}.so"
+            for src in sorted(CSRC.glob("*.cu"))}
+    jobs = []
+    for src, out in outs.items():
+        if out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu, _ = _sources()
         # build to a temporary name, then rename: a concurrent or cut-off
         # build never leaves a half-written library under the final name
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((cmd, tmp, out, proc))
+    failures = []
+    for cmd, tmp, out, proc in jobs:  # wait for every process before raising
+        stdout, stderr = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-        built = True
-    lib = ctypes.CDLL(str(out))
-    lib.amcx_error_string.argtypes = [ctypes.c_int]
-    lib.amcx_error_string.restype = ctypes.c_char_p
-    build_info.update(seconds=time.perf_counter() - t0, path=str(out), built=built)
-    return lib
+            failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    libs = {src.stem: ctypes.CDLL(str(out)) for src, out in outs.items()}
+    build_info.update(seconds=time.perf_counter() - t0,
+                      paths=[str(out) for out in outs.values()], built=bool(jobs))
+    return libs
+
+
+def _symbol(name: str):
+    for lib in libraries().values():
+        if hasattr(lib, name):
+            return getattr(lib, name)
+    raise RuntimeError(f"no kernel library exports {name}")
 
 
 def function(name: str, argtypes):
     """The C entry ``name`` with its ``argtypes`` declared (pointers and the
     stream as ``c_void_p``, so ctypes never truncates them to 32 bits)."""
-    fn = getattr(library(), name)
+    fn = _symbol(name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
@@ -104,5 +113,7 @@ def function(name: str, argtypes):
 def check(rc: int, name: str) -> None:
     """Raise if a C entry reported a CUDA error."""
     if rc != 0:
-        msg = library().amcx_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+        err = _symbol("amcx_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name}: CUDA error {rc} ({err(rc).decode()})")

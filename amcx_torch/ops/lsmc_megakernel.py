@@ -38,11 +38,16 @@ _MAX_BLOCKS = 1024
 
 
 class MegaOutputs(NamedTuple):
-    """``price``/``stderr`` 0-d tensors and the ``(n_steps+1, degree+1)``
-    per-step solved coefficients (zeros at the maturity row)."""
+    """``price``/``stderr`` 0-d tensors; the ``(n_paths,)`` undiscounted
+    ``cashflows`` and ``exercise_times`` planes (SURVEY Q5/Q7, the
+    contract of `amcx_torch.engine.LSMCResult`); and the ``(n_steps+1,
+    degree+1)`` per-step solved coefficients (zeros at the maturity row).
+    amcx's field order."""
 
     price: torch.Tensor
     stderr: torch.Tensor
+    cashflows: Optional[torch.Tensor] = None
+    exercise_times: Optional[torch.Tensor] = None
     coeffs: Optional[torch.Tensor] = None
 
 
@@ -117,13 +122,19 @@ def _solve_equilibrated_ridge(packed, k, rcond):
     return _solve_factored(L, d, Gnr, [packed[off + i] for i in range(k)], k)
 
 
-def _mega_reference(paths, stats, K, phi, rcond, basis, degree, american, itm_weights):
-    """Plain-torch induction; returns ``(sums (2,), coeffs (T+1, k), V)``
-    with ``V`` the final per-path carry in time-T units."""
+def _mega_reference(paths, stats, K, phi, rcond, basis, degree, american, itm_weights,
+                    cf_tau=False):
+    """Plain-torch induction; returns ``(sums (2,), coeffs (T+1, k), V, cf,
+    tau)`` with ``V`` the final per-path carry in time-T units and the
+    cf/τ planes (None unless ``cf_tau``)."""
     n_steps = paths.shape[0] - 1
     k = degree + 1
     mean_t, inv_std_t, c, inv_c = stats.view(4, n_steps + 1)
     V = torch.clamp_min(phi * (paths[n_steps] - K), 0.0)
+    cf = tau = None
+    if cf_tau:
+        cf = V.clone()
+        tau = torch.full_like(V, float(n_steps))
     coeffs = torch.zeros((n_steps + 1, k), dtype=torch.float32, device=paths.device)
     for t in range(n_steps - 1, -1, -1):
         S = paths[t]
@@ -146,9 +157,13 @@ def _mega_reference(paths, stats, K, phi, rcond, basis, degree, american, itm_we
             for a in range(1, k):
                 fitted = fitted + cols[a] * coef[a]
             cont = torch.clamp_min(fitted, 0.0)
-            V = torch.where(ex > cont, ex * inv_c[t], V)
+            mask = ex > cont
+            V = torch.where(mask, ex * inv_c[t], V)
+            if cf_tau:
+                cf = torch.where(mask, ex, cf)
+                tau = torch.where(mask, float(t), tau)
     v = c[0] * V
-    return torch.stack([_sum_once_rounded(v), _sum_once_rounded(v * v)]), coeffs, V
+    return torch.stack([_sum_once_rounded(v), _sum_once_rounded(v * v)]), coeffs, V, cf, tau
 
 
 def _sum_once_rounded(x: torch.Tensor) -> torch.Tensor:
@@ -156,7 +171,8 @@ def _sum_once_rounded(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x, dtype=torch.float64).to(torch.float32)
 
 
-def _mega_cuda(paths, stats, K, phi, rcond, basis, degree, american, itm_weights):
+def _mega_cuda(paths, stats, K, phi, rcond, basis, degree, american, itm_weights,
+               cf_tau=False):
     from . import _build
 
     n_steps = paths.shape[0] - 1
@@ -165,20 +181,26 @@ def _mega_cuda(paths, stats, K, phi, rcond, basis, degree, american, itm_weights
     dev = paths.device
     n_blocks = max(1, min(_MAX_BLOCKS, -(-n_paths // _THREADS)))
     V = torch.empty(n_paths, dtype=torch.float32, device=dev)
+    cf = tau = None
+    if cf_tau:
+        cf = torch.empty(n_paths, dtype=torch.float32, device=dev)
+        tau = torch.empty(n_paths, dtype=torch.float32, device=dev)
     partials = torch.empty(n_blocks * max(_n_moments(degree), 2), dtype=torch.float64,
                            device=dev)
     coeffs = torch.zeros((n_steps + 1, k), dtype=torch.float32, device=dev)
     sums = torch.empty(2, dtype=torch.float32, device=dev)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _build.function("amcx_lsmc_mega", [P, P, P, P, P, P, I, I, I, F, F, F, I, I, I, I, P])
+    fn = _build.function("amcx_lsmc_mega",
+                         [P, P, P, P, P, P, P, P, I, I, I, F, F, F, I, I, I, I, P])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(paths.data_ptr(), stats.data_ptr(), V.data_ptr(), partials.data_ptr(),
-            coeffs.data_ptr(), sums.data_ptr(), n_steps, n_paths, n_blocks,
+    rc = fn(paths.data_ptr(), stats.data_ptr(), V.data_ptr(),
+            None if cf is None else cf.data_ptr(), None if tau is None else tau.data_ptr(),
+            partials.data_ptr(), coeffs.data_ptr(), sums.data_ptr(), n_steps, n_paths, n_blocks,
             float(K), float(phi), float(rcond), BASIS_IDS[basis], degree,
             int(american), int(itm_weights), stream)
     lsmc_price_megakernel.launches += 1
     _build.check(rc, "amcx_lsmc_mega")
-    return sums, coeffs, V
+    return sums, coeffs, V, cf, tau
 
 
 def _data_standardization(paths, K, phi, itm_weights):
@@ -242,7 +264,8 @@ def lsmc_price_megakernel(
     :func:`_mega_reference`. ``mean_t``/``inv_std_t``: per-step
     standardization (computed from the paths when omitted). Returns
     ``(price, stderr)`` 0-d tensors, or :class:`MegaOutputs` with the
-    per-step coefficients when ``return_coeffs``.
+    per-step coefficients (``return_coeffs``) and the undiscounted cashflow
+    and exercise-time planes (``return_cf_tau``).
     ``lsmc_price_megakernel.launches`` counts kernel launches.
     """
     dev = torch.device(paths_tm.device)
@@ -273,8 +296,6 @@ def _price(run, paths_tm, K, r, dt, phi, basis="chebyshev", degree=4, rcond=1e-6
         _not_ported("the mega kernel's exercise_steps schedule", "B2 options")
     if replay_coeffs is not None:
         _not_ported("the mega kernel's replay_coeffs mode", "B2 options / A8")
-    if return_cf_tau:
-        _not_ported("the mega kernel's cf/tau planes", "B2 options / A8")
     if antithetic:
         _not_ported("the mega kernel's antithetic pair folding", "B2 options")
     if isinstance(r, torch.Tensor) and r.ndim > 0:
@@ -296,11 +317,11 @@ def _price(run, paths_tm, K, r, dt, phi, basis="chebyshev", degree=4, rcond=1e-6
     if mean_t is None or inv_std_t is None:
         mean_t, inv_std_t = _data_standardization(paths, K, phi, itm_weights)
     stats = mega_stats(mean_t, inv_std_t, r, dt, n_steps, paths.device)
-    sums, coeffs, _ = run(paths, stats, K, phi, float(rcond), basis, degree,
-                          bool(american), bool(itm_weights))
+    sums, coeffs, _, cf, tau = run(paths, stats, K, phi, float(rcond), basis, degree,
+                                   bool(american), bool(itm_weights), bool(return_cf_tau))
     price = sums[0] / n_paths
     var = torch.clamp_min(sums[1] / n_paths - price * price, 0.0)
     stderr = torch.sqrt(var / n_paths)
-    if return_coeffs:
-        return MegaOutputs(price, stderr, coeffs)
+    if return_coeffs or return_cf_tau:
+        return MegaOutputs(price, stderr, cf, tau, coeffs if return_coeffs else None)
     return price, stderr

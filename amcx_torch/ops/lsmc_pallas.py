@@ -1,0 +1,231 @@
+"""The fused engine's step kernels: wrappers and their plain versions.
+
+Port of `amcx.ops.lsmc_pallas` (``_moments_kernel`` via
+:func:`step_moments`, ``_apply_kernel`` via :func:`step_apply`). The
+kernels live in ``amcx_torch/csrc/lsmc_step.cu``; ``step_moments_reference``
+and ``step_apply_reference`` compute the same functions in plain torch, in
+the kernels' operation order, with the moments summed in f64 and rounded
+once to f32 (so on the card kernel and plain version agree to the bit; see
+the note at the top of that file).
+
+Deviations from amcx, none of which changes a value:
+
+- Time-major rows: each step reads row t of the ``(n_steps+1, n_paths)``
+  paths and the ``(n_paths,)`` cf/τ carry, for any ``n_paths``. amcx's
+  ``(rows, 512)`` layout and its ``n_paths % 4096`` rule are dropped.
+- The per-step scalars come from a ``(4, n_steps+1)`` f32 device array of
+  rows ``[mean_t, inv_std_t, use_w_t, allow_t]`` (:func:`step_stats`) and
+  the step index ``t``, in place of amcx's ``(7,)`` scalar vector, so the
+  host loop never reads a value back. ``allow_t`` is the Bermudan gate
+  (1 on exercise dates) that amcx applies with a ``where`` outside the
+  kernel; the result is the same.
+- The knocked row is a bool tensor (amcx: an f32 0/1 plane).
+- :func:`step_apply` updates ``cf``/``tau`` in place, as amcx donates them
+  (``input_output_aliases``), and writes the clamped continuation into a
+  caller's surface row in place of returning it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ..basis import BASIS_IDS, basis_cols
+from .lsmc_megakernel import MAX_DEGREE, _pairs, _sum_once_rounded
+
+__all__ = ["pack_dim", "unpack_moments", "step_stats", "step_moments",
+           "step_moments_reference", "step_apply", "step_apply_reference"]
+
+_THREADS = 256  # csrc/lsmc_common.cuh kThreads
+_MAX_BLOCKS = 1024
+
+
+def pack_dim(k: int) -> int:
+    """Length of the packed moment vector: upper-triangular Gram + rhs."""
+    return k * (k + 1) // 2 + k
+
+
+@functools.lru_cache(maxsize=None)
+def _gram_index(k: int, device: torch.device) -> torch.Tensor:
+    # built once per (k, device): a host-to-device copy per step would wait
+    # for the stream
+    idx = {p: n for n, p in enumerate(_pairs(k))}
+    return torch.tensor([[idx[(min(i, j), max(i, j))] for j in range(k)] for i in range(k)],
+                        dtype=torch.long, device=device)
+
+
+def unpack_moments(packed: torch.Tensor, k: int):
+    """Packed vector → symmetric Gram ``(k, k)`` + rhs ``(k,)``."""
+    n_pairs = k * (k + 1) // 2
+    return packed[_gram_index(k, packed.device)], packed[n_pairs:n_pairs + k]
+
+
+def step_stats(mean_t, inv_std_t, use_w_t, allow_t) -> torch.Tensor:
+    """The kernels' per-step rows ``[mean_t, inv_std_t, use_w_t, allow_t]``
+    as one contiguous ``(4, n_steps+1)`` f32 tensor."""
+    return torch.stack([torch.as_tensor(v, dtype=torch.float32, device=mean_t.device)
+                        for v in (mean_t, inv_std_t, use_w_t, allow_t)]).contiguous()
+
+
+def _weights(S, knocked, use_w, K, phi):
+    w = (torch.clamp_min(phi * (S - K), 0.0) > 0.0).to(torch.float32)
+    if knocked is not None:
+        w = w * knocked.to(torch.float32)
+    return torch.where(use_w > 0.0, w, 1.0)
+
+
+def step_moments_reference(stats, t: int, S, cf, tau, knocked=None, *, rdt: float, K: float,
+                           phi: float, basis: str = "chebyshev", degree: int = 4,
+                           itm_weights: bool = False) -> torch.Tensor:
+    """Plain-torch version of :func:`step_moments` on any device."""
+    k = degree + 1
+    y = cf * torch.exp(-rdt * (tau - float(t)))
+    xhat = (S - stats[0, t]) * stats[1, t]
+    cols = basis_cols(xhat, basis, degree)
+    if itm_weights:
+        w = _weights(S, knocked, stats[2, t], K, phi)
+        cols_w, yw = [c * w for c in cols], y * w
+    else:
+        cols_w, yw = cols, y
+    packed = [_sum_once_rounded(cols_w[a] * cols[b]) for a, b in _pairs(k)]
+    packed += [_sum_once_rounded(cols[a] * yw) for a in range(k)]
+    return torch.stack(packed)
+
+
+def step_apply_reference(stats, t: int, coeffs, S, cf, tau, knocked=None, *, K: float,
+                         phi: float, basis: str = "chebyshev", degree: int = 4,
+                         select: bool = True, surface: Optional[torch.Tensor] = None):
+    """Plain-torch version of :func:`step_apply` on any device (also in
+    place)."""
+    cols = basis_cols((S - stats[0, t]) * stats[1, t], basis, degree)
+    fitted = cols[0] * coeffs[0]
+    for a in range(1, degree + 1):
+        fitted = fitted + cols[a] * coeffs[a]
+    cont = torch.clamp_min(fitted, 0.0)  # Q2; a NaN fit stays NaN
+    if surface is not None:
+        surface.copy_(cont)
+    if select:
+        ex = torch.clamp_min(phi * (S - K), 0.0)
+        mask = (ex > cont) & (stats[3, t] > 0.0)
+        if knocked is not None:
+            mask = mask & knocked
+        cf.copy_(torch.where(mask, ex, cf))
+        tau.copy_(torch.where(mask, float(t), tau))
+    return (cf, tau) if surface is None else (cf, tau, surface)
+
+
+def _check_cuda(stats, t, basis, degree, rows, knocked):
+    dev = stats.device
+    if basis not in BASIS_IDS:
+        raise ValueError(f"Unknown basis type {basis!r}")
+    if not 0 <= degree <= MAX_DEGREE:
+        raise ValueError(f"degree must lie in 0..{MAX_DEGREE}, got {degree}")
+    if stats.dtype != torch.float32 or stats.ndim != 2 or stats.shape[0] != 4 \
+            or not stats.is_contiguous():
+        raise ValueError(f"stats must be contiguous (4, n_steps+1) float32, got "
+                         f"{tuple(stats.shape)} {stats.dtype}")
+    n_steps = stats.shape[1] - 1
+    if not 0 <= t < n_steps:
+        raise ValueError(f"step t must lie in 0..{n_steps - 1}, got {t}")
+    n_paths = rows[0].shape[0]
+    if n_paths < 1 or n_paths >= 2 ** 31:
+        raise ValueError(f"n_paths must lie in 1..2^31-1, got {n_paths}")
+    for x in rows:
+        if x.device != dev or x.dtype != torch.float32 or x.shape != (n_paths,) \
+                or not x.is_contiguous():
+            raise ValueError(f"rows must be contiguous ({n_paths},) float32 on {dev}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if knocked is not None and (knocked.device != dev or knocked.dtype != torch.bool
+                                or knocked.shape != (n_paths,) or not knocked.is_contiguous()):
+        raise ValueError(f"knocked must be a contiguous ({n_paths},) bool row on {dev}")
+    return n_steps, n_paths, max(1, min(_MAX_BLOCKS, -(-n_paths // _THREADS)))
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def step_moments(stats, t: int, S, cf, tau, knocked=None, *, rdt: float, K: float, phi: float,
+                 basis: str = "chebyshev", degree: int = 4,
+                 itm_weights: bool = False) -> torch.Tensor:
+    """Packed moment vector ``(pack_dim(degree+1),)`` f32 of backward step
+    ``t``, from row t of the paths ``S``, the carry ``cf``/``tau`` and the
+    knocked row (bool, or None for vanilla products).
+
+    ``stats``: :func:`step_stats` rows; ``rdt`` = r·dt (an f32 value);
+    ``phi`` +1 for calls, −1 for puts. On a CUDA tensor this launches the
+    kernel of ``csrc/lsmc_step.cu`` (or raises); on a CPU tensor it runs
+    :func:`step_moments_reference`. ``step_moments.launches`` counts the
+    kernel launches.
+    """
+    if stats.device.type == "cpu":
+        return step_moments_reference(stats, t, S, cf, tau, knocked, rdt=rdt, K=K, phi=phi,
+                                      basis=basis, degree=degree, itm_weights=itm_weights)
+    if stats.device.type != "cuda":
+        raise ValueError(f"step_moments runs on 'cpu' or 'cuda', got {stats.device}")
+    from . import _build
+
+    basis = basis.strip().lower()
+    n_steps, n_paths, n_blocks = _check_cuda(stats, t, basis, degree, (S, cf, tau), knocked)
+    P = pack_dim(degree + 1)
+    partials = torch.empty(n_blocks * P, dtype=torch.float64, device=stats.device)
+    packed = torch.empty(P, dtype=torch.float32, device=stats.device)
+    V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _build.function("amcx_step_moments",
+                         [V, V, V, V, V, V, V, I, I, I, I, F, F, F, I, I, I, V])
+    stream = torch.cuda.current_stream(stats.device).cuda_stream
+    rc = fn(S.data_ptr(), cf.data_ptr(), tau.data_ptr(), _ptr(knocked), stats.data_ptr(),
+            partials.data_ptr(), packed.data_ptr(), t, n_steps, n_paths, n_blocks, rdt,
+            float(K), float(phi), BASIS_IDS[basis], degree, int(itm_weights), stream)
+    step_moments.launches += 1
+    _build.check(rc, "amcx_step_moments")
+    return packed
+
+
+step_moments.launches = 0
+
+
+def step_apply(stats, t: int, coeffs, S, cf, tau, knocked=None, *, K: float, phi: float,
+               basis: str = "chebyshev", degree: int = 4, select: bool = True,
+               surface: Optional[torch.Tensor] = None):
+    """One fused pass at step ``t``: the fitted continuation from the
+    ``(degree+1,)`` coefficients, clamped at 0, and the exercise select.
+
+    Updates ``cf``/``tau`` IN PLACE where ``ex > cont``, the path is knocked
+    and ``allow_t`` is set (``select=False``: no select, for a European
+    surface), and writes the clamped continuation into ``surface`` (a
+    ``(n_paths,)`` row, e.g. row t of a preallocated surface) when given.
+    Returns ``(cf, tau)`` or ``(cf, tau, surface)``. On a CUDA tensor this
+    launches the kernel of ``csrc/lsmc_step.cu`` (or raises); on a CPU
+    tensor it runs :func:`step_apply_reference`. ``step_apply.launches``
+    counts the kernel launches.
+    """
+    if stats.device.type == "cpu":
+        return step_apply_reference(stats, t, coeffs, S, cf, tau, knocked, K=K, phi=phi,
+                                    basis=basis, degree=degree, select=select,
+                                    surface=surface)
+    if stats.device.type != "cuda":
+        raise ValueError(f"step_apply runs on 'cpu' or 'cuda', got {stats.device}")
+    from . import _build
+
+    basis = basis.strip().lower()
+    rows = (S, cf, tau) + (() if surface is None else (surface,))
+    n_steps, n_paths, n_blocks = _check_cuda(stats, t, basis, degree, rows, knocked)
+    if coeffs.device != stats.device or coeffs.dtype != torch.float32 \
+            or coeffs.shape != (degree + 1,) or not coeffs.is_contiguous():
+        raise ValueError(f"coeffs must be contiguous ({degree + 1},) float32 on {stats.device}")
+    V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _build.function("amcx_step_apply", [V, V, V, V, V, V, V, I, I, I, I, F, F, I, I, I, V])
+    stream = torch.cuda.current_stream(stats.device).cuda_stream
+    rc = fn(S.data_ptr(), cf.data_ptr(), tau.data_ptr(), _ptr(knocked), stats.data_ptr(),
+            coeffs.data_ptr(), _ptr(surface), t, n_steps, n_paths, n_blocks, float(K),
+            float(phi), BASIS_IDS[basis], degree, int(select), stream)
+    step_apply.launches += 1
+    _build.check(rc, "amcx_step_apply")
+    return (cf, tau) if surface is None else (cf, tau, surface)
+
+
+step_apply.launches = 0

@@ -69,7 +69,9 @@ def brownian_normals(generator: torch.Generator, n_steps: int, n_paths: int,
 def _simulate_gbm_torch(generator, market, T, sim: SimConfig, device):
     dtype = sim.torch_dtype
     n_steps, n_paths = sim.n_steps, sim.n_paths
-    S0, r, sigma, q, T_ = (torch.tensor(v, dtype=dtype, device=device)
+    # as_tensor keeps a tensor's autograd graph: the paths are
+    # differentiable in S0, r, sigma, q and T (amcx_torch.greeks)
+    S0, r, sigma, q, T_ = (torch.as_tensor(v, dtype=dtype, device=device)
                            for v in (market.S0, market.r, market.sigma, market.q, T))
     dt = T_ / n_steps
     Z = brownian_normals(generator, n_steps, n_paths, dtype, sim.antithetic, device)

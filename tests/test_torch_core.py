@@ -237,9 +237,10 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['amcx'] = None\n"
         "import amcx_torch, amcx_torch.ops, amcx_torch.ops.gbm, "
-        "amcx_torch.ops.lsmc_megakernel, amcx_torch.ops._build, amcx_torch.interop\n"
+        "amcx_torch.ops.lsmc_megakernel, amcx_torch.ops.lsmc_pallas, amcx_torch.ops._build, "
+        "amcx_torch.interop, amcx_torch.engine_pallas, amcx_torch.greeks\n"
         "from amcx_torch.ops._build import build_info\n"
-        "assert build_info['path'] is None\n"
+        "assert build_info['paths'] is None\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules "
         "if sys.modules[m] is not None)\n"
         "print('ok')\n"

@@ -13,8 +13,10 @@ import pytest
 import torch
 
 import amcx_torch as at
+from amcx_torch import engine_pallas as tfused
 from amcx_torch.ops import gbm as tgbm
 from amcx_torch.ops import lsmc_megakernel as tmega
+from amcx_torch.ops import lsmc_pallas as tstep
 
 pytestmark = pytest.mark.cuda
 
@@ -111,3 +113,85 @@ def test_wrappers_reject_bad_inputs_on_card(cuda_device):
         tmega.lsmc_price_megakernel(paths.double(), K, R, 0.25, -1.0)
     with pytest.raises(ValueError, match="n_paths"):
         tgbm.gbm_paths(3, S0, R, SIGMA, 0.0, 1.0, 4, 0, device=cuda_device)
+
+
+FUSED_CARD_CASES = {
+    # (regress_on, engine keywords)
+    "barrier": ("itm", dict(barrier=90.0)),
+    "schedule": ("all", dict(exercise_steps=tuple(range(0, 100, 10)))),
+    "surface": ("itm", dict(return_surface=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CARD_CASES))
+def test_fused_step_kernels_match_plain(cuda_device, case):
+    # kernels 4+5 through the fused engine at 131k x 100 against the plain
+    # versions on the same card: f64 moments rounded once, -fmad=false and
+    # the same pinv_solve on the same device, so identical bits, twice
+    n, T = 131_072, 100
+    paths = tgbm.gbm_paths(5, S0, R, SIGMA, 0.0, 1.0, T, n, device=cuda_device)
+    regress_on, kw = FUSED_CARD_CASES[case]
+    spec = at.RegressionSpec(degree=4, regress_on=regress_on)
+    before = (tstep.step_moments.launches, tstep.step_apply.launches)
+    ker = at.backward_induction_fused(paths, R, 1.0 / T, K, -1.0, spec, **kw)
+    again = at.backward_induction_fused(paths, R, 1.0 / T, K, -1.0, spec, **kw)
+    ref = tfused.backward_induction_fused_reference(paths, R, 1.0 / T, K, -1.0, spec, **kw)
+    torch.cuda.synchronize()
+    assert (tstep.step_moments.launches, tstep.step_apply.launches) == (
+        before[0] + 2 * T, before[1] + 2 * T)
+    assert int((ker.exercise_times < T).sum()) > n // 10  # early exercise happened
+    for out in (again, ref):
+        for a, b in zip(ker[:5], out[:5]):
+            assert (a is None and b is None) or torch.equal(a, b)
+    if case == "surface":
+        assert ker.continuation.shape == (T + 1, n) and not ker.continuation[-1].any()
+
+
+def test_induction_kernel_cf_tau_planes_match_plain(cuda_device):
+    # kernel 2's cf/tau planes: the same select as its V carry, identical
+    # bits to the plain version; the planes reprice the kernel's price
+    # (rtol 1e-5: f64 sums of two f32 roundings of each path's value)
+    n, T = 131_072, 100
+    paths = tgbm.gbm_paths(6, S0, R, SIGMA, 0.0, 1.0, T, n, device=cuda_device)
+    mean_t, inv_std_t = at.gbm_standardization(at.MarketParams(S0, R, SIGMA), 1.0, T,
+                                               device=cuda_device)
+    kw = dict(itm_weights=True, mean_t=mean_t, inv_std_t=inv_std_t, return_cf_tau=True)
+    ker = tmega.lsmc_price_megakernel(paths, K, R, 1.0 / T, -1.0, **kw)
+    ref = tmega.lsmc_price_mega_reference(paths, K, R, 1.0 / T, -1.0, **kw)
+    plain = tmega.lsmc_price_megakernel(paths, K, R, 1.0 / T, -1.0, itm_weights=True,
+                                        mean_t=mean_t, inv_std_t=inv_std_t)
+    torch.cuda.synchronize()
+    assert ker.coeffs is None and ker.cashflows.shape == ker.exercise_times.shape == (n,)
+    assert torch.equal(ker.price, plain[0])  # the planes leave V's arithmetic alone
+    for a, b in zip(ker[:4], ref[:4]):
+        assert torch.equal(a, b)
+    v = ker.cashflows.double() * torch.exp(-R / T * ker.exercise_times.double())
+    torch.testing.assert_close(float(v.mean()), float(ker.price), rtol=1e-5, atol=0)
+
+
+def test_fused_price_diff_on_card(cuda_device):
+    # the autograd.Function on card paths: its gradient equals the backward
+    # formula evaluated on the CPU from the card's (cf, tau) (rtol 1e-6 on
+    # the path cotangent: the card's and the CPU's f32 exp may differ by an
+    # ulp; rtol 1e-5 on the scalars, f32 means in two orders)
+    n, T = 131_072, 100
+    dt = 1.0 / T
+    paths = tgbm.gbm_paths(7, S0, R, SIGMA, 0.0, 1.0, T, n, device=cuda_device)
+    spec = at.RegressionSpec(degree=4, regress_on="itm")
+    P = paths.clone().requires_grad_(True)
+    r, K_, dt_ = (torch.tensor(v, requires_grad=True) for v in (R, K, dt))
+    price = at.fused_price_diff(P, r, K_, dt_, None, T, -1.0, spec, True)
+    g_paths, g_r, g_K, g_dt = torch.autograd.grad(price, (P, r, K_, dt_))
+    res = at.backward_induction_fused(paths, R, dt, K, -1.0, spec)
+    cf, tau = res.cashflows.cpu(), res.exercise_times.cpu()
+    r32, dt32 = torch.tensor(R), torch.tensor(dt)
+    disc = torch.exp(-r32 * dt32 * tau)
+    ex = cf > 0.0
+    want = torch.zeros((T + 1, n))
+    want[tau.long(), torch.arange(n)] = torch.where(ex, (1.0 / n) * (disc * -1.0), 0.0)
+    g_cpu = g_paths.cpu()
+    assert torch.equal(g_cpu != 0, want != 0)
+    torch.testing.assert_close(g_cpu, want, rtol=1e-6, atol=0)
+    torch.testing.assert_close(g_r, torch.mean(-dt32 * tau * cf * disc), rtol=1e-5, atol=0)
+    torch.testing.assert_close(g_K, torch.mean(torch.where(ex, disc, 0.0)), rtol=1e-5, atol=0)
+    torch.testing.assert_close(g_dt, torch.mean(-r32 * tau * cf * disc), rtol=1e-5, atol=0)

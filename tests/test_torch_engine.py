@@ -8,19 +8,8 @@
 
 Paths come from amcx (JAX on the CPU) and reach the port as numpy arrays.
 
-Early exercise makes f32 LSMC chaotic. Two implementations that sum in
-different orders agree to ~1e-6 until, at some step t*, one path sits so
-close to the exercise boundary that the two disagree on it. That flip
-changes the regression target of every later (earlier-in-time) step, more
-paths flip, and at 8192 paths the prices end up 1e-3..2e-2 apart (a 1e-7
-relative nudge to the closed-form frame moves the 8192 x 16 ITM put by
-~6e-3). So an American case with flips is held to:
-- the coefficient tolerance on every row the flips cannot reach (t >= t*);
-- the price tolerance on the price difference that the paths with
-  different exercise decisions do not explain;
-- a bound on the number of such paths, which the test counts and reports.
-A case without flips, and every European case, is held to all tolerances
-directly.
+Early exercise makes f32 LSMC chaotic: an American case is held to the
+first-flipped-step rules of `_lsmc_parity` (tests/_lsmc_parity.py).
 """
 
 import jax
@@ -36,6 +25,9 @@ from amcx.ops import lsmc_megakernel as jmega
 from amcx.paths import gbm_standardization as j_standardization
 from amcx_torch.ops import gbm as tgbm
 from amcx_torch.ops import lsmc_megakernel as tmega
+from _lsmc_parity import first_divergence as _first_divergence
+from _lsmc_parity import hold_engine_pair
+from _lsmc_parity import hold_pair as _hold_pair
 
 S0, R, SIGMA, K = 100.0, 0.01, 0.2, 100.0
 JM = amcx.MarketParams(S0, R, SIGMA)
@@ -61,48 +53,6 @@ def _fit_at_zero(c):
     return c[..., 0] - c[..., 2] + c[..., 4]
 
 
-def _first_divergence(dec_j, dec_t):
-    """``(t*, n)``: the largest step t* at which the two (n_steps, n_paths)
-    exercise decision arrays differ and on how many paths, or (None, 0)."""
-    diff = np.asarray(dec_j) != np.asarray(dec_t)
-    steps = np.nonzero(diff.any(axis=1))[0]
-    if not steps.size:
-        return None, 0
-    return int(steps.max()), int(diff[steps.max()].sum())
-
-
-def _hold_pair(what, price_j, price_t, se_j, se_t, coef_j, coef_t, first, v_j, v_t,
-               price_tol):
-    """Hold an amcx/port pair to the module docstring's rules. ``coef_*``:
-    per-step coefficient rows indexed by t; ``first``: `_first_divergence`;
-    ``v_*``: per-path discounted values (f64)."""
-    t_star, n_first = first
-    scale = np.abs(coef_j).max()
-    # coefficients: 1e-3 of the largest coefficient (f32 solves of the same
-    # moments summed in different orders)
-    rows = slice(t_star, None) if t_star is not None else slice(None)
-    np.testing.assert_allclose(coef_t[rows], coef_j[rows], rtol=0, atol=1e-3 * scale)
-    d_price = float(price_t) - float(price_j)
-    if t_star is None:
-        assert abs(d_price) <= price_tol, (what, d_price)
-        np.testing.assert_allclose(float(se_t), float(se_j), rtol=1e-3)  # f32 sums
-        return
-    n_paths = v_j.shape[0]
-    differ = np.abs(v_t - v_j) > 1e-5 * (1.0 + np.abs(v_j))
-    n_diff = int(differ.sum())
-    flip_part = float((v_t - v_j)[differ].sum()) / n_paths
-    msg = (f"{what}: first decision flip at t={t_star} on {n_first} path(s); {n_diff} of "
-           f"{n_paths} paths end with another exercise decision; price |d| "
-           f"{abs(d_price):.2e}, of which {abs(flip_part):.2e} from those paths")
-    print(msg)
-    # where the rows agree to f32 noise only near-ties can flip: a handful
-    assert n_first <= 2 + n_paths // 1000, msg
-    # the cascade after it stays a minority of paths (measured 1-7% at 8k-16k
-    # paths); a wrong exercise rule would move most exercised paths
-    assert n_diff <= n_paths // 10, msg
-    assert abs(d_price - flip_part) <= price_tol, msg
-
-
 # ---------------------------------------------------------------------------
 # the reference loop engine
 # ---------------------------------------------------------------------------
@@ -121,25 +71,7 @@ def _engine_pair(paths, option_type, exercise, regress_on, degree=4, barrier=Non
 
 
 def _hold_engine_pair(what, paths, jres, tres, prod, exercise_steps=None, price_tol=1e-4):
-    n_steps = paths.shape[0] - 1
-    S = _t(paths)
-    ex = at.intrinsic_value(S[:-1], K, prod.option_type)
-    gate = at.barrier_gate(S, prod.barrier, prod.barrier_type)[:-1] & (ex > 0)
-    if exercise_steps is not None:
-        gate &= at.exercise_allow_row(exercise_steps, n_steps)[:-1, None]
-    decide = (lambda cont: (gate & (ex > _t(cont)[:-1])).numpy()) if prod.is_american \
-        else (lambda cont: np.zeros(gate.shape, bool))
-    first = _first_divergence(decide(np.asarray(jres.continuation)),
-                              decide(tres.continuation.numpy()))
-    dt = 1.0 / n_steps
-
-    def values(res):
-        return (np.asarray(res.cashflows, np.float64)
-                * np.exp(-R * dt * np.asarray(res.exercise_times, np.float64)))
-
-    _hold_pair(what, jres.price, tres.price, jres.stderr, tres.stderr,
-               np.asarray(jres.coeffs), tres.coeffs.numpy(), first,
-               values(jres), values(tres), price_tol)
+    hold_engine_pair(what, paths, jres, tres, prod, R, exercise_steps, price_tol)
 
 
 @pytest.mark.parametrize("exercise", ["american", "european"])
@@ -251,7 +183,7 @@ def test_plain_mega_matches_amcx_mega(paths_8k, case):
             _mega_decisions(S, tout.coeffs, c[0], c[1], phi))
         if first[0] is not None and not itm:  # the t=0 row was dropped above
             first = (max(first[0] - 1, 0), first[1])
-    _, _, V = tmega._mega_reference(S, stats, K, phi, 1e-6, "chebyshev", 4, american, itm)
+    _, _, V, _, _ = tmega._mega_reference(S, stats, K, phi, 1e-6, "chebyshev", 4, american, itm)
     tau = _t(jout.exercise_times).long()
     v_amcx = (c[2, 0] * (_t(jout.cashflows) * c[3, tau])).double().numpy()
     v_port = (c[2, 0] * V).double().numpy()
@@ -295,9 +227,8 @@ def test_unported_routes_raise():
     market = at.MarketParams(S0, R, SIGMA)
     sim = at.SimConfig(n_paths=64, n_steps=4, backend="philox")
     prod = at.ProductSpec(K=K, T=1.0, option_type="put", exercise="american")
-    for engine in ("fused", "fusedpath"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            at.price_option(0, market, prod, sim=sim, engine=engine)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        at.price_option(0, market, prod, sim=sim, engine="fusedpath")
     barrier = at.ProductSpec(K=K, T=1.0, barrier=80.0, option_type="put", exercise="american")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         at.price_option(0, market, barrier, sim=sim, engine="mega")
@@ -305,10 +236,12 @@ def test_unported_routes_raise():
         at.price_option(0, market, prod, sim=sim, engine="mega", exercise_steps=(1, 2))
     with pytest.raises(ValueError, match="engine"):
         at.price_option(0, market, prod, sim=sim, engine="tpu")
+    with pytest.raises(ValueError, match="coeffs"):
+        at.price_option(0, market, prod, sim=sim, engine="fused", return_coeffs=True)
     paths = tgbm.gbm_paths(0, S0, R, SIGMA, 0.0, 1.0, 4, 64)
-    for kw in (dict(replay_coeffs=np.zeros((4, 5))), dict(return_cf_tau=True),
-               dict(antithetic=True)):
+    for kw in (dict(replay_coeffs=np.zeros((4, 5))), dict(antithetic=True),
+               dict(r=torch.full((5,), R))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmega.lsmc_price_megakernel(paths, K, R, 0.25, -1.0, **kw)
+            tmega.lsmc_price_megakernel(paths, K, kw.pop("r", R), 0.25, -1.0, **kw)
     with pytest.raises(ValueError, match="degree"):
         tmega.lsmc_price_megakernel(paths, K, R, 0.25, -1.0, degree=11)
