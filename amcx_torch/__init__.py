@@ -1,13 +1,14 @@
 """amcx_torch: the PyTorch/CUDA port of amcx (American Monte Carlo, LSMC).
 
-Plain functions on tensors with an explicit ``device`` and explicit
-randomness (an integer ``seed``, or a ``torch.Generator`` for the
-``torch.randn`` simulator). The kernels of `amcx_torch.ops` are written by
+Plain functions on tensors with an explicit ``device`` (the card,
+``"cuda"``, unless the caller asks for ``"cpu"``) and explicit randomness
+(an integer ``seed``, or a ``torch.Generator`` for the ``torch.randn``
+simulator). The kernels of `amcx_torch.ops` are written by
 hand for Hopper; importing this package neither initialises CUDA nor
 builds them.
 """
 
-from .basis import BASIS_FAMILIES, design_matrix
+from .basis import BASIS_FAMILIES, design_matrix, multi_asset_design_matrix, n_multi_terms
 from .engine import (
     LSMCResult,
     backward_induction,
@@ -22,6 +23,13 @@ from .engine_pallas import (
 )
 from .greeks import fast_greeks, fused_price_diff, gamma_fd, price_and_greeks
 from .interop import config_from_jax, tensor_from_numpy
+from .models.maxcall import (
+    backward_induction_fused_maxcall,
+    max_call_greeks,
+    maxcall_standardization,
+    price_max_call,
+    reprice_max_call_with_coeffs,
+)
 from .oracle import (
     barrier_price,
     bs_greeks,
@@ -33,12 +41,14 @@ from .oracle import (
     down_in_price,
     norm_cdf,
 )
-from .paths import brownian_normals, gbm_standardization, simulate_gbm, to_path_major
+from .paths import (brownian_normals, gbm_standardization, simulate_gbm, simulate_gbm_multi,
+                    to_path_major)
 from .payoff import (
     barrier_gate,
     barrier_knocked,
     exercise_allow_row,
     intrinsic_value,
+    max_call_payoff,
     payoff_fn_for,
 )
 from .regress import (
@@ -59,6 +69,7 @@ __all__ = [
     "SimConfig",
     "backward_induction",
     "backward_induction_fused",
+    "backward_induction_fused_maxcall",
     "barrier_gate",
     "barrier_knocked",
     "barrier_price",
@@ -82,15 +93,23 @@ __all__ = [
     "intrinsic_value",
     "lsmc_option_pricing",
     "lsmc_option_pricing_fused",
+    "max_call_greeks",
+    "max_call_payoff",
+    "maxcall_standardization",
+    "multi_asset_design_matrix",
+    "n_multi_terms",
     "norm_cdf",
     "payoff_fn_for",
     "pinv_solve",
     "precompute_standardization",
     "price_and_greeks",
+    "price_max_call",
     "price_option",
     "regression_fitted_values",
+    "reprice_max_call_with_coeffs",
     "resolve_regression_spec",
     "simulate_gbm",
+    "simulate_gbm_multi",
     "tensor_from_numpy",
     "to_path_major",
     "weighted_standardize",

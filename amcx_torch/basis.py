@@ -10,15 +10,24 @@ its recurrence, producing the ``(..., degree+1)`` design matrix in one pass:
 - ``hermite``:   (physicists') ``H_0=1, H_1=2x, H_{n+1} = 2x H_n - 2n H_{n-1}``
 
 The recurrences keep amcx's operation order, so both packages round alike.
-The CUDA induction kernel (`amcx_torch/csrc/lsmc_mega.cu`) transcribes the
-same formulas.
+The CUDA kernels (`amcx_torch/csrc/lsmc_common.cuh`) transcribe the same
+formulas.
+
+Multi-asset regressions (max-call and the other multi-state products) use
+the cross-term basis of :func:`multi_asset_design_matrix`: products of the
+per-asset univariate columns over the multi-indices of
+:func:`_multi_index_set`, in amcx's column order (the multi-asset kernels
+receive that table from here).
 """
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
-__all__ = ["BASIS_FAMILIES", "BASIS_IDS", "basis_cols", "design_matrix"]
+__all__ = ["BASIS_FAMILIES", "BASIS_IDS", "basis_cols", "design_matrix", "n_multi_terms",
+           "multi_asset_cols", "multi_asset_design_matrix"]
 
 
 def _rec_power(x, prev, prev2, n):
@@ -101,3 +110,51 @@ def design_matrix(x: torch.Tensor, basis: str, degree: int) -> torch.Tensor:
     ``x.shape + (degree + 1,)``.
     """
     return torch.stack(basis_cols(x, basis, degree), dim=-1)
+
+
+def n_multi_terms(n_assets: int, degree: int, mode: str = "total") -> int:
+    """Number of columns of :func:`multi_asset_design_matrix`."""
+    return len(_multi_index_set(n_assets, degree, mode))
+
+
+def _multi_index_set(n_assets: int, degree: int, mode: str):
+    """Sorted multi-indices: every ``alpha`` with total degree ≤ ``degree``
+    (``"total"``), or the constant plus the per-asset univariate terms
+    (``"separable"``)."""
+    if mode == "total":
+        idx = [alpha for alpha in itertools.product(range(degree + 1), repeat=n_assets)
+               if sum(alpha) <= degree]
+    elif mode == "separable":
+        idx = [(0,) * n_assets]
+        for a in range(n_assets):
+            for d in range(1, degree + 1):
+                alpha = [0] * n_assets
+                alpha[a] = d
+                idx.append(tuple(alpha))
+    else:
+        raise ValueError(f"Unknown multi-asset basis mode {mode!r}")
+    return sorted(idx)
+
+
+def multi_asset_cols(feats, basis: str, degree: int, mode: str = "total") -> list:
+    """Cross-term columns from the list of per-asset regressors ``feats``
+    (tensors of one shape): each column multiplies the asset columns with
+    ``d > 0`` left to right, as amcx's ``_columns`` and the kernels do."""
+    uni = [basis_cols(x, basis, degree) for x in feats]
+    out = []
+    for alpha in _multi_index_set(len(feats), degree, mode):
+        term = None
+        for a, d in enumerate(alpha):
+            if d == 0:
+                continue
+            term = uni[a][d] if term is None else term * uni[a][d]
+        out.append(torch.ones_like(feats[0]) if term is None else term)
+    return out
+
+
+def multi_asset_design_matrix(X: torch.Tensor, basis: str, degree: int,
+                              mode: str = "total") -> torch.Tensor:
+    """Cross-term design matrix ``(..., n_terms)`` of ``X`` ``(..., n_assets)``:
+    columns ``prod_a P_{alpha_a}(X[..., a])`` over :func:`_multi_index_set`."""
+    return torch.stack(multi_asset_cols(list(torch.unbind(X, dim=-1)), basis, degree, mode),
+                       dim=-1)

@@ -1,7 +1,9 @@
-// Device helpers shared by the LSMC kernels (lsmc_mega.cu, lsmc_step.cu):
-// the packed moment layout, the basis recurrences, and the fixed-order
-// f64 block and cross-block reductions that make the moments independent
-// of the grid.
+// Device helpers shared by the LSMC kernels (lsmc_mega.cu, lsmc_step.cu,
+// and through ma_common.cuh ma_step.cu and lsmc_ma_mega.cu): the packed
+// moment layout, the basis recurrences, the fixed-order f64 block and
+// cross-block reductions that make the moments independent of the grid
+// (and the one-block kernel that sums the partial rows), and the
+// one-thread equilibrated ridge-Cholesky solve with its one-block kernel.
 #pragma once
 
 #include <cstddef>
@@ -85,9 +87,8 @@ __device__ __forceinline__ void block_reduce_store(double (&acc)[P], double* __r
 // Fixed-order sum of the (n_blocks, P) partial rows, by one block, rounded
 // once to f32 into out[0..P): warp w owns sums p = w, w + kWarps, ...; lane
 // l adds blocks l, l + 32, ... in order, then the lanes fold by shuffles.
-template <int P>
-__device__ __forceinline__ void sum_partials(const double* __restrict__ partials,
-                                             int n_blocks, float* out) {
+__device__ __forceinline__ void sum_partials(const double* __restrict__ partials, int n_blocks,
+                                             int P, float* out) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int p = warp; p < P; p += kWarps) {
@@ -96,6 +97,131 @@ __device__ __forceinline__ void sum_partials(const double* __restrict__ partials
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) out[p] = static_cast<float>(v);
+  }
+}
+
+// One block: sum_partials into out[0..P) (the fused engines' moment vectors,
+// the inductions' final two sums).
+__global__ void __launch_bounds__(kThreads)
+sum_partials_kernel(const double* __restrict__ partials, int n_blocks, int P,
+                    float* __restrict__ out) {
+  sum_partials(partials, n_blocks, P, out);
+}
+
+// The ridge-Cholesky solve below is one routine for two callers. KC > 0:
+// the size is the compile-time KC (kernel 2, k <= 11), every loop unrolls
+// and the scratch is a local array that lives in registers. KC == 0: the
+// size is the runtime k <= kMaxSolveK (the multi-asset inductions, m up to
+// 32) and the scratch lies in shared memory. Both run the same operations
+// in the same order, so the results do not depend on KC.
+constexpr int kMaxSolveK = 32;
+
+// Floats of scratch that solve_equilibrated_ridge needs for a k x k system.
+__host__ __device__ constexpr int solve_scratch_floats(int k) { return 2 * k * k + 6 * k; }
+
+// Two triangular solves with the factor L (k x k, row-major) of the ridged
+// Gram; z is scratch.
+template <int KC>
+__device__ __forceinline__ void chol_solve(const float* L, const float* rhs, float* c, float* z,
+                                           int k_rt) {
+  const int k = KC > 0 ? KC : k_rt;
+#pragma unroll
+  for (int i = 0; i < k; ++i) {
+    float s = rhs[i];
+#pragma unroll
+    for (int m = 0; m < i; ++m) s = s - L[i * k + m] * z[m];
+    z[i] = s / L[i * k + i];
+  }
+#pragma unroll
+  for (int i = k - 1; i >= 0; --i) {
+    float s = z[i];
+#pragma unroll
+    for (int m = i + 1; m < k; ++m) s = s - L[m * k + i] * c[m];
+    c[i] = s / L[i * k + i];
+  }
+}
+
+// Solve the packed [G upper triangle..., b...] system of size k on ONE
+// thread: amcx's _factor_equilibrated_ridge + _solve_factored
+// (amcx/ops/lsmc_megakernel.py) in its operation order - column
+// equilibration, the rcond ridge, Cholesky, two refinement steps against
+// the UN-ridged Gram, de-equilibration. scratch holds
+// solve_scratch_floats(k) floats.
+template <int KC>
+__device__ __forceinline__ void solve_equilibrated_ridge(const float* packed, int k_rt,
+                                                         float rcond, float* coeffs,
+                                                         float* scratch) {
+  const int k = KC > 0 ? KC : k_rt;
+  const int n_pairs = k * (k + 1) / 2;
+  const float tiny = 1e-30f;
+  float* Gnr = scratch;
+  float* L = Gnr + k * k;
+  float* d = L + k * k;
+  float* b = d + k;
+  float* c = b + k;
+  float* resid = c + k;
+  float* dc = resid + k;
+  float* z = dc + k;
+#pragma unroll
+  for (int i = 0; i < k; ++i) d[i] = 1.0f / sqrtf(fmaxf(packed[pair_index(k, i, i)], tiny));
+#pragma unroll
+  for (int i = 0; i < k; ++i) {
+#pragma unroll
+    for (int j = 0; j < k; ++j) {
+      const float g = packed[i <= j ? pair_index(k, i, j) : pair_index(k, j, i)];
+      Gnr[i * k + j] = g * d[i] * d[j];
+      L[i * k + j] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < k; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float s = Gnr[i * k + j] + (i == j ? rcond : 0.0f);
+#pragma unroll
+      for (int m = 0; m < j; ++m) s = s - L[i * k + m] * L[j * k + m];
+      L[i * k + j] = (i == j) ? sqrtf(fmaxf(s, tiny)) : s / L[j * k + j];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < k; ++i) b[i] = packed[n_pairs + i] * d[i];
+  chol_solve<KC>(L, b, c, z, k);
+#pragma unroll
+  for (int step = 0; step < 2; ++step) {
+#pragma unroll
+    for (int i = 0; i < k; ++i) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < k; ++j) acc = acc + Gnr[i * k + j] * c[j];
+      resid[i] = b[i] - acc;
+    }
+    chol_solve<KC>(L, resid, dc, z, k);
+#pragma unroll
+    for (int i = 0; i < k; ++i) c[i] = c[i] + dc[i];
+  }
+#pragma unroll
+  for (int i = 0; i < k; ++i) coeffs[i] = c[i] * d[i];
+}
+
+// One block: sum the (n_blocks, P) partial rows of a k-column system in a
+// fixed order (rounded once to f32), then solve it on thread 0 into
+// coeffs[0..k). KC as for solve_equilibrated_ridge.
+template <int KC>
+__global__ void __launch_bounds__(kThreads)
+solve_kernel(const double* __restrict__ partials, int n_blocks, int k_rt, float rcond,
+             float* __restrict__ coeffs) {
+  constexpr int kMaxK = KC > 0 ? KC : kMaxSolveK;
+  __shared__ float packed[kMaxK * (kMaxK + 1) / 2 + kMaxK];
+  __shared__ float shared_scratch[KC > 0 ? 1 : solve_scratch_floats(kMaxSolveK)];
+  const int k = KC > 0 ? KC : k_rt;
+  sum_partials(partials, n_blocks, k * (k + 1) / 2 + k, packed);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  if constexpr (KC > 0) {
+    float scratch[solve_scratch_floats(KC)];
+    solve_equilibrated_ridge<KC>(packed, k, rcond, coeffs, scratch);
+  } else {
+    solve_equilibrated_ridge<0>(packed, k, rcond, coeffs, shared_scratch);
   }
 }
 

@@ -115,76 +115,6 @@ moments_kernel(const float* __restrict__ S, const float* __restrict__ V,
   block_reduce_store<P>(acc, partials + static_cast<size_t>(blockIdx.x) * P);
 }
 
-// Two triangular solves with the factor L of the ridged Gram.
-template <int K>
-__device__ __forceinline__ void chol_solve(float (&L)[K][K], float (&rhs)[K], float (&c)[K]) {
-  float z[K];
-  for (int i = 0; i < K; ++i) {
-    float s = rhs[i];
-    for (int m = 0; m < i; ++m) s = s - L[i][m] * z[m];
-    z[i] = s / L[i][i];
-  }
-  for (int i = K - 1; i >= 0; --i) {
-    float s = z[i];
-    for (int m = i + 1; m < K; ++m) s = s - L[m][i] * c[m];
-    c[i] = s / L[i][i];
-  }
-}
-
-// amcx _factor_equilibrated_ridge + _solve_factored, in its operation order.
-template <int K>
-__device__ void solve_equilibrated_ridge(const float* packed, float rcond, float* coeffs) {
-  constexpr int kPairs = Layout<K>::kPairs;
-  const float tiny = 1e-30f;
-  float d[K];
-  for (int i = 0; i < K; ++i) d[i] = 1.0f / sqrtf(fmaxf(packed[pair_index(K, i, i)], tiny));
-  float Gnr[K][K];
-  for (int i = 0; i < K; ++i) {
-    for (int j = 0; j < K; ++j) {
-      const float g = packed[i <= j ? pair_index(K, i, j) : pair_index(K, j, i)];
-      Gnr[i][j] = g * d[i] * d[j];
-    }
-  }
-  float L[K][K];
-  for (int i = 0; i < K; ++i) {
-    for (int j = 0; j < K; ++j) L[i][j] = 0.0f;
-  }
-  for (int i = 0; i < K; ++i) {
-    for (int j = 0; j <= i; ++j) {
-      float s = Gnr[i][j] + (i == j ? rcond : 0.0f);
-      for (int m = 0; m < j; ++m) s = s - L[i][m] * L[j][m];
-      L[i][j] = (i == j) ? sqrtf(fmaxf(s, tiny)) : s / L[j][j];
-    }
-  }
-  float b[K];
-  for (int i = 0; i < K; ++i) b[i] = packed[kPairs + i] * d[i];
-  float c[K];
-  chol_solve<K>(L, b, c);
-  for (int step = 0; step < 2; ++step) {
-    float resid[K];
-    for (int i = 0; i < K; ++i) {
-      float acc = 0.0f;
-      for (int j = 0; j < K; ++j) acc = acc + Gnr[i][j] * c[j];
-      resid[i] = b[i] - acc;
-    }
-    float dc[K];
-    chol_solve<K>(L, resid, dc);
-    for (int i = 0; i < K; ++i) c[i] = c[i] + dc[i];
-  }
-  for (int i = 0; i < K; ++i) coeffs[i] = c[i] * d[i];
-}
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-solve_kernel(const double* __restrict__ partials, int n_blocks, float* __restrict__ coeffs_row,
-             float rcond) {
-  constexpr int P = Layout<K>::kMoments;
-  __shared__ float packed[P];
-  sum_partials<P>(partials, n_blocks, packed);
-  __syncthreads();
-  if (threadIdx.x == 0) solve_equilibrated_ridge<K>(packed, rcond, coeffs_row);
-}
-
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 apply_kernel(const float* __restrict__ S, float* __restrict__ V, float* __restrict__ cf,
@@ -235,11 +165,6 @@ final_partials_kernel(const float* __restrict__ V, const float* __restrict__ sta
   block_reduce_store<2>(acc, partials + static_cast<size_t>(blockIdx.x) * 2);
 }
 
-__global__ void __launch_bounds__(kThreads)
-final_sum_kernel(const double* __restrict__ partials, int n_blocks, float* __restrict__ sums) {
-  sum_partials<2>(partials, n_blocks, sums);
-}
-
 template <int K>
 cudaError_t run_mega(const float* paths, const float* stats, float* V, float* cf, float* tau,
                      double* partials, float* coeffs, float* sums, int n_steps, int n_paths,
@@ -255,7 +180,7 @@ cudaError_t run_mega(const float* paths, const float* stats, float* V, float* cf
     moments_kernel<K><<<n_blocks, kThreads, 0, stream>>>(
         S_t, V, stats, partials, t, n_steps, n_paths, strike, phi, basis, itm_weights);
     AMCX_LAUNCH_CHECK();
-    solve_kernel<K><<<1, kThreads, 0, stream>>>(partials, n_blocks, coeffs_row, rcond);
+    solve_kernel<K><<<1, kThreads, 0, stream>>>(partials, n_blocks, K, rcond, coeffs_row);
     AMCX_LAUNCH_CHECK();
     // European: the regression still runs (coefficient export) but the
     // time-T-units carry needs no update at all
@@ -267,7 +192,7 @@ cudaError_t run_mega(const float* paths, const float* stats, float* V, float* cf
   }
   final_partials_kernel<<<n_blocks, kThreads, 0, stream>>>(V, stats, partials, n_steps, n_paths);
   AMCX_LAUNCH_CHECK();
-  final_sum_kernel<<<1, kThreads, 0, stream>>>(partials, n_blocks, sums);
+  sum_partials_kernel<<<1, kThreads, 0, stream>>>(partials, n_blocks, 2, sums);
   return cudaGetLastError();
 }
 

@@ -18,10 +18,11 @@
 //   buffers); with a surface row, cont is written to it.
 //
 // Bound on the H100: device-memory traffic. Per step the moments read S_t,
-// cf and tau (and the 1-byte knocked row) and the apply reads them again
-// and writes cf and tau only where a path exercises, plus the 4-byte
-// surface row when asked: about 25 B per path-step, ~2.6 GB per 1M x 100
-// induction, ~0.8 ms at 3.35 TB/s; at 1M paths a step's rows (12-16 MB)
+// cf and tau (and the 1-byte knocked row); the apply reads S_t (and the
+// knocked row) again, never cf or tau, and writes cf and tau only where a
+// path exercises, plus the 4-byte surface row when asked: 16-22 B per
+// path-step besides the exercised paths' 8 B, ~1.7-2.3 GB per 1M x 100
+// induction, ~0.5-0.7 ms at 3.35 TB/s; at 1M paths a step's rows (12-16 MB)
 // mostly stay in the 50 MB L2 between the two passes. The per-step Gram is
 // a grid-wide dependency and the solve runs on the host's stream between
 // the passes, so launches and the solve's small torch ops bound the step,
@@ -91,12 +92,6 @@ step_moments_kernel(const float* __restrict__ S, const float* __restrict__ cf,
 
 template <int K>
 __global__ void __launch_bounds__(kThreads)
-moments_sum_kernel(const double* __restrict__ partials, int n_blocks, float* __restrict__ packed) {
-  sum_partials<Layout<K>::kMoments>(partials, n_blocks, packed);
-}
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
 step_apply_kernel(const float* __restrict__ S, float* __restrict__ cf, float* __restrict__ tau,
                   const uint8_t* __restrict__ knocked, const float* __restrict__ stats,
                   const float* __restrict__ coeffs, float* __restrict__ surface_row, int t,
@@ -141,7 +136,8 @@ cudaError_t run_moments(const float* S, const float* cf, const float* tau, const
       S, cf, tau, knocked, stats, partials, t, n_steps, n_paths, rdt, strike, phi, basis,
       itm_weights);
   AMCX_LAUNCH_CHECK();
-  moments_sum_kernel<K><<<1, kThreads, 0, stream>>>(partials, n_blocks, packed);
+  sum_partials_kernel<<<1, kThreads, 0, stream>>>(partials, n_blocks, Layout<K>::kMoments,
+                                                  packed);
   return cudaGetLastError();
 }
 

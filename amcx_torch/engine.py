@@ -82,27 +82,44 @@ def backward_induction(
     dt,
     payoff: Callable[[torch.Tensor], torch.Tensor],
     spec: RegressionSpec,
+    regressor: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     american: bool = True,
     return_surface: bool = True,
+    fit_fn: Optional[Callable] = None,
     return_coeffs: bool = False,
+    exercise_from_step: int = 0,
+    fit_fn_returns_coeffs: bool = False,
     exercise_steps=None,
     antithetic: bool = False,
 ) -> LSMCResult:
-    """Generic LSMC backward induction on time-major ``(n_steps+1,
-    n_paths)`` state, with the ``knocked_tm`` exercise gate (all-True for
-    vanilla). ``exercise_steps`` restricts early exercise to those step
-    indices (Bermudan); ``antithetic`` folds each path i with its mirror
-    i + n/2 before the variance, so the stderr is that of the pair means.
-    The per-step coefficient rows (``return_coeffs``) are ``(n_steps,
-    degree+1)``, as amcx exports them. amcx's ``regressor``,
-    ``exercise_from_step`` and ``fit_fn`` hooks serve its multi-asset
-    engines and come with them (ROADMAP A11).
+    """Generic LSMC backward induction on time-major state, ``(n_steps+1,
+    n_paths)`` or ``(n_steps+1, n_paths, n_assets)``, with the
+    ``(n_steps+1, n_paths)`` ``knocked_tm`` exercise gate (all-True for
+    vanilla).
+
+    ``regressor`` maps the state to the regression variable (identity by
+    default). ``fit_fn(x, y, spec, weights)`` replaces the univariate fit
+    and returns the clamped fitted values, or ``(fitted, coeffs)`` when
+    ``fit_fn_returns_coeffs`` (the multi-asset cross-term fit,
+    `amcx_torch.models.maxcall.max_call_fit`). ``exercise_from_step`` is
+    the earliest step that may exercise (Bermudan benchmarks use 1);
+    ``exercise_steps`` restricts early exercise to those step indices;
+    ``antithetic`` folds each path i with its mirror i + n/2 before the
+    variance, so the stderr is that of the pair means. The per-step
+    coefficient rows (``return_coeffs``) are ``(n_steps, n_coeffs)``, as
+    amcx exports them.
     """
     n_steps = paths_tm.shape[0] - 1
     n_paths = paths_tm.shape[1]
     dtype, device = paths_tm.dtype, paths_tm.device
     r = torch.as_tensor(r, dtype=dtype, device=device)
     dt = torch.as_tensor(dt, dtype=dtype, device=device)
+    if return_coeffs and fit_fn is not None and not fit_fn_returns_coeffs:
+        raise ValueError("return_coeffs requires the default univariate fitter or a "
+                         "custom fit_fn declared with fit_fn_returns_coeffs=True")
+    custom_fit = fit_fn is not None and not fit_fn_returns_coeffs
+    if fit_fn is None:
+        fit_fn = fit_continuation_with_coeffs
 
     # maturity leg: intrinsic where the gate is open; τ = n_steps (Q7)
     cashflows = torch.where(knocked_tm[n_steps], payoff(paths_tm[n_steps]),
@@ -117,13 +134,19 @@ def backward_induction(
         S_t, knocked_t, t = paths_tm[step], knocked_tm[step], ts[step]
         # regression target: each cashflow discounted from τ back to t (Q5)
         y = cashflows * torch.exp(-r * dt * (tau - t))
+        x = S_t if regressor is None else regressor(S_t)
         ex = payoff(S_t)
         weights = None  # Q1: fit on all paths
         if spec.regress_on == "itm":
             weights = (ex > 0).to(dtype) * knocked_t.to(dtype)
-        cont, coef = fit_continuation_with_coeffs(S_t, y, spec, weights)
+        if custom_fit:
+            cont, coef = fit_fn(x, y, spec, weights), None  # clamped at 0 (Q2)
+        else:
+            cont, coef = fit_fn(x, y, spec, weights)
         if american:
             exercise = knocked_t & (ex > 0) & (ex > cont)
+            if exercise_from_step > 0:
+                exercise = exercise & (t >= exercise_from_step)
             if allowed is not None:
                 exercise = exercise & allowed[step]
             cashflows = torch.where(exercise, ex, cashflows)
@@ -205,7 +228,7 @@ def price_option(
     exercise_steps=None,
     return_cf_tau: bool = False,
     return_coeffs: bool = False,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> LSMCResult:
     """Simulate → price on ``device``.
 

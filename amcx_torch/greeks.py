@@ -123,7 +123,7 @@ def price_and_greeks(
     spec: RegressionSpec = RegressionSpec(),
     sim: SimConfig = SimConfig(),
     engine: str = "xla",
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """LSMC price plus pathwise delta/vega/rho/dividend-rho/theta.
 
@@ -225,7 +225,7 @@ def gamma_fd(
     spec: RegressionSpec = RegressionSpec(),
     sim: SimConfig = SimConfig(),
     rel_bump: float = 1e-2,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> torch.Tensor:
     """Gamma as a central finite difference of the pathwise delta under
     common random numbers (the same integer seed both sides)."""

@@ -6,5 +6,9 @@ first use) with their plain-torch versions.
   (``csrc/lsmc_mega.cu``);
 - `amcx_torch.ops.lsmc_pallas`: the fused engine's per-step moments and
   apply kernels (``csrc/lsmc_step.cu``);
+- `amcx_torch.ops.maxcall_pallas`: the multi-asset per-step moments and
+  apply kernels (``csrc/ma_step.cu``);
+- `amcx_torch.ops.lsmc_ma_mega`: the multi-asset backward induction
+  (``csrc/lsmc_ma_mega.cu``);
 - `amcx_torch.ops._build`: the ``nvcc`` build and ``ctypes`` loader.
 """

@@ -109,7 +109,7 @@ def gbm_paths_reference(seed: int, S0, r, sigma, q, T, n_steps: int, n_paths: in
 
 
 def gbm_paths(seed: int, S0, r, sigma, q, T, n_steps: int, n_paths: int,
-              device="cpu") -> torch.Tensor:
+              device="cuda") -> torch.Tensor:
     """Time-major ``(n_steps+1, n_paths)`` f32 GBM paths on ``device``.
 
     On a CUDA device this launches the kernel (``csrc/gbm.cu``) on the

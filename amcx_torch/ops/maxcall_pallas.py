@@ -1,0 +1,389 @@
+"""The multi-asset step kernels: wrappers and their plain versions.
+
+Port of `amcx.ops.maxcall_pallas` (``_ma_moments_kernel`` via
+:func:`ma_step_moments`, ``_ma_apply_kernel`` via :func:`ma_step_apply`).
+The kernels live in ``amcx_torch/csrc/ma_step.cu`` (shared device code in
+``csrc/ma_common.cuh``). ``ma_step_moments_reference`` and
+``ma_step_apply_reference`` compute the same functions in plain torch, in
+the kernels' operation order, with the moments summed in f64 and rounded
+once to f32, so on the card kernel and plain version agree to the bit.
+
+One backward step of a multi-asset product: the asset planes of step t are
+(optionally) sorted into the basket's order statistics by amcx's bubble
+compare-exchange network, standardized with the per-step per-column frame,
+expanded into the cross-term columns of
+`amcx_torch.basis.multi_asset_cols` (amcx's column order), and either
+reduced into the packed moment vector (Gram upper triangle + rhs) or
+evaluated against the solved coefficients for the exercise select.
+
+Deviations from amcx, none of which changes a value:
+
+- Layout: the step's planes are a contiguous ``(n_assets, n_paths)`` slice
+  of the time-major asset-major ``(n_steps+1, n_assets, n_paths)`` array,
+  for any ``n_paths``. amcx's ``(A, rows, 512)`` blocks and its
+  ``n_paths % 4096`` rule are dropped.
+- The per-step scalars come from one ``(2A+3, n_steps+1)`` f32 device array
+  (:func:`ma_stats`: rows mean_a, inv_std_a, c_t, 1/c_t, allow_t) and the
+  step index, in place of amcx's ``(3+2A+1,)`` scalar vector, so a host
+  loop never reads a value back. The two induction engines share it.
+- :func:`ma_step_apply` updates ``cf``/``tau`` in place, as amcx donates
+  them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ..basis import BASIS_IDS, _multi_index_set, multi_asset_cols
+from ..payoff import exercise_allow_row
+from .lsmc_megakernel import _pairs, _sum_once_rounded
+
+__all__ = ["ma_pack_dim", "ma_stats", "ma_inputs", "maxcall_standardization", "ma_step_moments",
+           "ma_step_moments_reference", "ma_step_apply", "ma_step_apply_reference",
+           "PAYOFF_KINDS"]
+
+# limits of csrc/ma_common.cuh
+MAX_ASSETS = 8
+MAX_COLS = 32
+MAX_DEGREE = 4
+_THREADS = 256
+_MAX_BLOCKS = 1024
+
+PAYOFF_KINDS = {"maxcall": 0, "first": 1, "second": 2, "spread": 3, "spreadk": 4,
+                "basket": 5, "geobasket": 6}
+_TWO_PLANE_KINDS = ("second", "spread", "spreadk")
+
+
+def ma_pack_dim(m: int) -> int:
+    """Length of the packed moment vector for ``m`` cross-term columns."""
+    return m * (m + 1) // 2 + m
+
+
+def maxcall_standardization(paths_tm: torch.Tensor, mode: str = "sorted"):
+    """Per-step per-column mean and 1/std of the (descending-sorted when
+    ``mode == "sorted"``) basket ``(n_steps+1, n_paths, n_assets)``: two
+    ``(n_steps+1, n_assets)`` tensors, the frame the fused and mega
+    engines standardize with. The order statistics come from the kernels'
+    compare-exchange network, column by column (the values of a sort)."""
+    feats = torch.unbind(paths_tm, dim=-1)
+    if mode == "sorted":
+        feats = _sort_desc(feats)
+    mean = torch.stack([torch.mean(f, dim=1) for f in feats], dim=-1)
+    std = torch.stack([torch.std(f, dim=1, correction=0) for f in feats], dim=-1)
+    return mean, 1.0 / torch.clamp_min(std, 1e-6)
+
+
+def ma_stats(mean_t, inv_std_t, r, dt, allow_t) -> torch.Tensor:
+    """The kernels' per-step rows as one contiguous ``(2A+3, n_steps+1)`` f32
+    tensor: ``mean_a`` (A rows), ``inv_std_a`` (A rows), the time-T discount
+    ``c_t = e^{−r·dt·(n_steps−t)}`` and ``1/c_t`` built in f32 in amcx's
+    order, and the exercise flag ``allow_t``. ``mean_t``/``inv_std_t`` are
+    ``(n_steps+1, A)``."""
+    f32 = torch.float32
+    dev = mean_t.device
+    n1 = mean_t.shape[0]
+    rem = (n1 - 1) - torch.arange(n1, dtype=f32, device=dev)
+    r_rem = torch.tensor(float(r), dtype=f32, device=dev) * torch.tensor(
+        float(dt), dtype=f32, device=dev) * rem
+    rows = [mean_t.to(f32).T, inv_std_t.to(f32).T, torch.exp(-r_rem)[None],
+            torch.exp(r_rem)[None], torch.as_tensor(allow_t, dtype=f32, device=dev)[None]]
+    return torch.cat(rows).contiguous()
+
+
+def ma_inputs(paths_tm: torch.Tensor, r, dt, *, sorted_basis: bool, mode: str = "total",
+              exercise_from_step: int = 0, exercise_steps=None):
+    """The inputs both multi-asset inductions (kernels 8/9 and kernel 7) run
+    on, from time-major ``(n_steps+1, n_paths, n_assets)`` f32 paths: the
+    asset-major planes ``(n_steps+1, n_assets, n_paths)`` (each asset row
+    coalesces) and the :func:`ma_stats` rows, with the
+    :func:`maxcall_standardization` frame of the whole path set (sorted when
+    ``sorted_basis``) and the exercise row (``exercise_steps``, step indices
+    in 0..n_steps-1, overrides ``exercise_from_step``)."""
+    if paths_tm.ndim != 3 or paths_tm.shape[0] < 2 or paths_tm.dtype != torch.float32:
+        raise ValueError(f"paths must be time-major (n_steps+1, n_paths, n_assets) float32, "
+                         f"got {tuple(paths_tm.shape)} {paths_tm.dtype}")
+    n_steps, dev = paths_tm.shape[0] - 1, paths_tm.device
+    mean_t, inv_std_t = maxcall_standardization(paths_tm, "sorted" if sorted_basis else mode)
+    if exercise_steps is not None:
+        allow = exercise_allow_row(exercise_steps, n_steps, torch.float32, dev)
+    else:
+        allow = (torch.arange(n_steps + 1, device=dev) >= exercise_from_step).to(torch.float32)
+    planes = paths_tm.permute(0, 2, 1).contiguous()
+    return planes, ma_stats(mean_t, inv_std_t, r, dt, allow)
+
+
+def _sort_desc(vals):
+    """amcx's bubble compare-exchange network: a descending sort of the
+    per-asset tensors."""
+    vals = list(vals)
+    A = len(vals)
+    for i in range(A):
+        for j in range(A - 1 - i):
+            hi = torch.maximum(vals[j], vals[j + 1])
+            lo = torch.minimum(vals[j], vals[j + 1])
+            vals[j], vals[j + 1] = hi, lo
+    return vals
+
+
+def _columns(planes, stats, t: int, basis: str, degree: int, mode: str, sorted_basis: bool):
+    """Standardize the (sorted) planes with step t's frame and build the
+    cross-term columns."""
+    A = len(planes)
+    feats = _sort_desc(planes) if sorted_basis else list(planes)
+    xs = [(feats[a] - stats[a, t]) * stats[A + a, t] for a in range(A)]
+    return multi_asset_cols(xs, basis, degree, mode)
+
+
+def _weights32(weights, n_assets: int):
+    """Basket weights as f32 values (amcx multiplies f32 planes by them);
+    equal weights 1/A by default."""
+    w = weights if weights is not None else (1.0 / n_assets,) * n_assets
+    if len(w) != n_assets:
+        raise ValueError(f"weights must have {n_assets} entries, got {len(w)}")
+    return [float(torch.tensor(float(x), dtype=torch.float32)) for x in w]
+
+
+def _payoff_for(planes, K, payoff_kind: str, phi: float = 1.0, weights=None):
+    """Exercise value of the state ``planes`` (list of per-asset tensors):
+    ``maxcall`` max(max_a S_a − K, 0); ``first`` φ(S_0 − K)⁺ (the (S, v)
+    two-state dynamics); ``second`` φ(S_1 − K)⁺ (fixed-strike Asian on
+    (S, A)); ``spread`` φ(S_0 − S_1)⁺; ``spreadk`` φ(S_0 − S_1 − K)⁺;
+    ``basket`` φ(Σ w_a S_a − K)⁺; ``geobasket`` φ(exp Σ w_a ln S_a − K)⁺,
+    weights 1/A by default. amcx's operation order."""
+    if payoff_kind == "maxcall":
+        ex = planes[0]
+        for p in planes[1:]:
+            ex = torch.maximum(ex, p)
+        return torch.clamp_min(ex - K, 0.0)
+    if payoff_kind == "first":
+        return torch.clamp_min(phi * (planes[0] - K), 0.0)
+    if payoff_kind == "second":
+        return torch.clamp_min(phi * (planes[1] - K), 0.0)
+    if payoff_kind == "spread":
+        return torch.clamp_min(phi * (planes[0] - planes[1]), 0.0)
+    if payoff_kind == "spreadk":
+        return torch.clamp_min(phi * (planes[0] - planes[1] - K), 0.0)
+    if payoff_kind in ("basket", "geobasket"):
+        w = _weights32(weights, len(planes))
+        f = torch.log if payoff_kind == "geobasket" else (lambda p: p)
+        acc = f(planes[0]) * w[0]
+        for p, wi in zip(planes[1:], w[1:]):
+            acc = acc + f(p) * wi
+        if payoff_kind == "geobasket":
+            acc = torch.exp(acc)
+        return torch.clamp_min(phi * (acc - K), 0.0)
+    raise ValueError(f"unknown payoff_kind {payoff_kind!r}")
+
+
+def _moments_from_cols(cols, y, w):
+    """Packed ``[Σ w c_i c_j (i ≤ j)..., Σ c_i (w y)...]``, each an f64 sum
+    of f32 products rounded once to f32."""
+    cols_w = cols if w is None else [c * w for c in cols]
+    yw = y if w is None else y * w
+    m = len(cols)
+    packed = [_sum_once_rounded(cols_w[i] * cols[j]) for i, j in _pairs(m)]
+    packed += [_sum_once_rounded(cols[i] * yw) for i in range(m)]
+    return packed
+
+
+def _fitted(cols, coeffs):
+    fitted = cols[0] * coeffs[0]
+    for i in range(1, len(cols)):
+        fitted = fitted + cols[i] * coeffs[i]
+    return fitted
+
+
+def ma_step_moments_reference(stats, t: int, planes, cf, tau, *, rdt: float, K: float,
+                              phi: float = 1.0, basis: str = "chebyshev", degree: int = 2,
+                              mode: str = "total", sorted_basis: bool = True,
+                              itm_weights: bool = False, payoff_kind: str = "maxcall",
+                              weights=None, direct_y: bool = False) -> torch.Tensor:
+    """Plain-torch version of :func:`ma_step_moments` on any device."""
+    P = list(torch.unbind(planes, 0))
+    y = cf if direct_y else cf * torch.exp(-rdt * (tau - float(t)))
+    cols = _columns(P, stats, t, basis, degree, mode, sorted_basis)
+    w = None
+    if itm_weights:
+        w = (_payoff_for(P, K, payoff_kind, phi, weights) > 0.0).to(torch.float32)
+    return torch.stack(_moments_from_cols(cols, y, w))
+
+
+def ma_step_apply_reference(stats, t: int, coeffs, planes, cf, tau, *, K: float,
+                            phi: float = 1.0, basis: str = "chebyshev", degree: int = 2,
+                            mode: str = "total", sorted_basis: bool = True,
+                            payoff_kind: str = "maxcall", weights=None):
+    """Plain-torch version of :func:`ma_step_apply` on any device (also in
+    place)."""
+    P = list(torch.unbind(planes, 0))
+    cols = _columns(P, stats, t, basis, degree, mode, sorted_basis)
+    cont = torch.clamp_min(_fitted(cols, coeffs), 0.0)  # Q2; a NaN fit stays NaN
+    ex = _payoff_for(P, K, payoff_kind, phi, weights)
+    mask = (ex > cont) & (stats[-1, t] > 0.0)  # ex > cont implies ex > 0
+    cf.copy_(torch.where(mask, ex, cf))
+    tau.copy_(torch.where(mask, float(t), tau))
+    return cf, tau
+
+
+class MaParams(ctypes.Structure):
+    """``struct MaParams`` of ``csrc/ma_common.cuh``: the static description
+    of a multi-asset product and basis, handed to the kernels by value."""
+
+    _fields_ = [("n_assets", ctypes.c_int), ("n_cols", ctypes.c_int),
+                ("degree", ctypes.c_int), ("basis", ctypes.c_int),
+                ("sorted", ctypes.c_int), ("payoff_kind", ctypes.c_int),
+                ("strike", ctypes.c_float), ("phi", ctypes.c_float),
+                ("weights", ctypes.c_float * MAX_ASSETS),
+                ("alpha", (ctypes.c_ubyte * MAX_ASSETS) * MAX_COLS)]
+
+
+@functools.lru_cache(maxsize=64)
+def ma_params(n_assets: int, basis: str, degree: int, mode: str, sorted_basis: bool,
+              payoff_kind: str, K: float, phi: float, weights: Optional[tuple] = None) -> MaParams:
+    """Validate a product/basis against the kernels' limits and pack it,
+    with amcx's multi-index table, into :class:`MaParams`. Cached: a host
+    loop calls it every step, and the kernels only read the block."""
+    basis = basis.strip().lower()
+    if basis not in BASIS_IDS:
+        raise ValueError(f"Unknown basis type {basis!r}")
+    if payoff_kind not in PAYOFF_KINDS:
+        raise ValueError(f"unknown payoff_kind {payoff_kind!r}")
+    if not 1 <= n_assets <= MAX_ASSETS:
+        raise ValueError(f"the multi-asset kernels take 1..{MAX_ASSETS} assets, got {n_assets}")
+    if payoff_kind in _TWO_PLANE_KINDS and n_assets < 2:
+        raise ValueError(f"payoff_kind {payoff_kind!r} needs two planes")
+    if not 0 <= degree <= MAX_DEGREE:
+        raise ValueError(f"the multi-asset kernels take degree 0..{MAX_DEGREE}, got {degree}")
+    idx = _multi_index_set(n_assets, degree, mode)
+    if len(idx) > MAX_COLS:
+        raise ValueError(f"{len(idx)} basis columns exceed the kernels' {MAX_COLS}")
+    p = MaParams(n_assets=n_assets, n_cols=len(idx), degree=degree, basis=BASIS_IDS[basis],
+                 sorted=int(sorted_basis), payoff_kind=PAYOFF_KINDS[payoff_kind],
+                 strike=float(K), phi=float(phi))
+    for a, w in enumerate(_weights32(weights, n_assets)):
+        p.weights[a] = w
+    for c, alpha in enumerate(idx):
+        for a, d in enumerate(alpha):
+            p.alpha[c][a] = d
+    return p
+
+
+def _tuple(weights):
+    return None if weights is None else tuple(float(w) for w in weights)
+
+
+def _check_cuda(stats, t, planes, rows, n_assets):
+    dev = stats.device
+    if stats.dtype != torch.float32 or stats.ndim != 2 or stats.shape[0] != 2 * n_assets + 3 \
+            or not stats.is_contiguous():
+        raise ValueError(f"stats must be contiguous ({2 * n_assets + 3}, n_steps+1) float32, "
+                         f"got {tuple(stats.shape)} {stats.dtype}")
+    n_steps = stats.shape[1] - 1
+    if not 0 <= t < n_steps:
+        raise ValueError(f"step t must lie in 0..{n_steps - 1}, got {t}")
+    n_paths = planes.shape[-1]
+    if n_paths < 1 or n_paths >= 2 ** 31:
+        raise ValueError(f"n_paths must lie in 1..2^31-1, got {n_paths}")
+    if planes.device != dev or planes.dtype != torch.float32 \
+            or planes.shape != (n_assets, n_paths) or not planes.is_contiguous():
+        raise ValueError(f"planes must be contiguous ({n_assets}, n_paths) float32 on {dev}, "
+                         f"got {tuple(planes.shape)} {planes.dtype} on {planes.device}")
+    for x in rows:
+        if x.device != dev or x.dtype != torch.float32 or x.shape != (n_paths,) \
+                or not x.is_contiguous():
+            raise ValueError(f"rows must be contiguous ({n_paths},) float32 on {dev}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    return n_steps, n_paths, max(1, min(_MAX_BLOCKS, -(-n_paths // _THREADS)))
+
+
+def ma_step_moments(stats, t: int, planes, cf, tau, *, rdt: float, K: float, phi: float = 1.0,
+                    basis: str = "chebyshev", degree: int = 2, mode: str = "total",
+                    sorted_basis: bool = True, itm_weights: bool = False,
+                    payoff_kind: str = "maxcall", weights=None,
+                    direct_y: bool = False) -> torch.Tensor:
+    """Packed cross-term moment vector ``(ma_pack_dim(m),)`` f32 of backward
+    step ``t`` from the step's ``(n_assets, n_paths)`` planes and the
+    ``cf``/``tau`` carry: ``y = cf·e^{−rdt·(τ−t)}`` (``direct_y``: ``cf`` is
+    already the regression target and ``tau`` is not read), ITM weights
+    ``1[payoff > 0]`` when ``itm_weights``.
+
+    ``stats``: :func:`ma_stats` rows; ``rdt`` = r·dt (an f32 value). On a
+    CUDA tensor this launches the kernel of ``csrc/ma_step.cu`` (or
+    raises); on a CPU tensor it runs :func:`ma_step_moments_reference`.
+    ``ma_step_moments.launches`` counts the kernel launches.
+    """
+    kw = dict(K=K, phi=phi, basis=basis, degree=degree, mode=mode, sorted_basis=sorted_basis,
+              payoff_kind=payoff_kind, weights=weights)
+    if stats.device.type == "cpu":
+        return ma_step_moments_reference(stats, t, planes, cf, tau, rdt=rdt,
+                                         itm_weights=itm_weights, direct_y=direct_y, **kw)
+    if stats.device.type != "cuda":
+        raise ValueError(f"ma_step_moments runs on 'cpu' or 'cuda', got {stats.device}")
+    from . import _build
+
+    n_assets = planes.shape[0]
+    params = ma_params(n_assets, basis, degree, mode, sorted_basis, payoff_kind, float(K),
+                       float(phi), _tuple(weights))
+    n_steps, n_paths, n_blocks = _check_cuda(stats, t, planes, (cf, tau), n_assets)
+    P = ma_pack_dim(params.n_cols)
+    partials = torch.empty(n_blocks * P, dtype=torch.float64, device=stats.device)
+    packed = torch.empty(P, dtype=torch.float32, device=stats.device)
+    V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _build.function("amcx_ma_step_moments",
+                         [V, V, V, V, V, V, I, I, I, I, F, I, I, ctypes.POINTER(MaParams), V])
+    stream = torch.cuda.current_stream(stats.device).cuda_stream
+    rc = fn(planes.data_ptr(), cf.data_ptr(), tau.data_ptr(), stats.data_ptr(),
+            partials.data_ptr(), packed.data_ptr(), t, n_steps, n_paths, n_blocks, rdt,
+            int(itm_weights), int(direct_y), ctypes.byref(params), stream)
+    ma_step_moments.launches += 1
+    _build.check(rc, "amcx_ma_step_moments")
+    return packed
+
+
+ma_step_moments.launches = 0
+
+
+def ma_step_apply(stats, t: int, coeffs, planes, cf, tau, *, K: float, phi: float = 1.0,
+                  basis: str = "chebyshev", degree: int = 2, mode: str = "total",
+                  sorted_basis: bool = True, payoff_kind: str = "maxcall",
+                  weights: Optional[tuple] = None):
+    """One fused pass at step ``t``: the cross-term fitted continuation from
+    the ``(m,)`` coefficients, clamped at 0, and the exercise select.
+
+    Updates ``cf``/``tau`` IN PLACE where ``payoff > max(fitted, 0)`` and
+    the step's ``allow_t`` is set; returns ``(cf, tau)``. On a CUDA tensor
+    this launches the kernel of ``csrc/ma_step.cu`` (or raises); on a CPU
+    tensor it runs :func:`ma_step_apply_reference`.
+    ``ma_step_apply.launches`` counts the kernel launches.
+    """
+    kw = dict(K=K, phi=phi, basis=basis, degree=degree, mode=mode, sorted_basis=sorted_basis,
+              payoff_kind=payoff_kind, weights=weights)
+    if stats.device.type == "cpu":
+        return ma_step_apply_reference(stats, t, coeffs, planes, cf, tau, **kw)
+    if stats.device.type != "cuda":
+        raise ValueError(f"ma_step_apply runs on 'cpu' or 'cuda', got {stats.device}")
+    from . import _build
+
+    n_assets = planes.shape[0]
+    params = ma_params(n_assets, basis, degree, mode, sorted_basis, payoff_kind, float(K),
+                       float(phi), _tuple(weights))
+    n_steps, n_paths, n_blocks = _check_cuda(stats, t, planes, (cf, tau), n_assets)
+    m = params.n_cols
+    if coeffs.device != stats.device or coeffs.dtype != torch.float32 \
+            or coeffs.shape != (m,) or not coeffs.is_contiguous():
+        raise ValueError(f"coeffs must be contiguous ({m},) float32 on {stats.device}")
+    V, I = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("amcx_ma_step_apply",
+                         [V, V, V, V, V, I, I, I, I, ctypes.POINTER(MaParams), V])
+    stream = torch.cuda.current_stream(stats.device).cuda_stream
+    rc = fn(planes.data_ptr(), cf.data_ptr(), tau.data_ptr(), stats.data_ptr(),
+            coeffs.data_ptr(), t, n_steps, n_paths, n_blocks, ctypes.byref(params), stream)
+    ma_step_apply.launches += 1
+    _build.check(rc, "amcx_ma_step_apply")
+    return cf, tau
+
+
+ma_step_apply.launches = 0

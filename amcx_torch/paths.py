@@ -26,6 +26,7 @@ from .types import MarketParams, SimConfig
 
 __all__ = [
     "simulate_gbm",
+    "simulate_gbm_multi",
     "to_path_major",
     "brownian_normals",
     "gbm_standardization",
@@ -88,7 +89,7 @@ def simulate_gbm(
     market: MarketParams,
     T,
     sim: SimConfig,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> torch.Tensor:
     """Simulate GBM paths on ``device``; returns time-major
     ``(n_steps+1, n_paths)``.
@@ -109,9 +110,71 @@ def simulate_gbm(
             raise ValueError("the philox pathgen emits float32 paths")
         return gbm_paths(seed, market.S0, market.r, market.sigma, market.q, T,
                          sim.n_steps, sim.n_paths, device=device)
+    return _simulate_gbm_torch(_generator(seed, device), market, T, sim, device)
+
+
+def _generator(seed, device) -> torch.Generator:
     if isinstance(seed, torch.Generator):
-        generator = seed
+        return seed
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(seed))
+    return generator
+
+
+def simulate_gbm_multi(
+    seed: Union[int, torch.Generator],
+    S0,
+    r,
+    sigma,
+    T,
+    sim: SimConfig,
+    q=None,
+    corr=None,
+    device: Union[str, torch.device] = "cuda",
+) -> torch.Tensor:
+    """Correlated multi-asset GBM on ``device``, time-major ``(n_steps+1,
+    n_paths, n_assets)`` (amcx's ``simulate_gbm_multi``).
+
+    ``corr``: the asset correlation matrix (identity if None), applied by
+    its Cholesky factor L as ``W_b = Σ_{a≤b} Z_a L[b, a]`` in elementwise
+    f32 products, so no matrix product (and no TF32 setting) reaches the
+    paths. ``S0``/``r``/``sigma``/``q`` broadcast per asset. ``seed`` as in
+    :func:`simulate_gbm` (the ``"torch"`` simulator; amcx has no kernel
+    pathgen for baskets). The paths are differentiable in tensor inputs
+    (S0, r, sigma, q, T). ``sim.antithetic`` mirrors path i into path
+    i + n_paths/2.
+    """
+    device = torch.device(device)
+    dtype = sim.torch_dtype
+    S0 = torch.atleast_1d(torch.as_tensor(S0, dtype=dtype, device=device))
+    n_assets = S0.shape[0]
+    n_steps, n_paths = sim.n_steps, sim.n_paths
+
+    def vec(x):
+        return torch.broadcast_to(torch.as_tensor(x, dtype=dtype, device=device), (n_assets,))
+
+    generator = _generator(seed, device)
+    if sim.antithetic:
+        half = torch.randn((n_steps, n_paths // 2, n_assets), generator=generator, dtype=dtype,
+                           device=device)
+        Z = torch.cat([half, -half], dim=1)
     else:
-        generator = torch.Generator(device=device)
-        generator.manual_seed(int(seed))
-    return _simulate_gbm_torch(generator, market, T, sim, device)
+        Z = torch.randn((n_steps, n_paths, n_assets), generator=generator, dtype=dtype,
+                        device=device)
+    W = Z
+    if corr is not None:
+        L = torch.linalg.cholesky(torch.as_tensor(corr, dtype=dtype, device=device))
+        cols = []
+        for b in range(n_assets):
+            w_b = Z[..., 0] * L[b, 0]
+            for a in range(1, b + 1):
+                w_b = w_b + Z[..., a] * L[b, a]
+            cols.append(w_b)
+        W = torch.stack(cols, dim=-1)
+    r, sigma, q = vec(r), vec(sigma), vec(0.0 if q is None else q)
+    dt = torch.as_tensor(T, dtype=dtype, device=device) / n_steps
+    drift = (r - q - 0.5 * sigma ** 2) * dt
+    log_inc = drift + (sigma * torch.sqrt(dt)) * W
+    log_rel = torch.cat([torch.zeros((1, n_paths, n_assets), dtype=dtype, device=device),
+                         torch.cumsum(log_inc, dim=0)], dim=0)
+    return S0 * torch.exp(log_rel)

@@ -15,6 +15,7 @@ __all__ = [
     "intrinsic_value",
     "barrier_knocked",
     "barrier_gate",
+    "max_call_payoff",
     "payoff_fn_for",
 ]
 
@@ -49,6 +50,12 @@ def barrier_gate(paths_tm: torch.Tensor, barrier, barrier_type: str = "down-in")
     bt = barrier_type.strip().lower()
     knocked = barrier_knocked(paths_tm, barrier, down=bt.startswith("down"))
     return knocked if bt.endswith("in") else ~knocked
+
+
+def max_call_payoff(S: torch.Tensor, K) -> torch.Tensor:
+    """``max(max_i S_i - K, 0)`` over the trailing asset axis (Bermudan
+    max-call)."""
+    return torch.clamp_min(torch.amax(S, dim=-1) - K, 0.0)
 
 
 def payoff_fn_for(product: ProductSpec):

@@ -7,21 +7,31 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 It builds the kernels from ``amcx_torch/csrc`` (first use, one ``nvcc`` per
 source, in parallel), holds each one against its plain PyTorch version on
-the card at the main paths' shape, and drives two main paths at the
-flagship width of 1,048,576 paths x 100 steps:
+the card at the main paths' shape, and drives the main paths at full
+width:
 
 - phases 2-4: ``amcx_torch.price_option(engine="mega")`` on the Philox
-  pathgen (kernels ``gbm_paths`` and ``lsmc_mega``) against CRR-2000;
+  pathgen (kernels ``gbm_paths`` and ``lsmc_mega``) against CRR-2000, at
+  1,048,576 paths x 100 steps;
 - phases 5-7: the fused per-step engine (kernels ``lsmc_step_moments`` and
   ``lsmc_step_apply``) and the induction kernel's cf/tau planes, then
   ``price_option(engine="fused")`` against CRR-2000, a down-and-in put
   against the CRR barrier tree, a European put against Black-Scholes, and
   the pathwise Greeks routes of ``amcx_torch.price_and_greeks`` against
-  the closed form.
+  the closed form;
+- phases 8-10: the Andersen-Broadie Bermudan max-call (1,048,576 paths,
+  9 exercise dates, 5 and 2 assets): the multi-asset step kernels
+  ``ma_step_moments``/``ma_step_apply`` and the induction kernel
+  ``ma_mega`` against their plain versions, then
+  ``amcx_torch.price_max_call(engine="mega"|"fused")`` against the
+  published values 26.15 (5 assets) and 13.90 (2 assets).
 
-It times the pricings, each kernel and each plain version with CUDA
-events. Any failed phase raises (non-zero exit). Without a CUDA device, or
-outside a checkout, it exits non-zero and prints no result.
+It times the pricings, each kernel, each plain version and, where one
+PyTorch call computes the same function, that call, with CUDA events, and
+computes each kernel's bound: the larger of the bytes it must move over the
+card's memory rate and its arithmetic over the card's peak rates. Any
+failed phase raises (non-zero exit). Without a CUDA device, or outside a
+checkout, it exits non-zero and prints no result.
 
 Output: one line per phase, then the card's name and power limit, then one
 JSON line with the kernels' numbers, then the result line
@@ -39,6 +49,24 @@ N_PATHS = 1_048_576
 N_STEPS = 100
 S0, R, SIGMA, STRIKE, T = 100.0, 0.01, 0.2, 100.0, 1.0
 SEED = 20261016
+# the Andersen-Broadie Bermudan max-call and its published values
+MC_DATES, MC_R, MC_Q, MC_SIGMA, MC_T = 9, 0.05, 0.10, 0.2, 3.0
+MC_VALUES = {5: 26.15, 2: 13.90}
+MC_TOL = 0.35
+
+# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): HBM3
+# bandwidth, f32 and f64 arithmetic outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
+
+
+def _bound(n_bytes, f32_ops=0.0, f64_ops=0.0):
+    """Least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type (ms)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (f32_ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _require(cond, what):
@@ -64,6 +92,39 @@ def _time_ms(torch, fn, reps, warm):
     return statistics.median(times)
 
 
+def _profile(torch, fn, reps):
+    """Device time of ``reps`` calls of ``fn`` under torch.profiler: µs of
+    device time per call, the device idle share of the traced window (first
+    to last device event) and the six kernels with the most device time (µs
+    per call); None when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo, hi = busy + hi - lo, start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    per_name = {}
+    for e in events:
+        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"device_us_per_call": busy / reps,
+            "idle_share": 1.0 - busy / (spans[-1][1] - spans[0][0]),
+            "top_us_per_call": {name[:60]: us / reps for name, us in top}}
+
+
 def main():
     import torch
 
@@ -79,6 +140,12 @@ def main():
                                                 lsmc_price_megakernel)
     from amcx_torch.ops.lsmc_pallas import (step_apply, step_apply_reference, step_moments,
                                             step_moments_reference, step_stats, unpack_moments)
+    from amcx_torch.models.maxcall import (backward_induction_fused_maxcall,
+                                           backward_induction_fused_maxcall_reference)
+    from amcx_torch.ops import lsmc_ma_mega, maxcall_pallas
+    from amcx_torch.ops.lsmc_ma_mega import lsmc_price_ma_mega, lsmc_price_ma_mega_reference
+    from amcx_torch.ops.maxcall_pallas import (ma_step_apply, ma_step_apply_reference,
+                                               ma_step_moments, ma_step_moments_reference)
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -276,10 +343,18 @@ def main():
                                                   surface=row_k, **akw), 50, 5)
     ms_apply_plain = _time_ms(torch, lambda: step_apply_reference(
         stats, t_mid, coeffs, S_t, cf_p, tau_p, surface=row_p, **akw), 10, 2)
+    n_ex_step = int((tau_k == t_mid).sum())  # the paths each timed apply writes
+    # one PyTorch call for the same Gram: A_w^T A of the materialized (n, 5)
+    # design matrix, in full f32
+    design = amcx_torch.design_matrix((S_t - mean_t[t_mid]) * inv_std_t[t_mid], "chebyshev", 4)
+    design_w = design * (STRIKE - S_t > 0.0).to(torch.float32)[:, None]
+    ms_moments_lib = _time_ms(torch, lambda: torch.mm(design_w.T, design), 50, 5)
+    del design, design_w
     print(f"phase 5 one step t={t_mid} at {N_PATHS} paths: moments kernel vs plain max|d| "
           f"{moments_err:.3e}, apply kernel vs plain max|d| {apply_err:.3e} | moments kernel "
-          f"{ms_moments:.4f} ms plain {ms_moments_plain:.4f} ms | apply kernel {ms_apply:.4f} "
-          f"ms plain {ms_apply_plain:.4f} ms", flush=True)
+          f"{ms_moments:.4f} ms plain {ms_moments_plain:.4f} ms library A_w^T A "
+          f"{ms_moments_lib:.4f} ms | apply kernel {ms_apply:.4f} ms plain {ms_apply_plain:.4f} "
+          f"ms ({n_ex_step} paths written)", flush=True)
     del cf_k, tau_k, row_k, cf_p, tau_p, row_p
 
     # ---- phase 6: kernel 2's cf/tau planes vs its plain version ----------
@@ -390,23 +465,262 @@ def main():
           f"pricings {mean10:.5f} |err| {abs(mean10 - crr):.5f} | Greeks ms {greeks_ms}",
           flush=True)
 
+    # ---- phase 8: kernels 8+9 (multi-asset step kernels) vs their plain ---
+    # ---- versions, at the full-width 5-asset max-call ------------------------
+    mc_spec = amcx_torch.RegressionSpec(basis="chebyshev", degree=2)
+    mc_dt = MC_T / MC_DATES
+    mc_sim = amcx_torch.SimConfig(n_paths=N_PATHS, n_steps=MC_DATES)
+
+    def mc_paths(n_assets, seed):
+        return amcx_torch.simulate_gbm_multi(seed, [S0] * n_assets, MC_R, MC_SIGMA, MC_T, mc_sim,
+                                             q=MC_Q, device=dev)
+
+    paths5 = mc_paths(5, SEED)
+    torch.cuda.synchronize()
+    _require(tuple(paths5.shape) == (MC_DATES + 1, N_PATHS, 5), "max-call paths shape")
+    _require(bool(torch.isfinite(paths5).all()), "max-call paths finite")
+    planes5, stats5 = maxcall_pallas.ma_inputs(paths5, MC_R, mc_dt, sorted_basis=True,
+                                               exercise_from_step=1)
+    t_ma, m5 = 5, 21
+    mc_rdt = float(torch.tensor(MC_R) * torch.tensor(mc_dt))
+    cf5 = maxcall_pallas._payoff_for(list(planes5[MC_DATES]), STRIKE, "maxcall")
+    tau5 = torch.full((N_PATHS,), float(MC_DATES), device=dev)
+    makw = dict(K=STRIKE, basis="chebyshev", degree=2, mode="total", sorted_basis=True)
+    packed5 = ma_step_moments(stats5, t_ma, planes5[t_ma], cf5, tau5, rdt=mc_rdt, **makw)
+    packed5_plain = ma_step_moments_reference(stats5, t_ma, planes5[t_ma], cf5, tau5, rdt=mc_rdt,
+                                              **makw)
+    coeffs5 = amcx_torch.pinv_solve(*unpack_moments(packed5_plain, m5))
+    cf_k, tau_k, cf_p, tau_p = cf5.clone(), tau5.clone(), cf5.clone(), tau5.clone()
+    ma_step_apply(stats5, t_ma, coeffs5, planes5[t_ma], cf_k, tau_k, **makw)
+    ma_step_apply_reference(stats5, t_ma, coeffs5, planes5[t_ma], cf_p, tau_p, **makw)
+    torch.cuda.synchronize()
+    ma_moments_err = float(torch.max(torch.abs(packed5 - packed5_plain)))
+    ma_apply_err = max(float(torch.max(torch.abs(cf_k - cf_p))),
+                       float(torch.max(torch.abs(tau_k - tau_p))))
+    n_ex5 = int((tau_k == t_ma).sum())
+    _require(tuple(packed5.shape) == (252,), "packed moments P = 252")
+    _require(ma_moments_err == 0.0, f"ma moments kernel vs plain max|d| {ma_moments_err:.3e} == 0")
+    _require(ma_apply_err == 0.0 and n_ex5 > 0,
+             f"ma apply kernel vs plain max|d| {ma_apply_err:.3e} == 0 ({n_ex5} exercised)")
+    ms_ma_moments = _time_ms(torch, lambda: ma_step_moments(
+        stats5, t_ma, planes5[t_ma], cf5, tau5, rdt=mc_rdt, **makw), 50, 5)
+    ms_ma_moments_plain = _time_ms(torch, lambda: ma_step_moments_reference(
+        stats5, t_ma, planes5[t_ma], cf5, tau5, rdt=mc_rdt, **makw), 5, 1)
+    ms_ma_apply = _time_ms(torch, lambda: ma_step_apply(
+        stats5, t_ma, coeffs5, planes5[t_ma], cf_k, tau_k, **makw), 50, 5)
+    ms_ma_apply_plain = _time_ms(torch, lambda: ma_step_apply_reference(
+        stats5, t_ma, coeffs5, planes5[t_ma], cf_p, tau_p, **makw), 10, 2)
+    # one PyTorch call for the same Gram: A^T A of the materialized (n, 21)
+    # design matrix (all-paths fit), in full f32, as amcx's XLA engine does
+    cols5 = maxcall_pallas._columns(list(planes5[t_ma]), stats5, t_ma, "chebyshev", 2, "total",
+                                    True)
+    design5 = torch.stack(cols5, dim=1)
+    del cols5
+    ms_ma_moments_lib = _time_ms(torch, lambda: torch.mm(design5.T, design5), 50, 5)
+    del design5, cf_k, tau_k, cf_p, tau_p
+    print(f"phase 8 one step t={t_ma} of the 5-asset max-call at {N_PATHS} paths (m = {m5}, "
+          f"P = 252): moments kernel vs plain max|d| {ma_moments_err:.3e}, apply kernel vs plain "
+          f"max|d| {ma_apply_err:.3e} ({n_ex5} paths exercised) | moments kernel "
+          f"{ms_ma_moments:.4f} ms plain {ms_ma_moments_plain:.4f} ms library A^T A "
+          f"{ms_ma_moments_lib:.4f} ms | apply kernel {ms_ma_apply:.4f} ms plain "
+          f"{ms_ma_apply_plain:.4f} ms", flush=True)
+
+    before = (ma_step_moments.launches, ma_step_apply.launches)
+    ker = backward_induction_fused_maxcall(paths5, STRIKE, MC_R, mc_dt, mc_spec)
+    again = backward_induction_fused_maxcall(paths5, STRIKE, MC_R, mc_dt, mc_spec)
+    torch.cuda.synchronize()
+    n_launch = (ma_step_moments.launches - before[0], ma_step_apply.launches - before[1])
+    ref = backward_induction_fused_maxcall_reference(paths5, STRIKE, MC_R, mc_dt, mc_spec)
+    torch.cuda.synchronize()
+    ma_fused_diffs = {f: float(torch.max(torch.abs(getattr(ker, f) - getattr(ref, f))))
+                      for f in ("price", "stderr", "cashflows", "exercise_times")}
+    same_ref = all(torch.equal(a, b) for a, b in zip(ker[:4], ref[:4]))
+    same_rerun = all(torch.equal(a, b) for a, b in zip(ker[:4], again[:4]))
+    print(f"phase 8 fused induction, 5-asset max-call {N_PATHS}x{MC_DATES}: kernel "
+          f"{float(ker.price):.6f} plain {float(ref.price):.6f} stderr {float(ker.stderr):.5f} | "
+          f"max|d| {ma_fused_diffs} | launches (moments, apply) {n_launch} | equal to plain "
+          f"{same_ref} | bit-identical rerun {same_rerun}", flush=True)
+    _require(n_launch == (2 * MC_DATES, 2 * MC_DATES), f"fused max-call launches {n_launch}")
+    _require(same_ref, f"fused max-call kernels equal to their plain versions {ma_fused_diffs}")
+    _require(same_rerun, "fused max-call: two kernel runs bit-identical")
+    ma_fused_err = max(ma_fused_diffs.values())
+    del ker, again, ref
+
+    # ---- phase 9: kernel 7 (multi-asset induction) vs its plain version ---
+    ma_mega_err = 0.0
+    for kind in ("maxcall", "basket"):
+        kw = dict(payoff_kind=kind, degree=2, sorted_basis=kind == "maxcall",
+                  exercise_from_step=1, return_cf_tau=True)
+        before = lsmc_price_ma_mega.launches
+        ker = lsmc_price_ma_mega(paths5, STRIKE, MC_R, mc_dt, **kw)
+        again = lsmc_price_ma_mega(paths5, STRIKE, MC_R, mc_dt, **kw)
+        torch.cuda.synchronize()
+        n_launch = lsmc_price_ma_mega.launches - before
+        ref = lsmc_price_ma_mega_reference(paths5, STRIKE, MC_R, mc_dt, **kw)
+        torch.cuda.synchronize()
+        diffs = [float(torch.max(torch.abs(a - b))) for a, b in zip(ker, ref)]
+        same_ref = all(torch.equal(a, b) for a, b in zip(ker, ref))
+        same_rerun = all(torch.equal(a, b) for a, b in zip(ker, again))
+        n_ex = int((ker[3] < MC_DATES).sum())
+        print(f"phase 9 ma-mega induction {kind} 5 assets {N_PATHS}x{MC_DATES}: kernel "
+              f"{float(ker[0]):.6f} plain {float(ref[0]):.6f} stderr {float(ker[1]):.5f} | "
+              f"max|d| price/stderr/cf/tau {diffs} | early-exercised paths {n_ex} | launches "
+              f"{n_launch} | equal to plain {same_ref} | bit-identical rerun {same_rerun}",
+              flush=True)
+        _require(math.isfinite(float(ker[0])) and n_ex > 0, f"{kind}: finite price, exercise")
+        _require(n_launch == 2, f"{kind}: ma-mega launches {n_launch}")
+        _require(same_ref, f"{kind}: ma-mega kernel equal to its plain version {diffs}")
+        _require(same_rerun, f"{kind}: two ma-mega runs bit-identical")
+        ma_mega_err = max(ma_mega_err, *diffs)
+        del ker, again, ref
+    # the induction alone (asset-major planes, frame and stats built once)
+    mega_in = lsmc_ma_mega.prepare(paths5, STRIKE, MC_R, mc_dt, payoff_kind="maxcall", degree=2,
+                                   sorted_basis=True, exercise_from_step=1)
+    ms_ma_mega = _time_ms(torch, lambda: lsmc_ma_mega._ma_mega_cuda(*mega_in, False, False), 20,
+                          3)
+    ms_ma_mega_plain = _time_ms(torch, lambda: lsmc_ma_mega._ma_mega_reference(
+        *mega_in, False, False), 3, 1)
+    print(f"phase 9 ma-mega induction kernel {ms_ma_mega:.3f} ms plain {ms_ma_mega_plain:.3f} ms",
+          flush=True)
+    del mega_in
+
+    # ---- phase 10: the slice at full width: price_max_call on the card ----
+    def max_call(engine, n_assets, seed=SEED):
+        return amcx_torch.price_max_call(seed, [S0] * n_assets, STRIKE, MC_T, MC_R, MC_SIGMA,
+                                         q=MC_Q, n_paths=N_PATHS, spec=mc_spec, engine=engine,
+                                         return_paths=True, device=dev)
+
+    def induction(engine, paths):
+        if engine == "mega":
+            return lsmc_price_ma_mega(paths, STRIKE, MC_R, mc_dt, degree=2, sorted_basis=True,
+                                      exercise_from_step=1)[0]
+        return backward_induction_fused_maxcall(paths, STRIKE, MC_R, mc_dt, mc_spec).price
+
+    all_kernels = (gbm_paths, lsmc_price_megakernel, step_moments, step_apply, ma_step_moments,
+                   ma_step_apply, lsmc_price_ma_mega)
+    mc_launches, mc_ms = {}, {}
+    for n_assets in (5, 2):
+        res, mc_p = {}, {}
+        for engine in ("mega", "fused"):
+            torch.cuda.synchronize()
+            for kernel in all_kernels:
+                kernel.launches = 0
+            res[engine], mc_p[engine] = max_call(engine, n_assets)
+            torch.cuda.synchronize()
+            mc_launches[(engine, n_assets)] = {
+                "ma_step_moments": ma_step_moments.launches,
+                "ma_step_apply": ma_step_apply.launches, "ma_mega": lsmc_price_ma_mega.launches}
+        want = (dict(ma_step_moments=0, ma_step_apply=0, ma_mega=1),
+                dict(ma_step_moments=MC_DATES, ma_step_apply=MC_DATES, ma_mega=0))
+        _require((mc_launches[("mega", n_assets)], mc_launches[("fused", n_assets)]) == want,
+                 f"max-call routes launched their kernels {mc_launches}")
+        _require(torch.equal(mc_p["mega"], mc_p["fused"]), "both routes priced the same paths")
+        xla = amcx_torch.price_max_call(SEED, [S0] * n_assets, STRIKE, MC_T, MC_R, MC_SIGMA,
+                                        q=MC_Q, n_paths=N_PATHS, spec=mc_spec, device=dev)
+        p_m, p_f, p_x = (float(r.price) for r in (res["mega"], res["fused"], xla))
+        se_f = float(res["fused"].stderr)
+        lit = MC_VALUES[n_assets]
+        for engine, p in (("mega", p_m), ("fused", p_f)):
+            _require(math.isfinite(p) and abs(p - lit) <= MC_TOL,
+                     f"{n_assets}-asset {engine} |{p:.5f} - {lit}| <= {MC_TOL}")
+        _require(abs(p_f - p_m) <= 5e-3, f"|fused - mega| = {abs(p_f - p_m):.2e} <= 5e-3")
+        _require(abs(p_x - p_f) <= se_f, f"|xla - fused| = {abs(p_x - p_f):.2e} <= {se_f:.5f}")
+        del mc_p, xla
+        for engine in ("mega", "fused"):
+            seeds = iter(range(SEED + 1, SEED + 1000))
+            ms_total = _time_ms(torch, lambda: max_call(engine, n_assets, next(seeds)), 10, 2)
+            gen_ms, ind_ms = [], []
+            for seed in range(SEED + 1000, SEED + 1010):
+                e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+                e0.record()
+                paths = mc_paths(n_assets, seed)
+                e1.record()
+                induction(engine, paths)
+                e2.record()
+                e2.synchronize()
+                gen_ms.append(e0.elapsed_time(e1))
+                ind_ms.append(e1.elapsed_time(e2))
+                del paths
+            mc_ms[(engine, n_assets)] = (ms_total, statistics.median(gen_ms),
+                                         statistics.median(ind_ms))
+            if n_assets == 5:
+                prof = _profile(torch, lambda: max_call(engine, 5), 3)
+                print(f"phase 10 profile {engine} 5-asset pricing: "
+                      f"{prof or 'no device activity recorded'}", flush=True)
+        print(f"phase 10 max-call {n_assets} assets {N_PATHS}x{MC_DATES}: mega {p_m:.5f} stderr "
+              f"{float(res['mega'].stderr):.5f} | fused {p_f:.5f} stderr {se_f:.5f} | xla {p_x:.5f}"
+              f" | Andersen-Broadie {lit} |mega - lit| {abs(p_m - lit):.5f} |fused - mega| "
+              f"{abs(p_f - p_m):.2e} |xla - fused| {abs(p_x - p_f):.2e} | launches per pricing "
+              f"mega {mc_launches[('mega', n_assets)]} fused {mc_launches[('fused', n_assets)]} | "
+              f"ms per pricing (median of 10; pathgen, induction): mega "
+              f"{mc_ms[('mega', n_assets)]} fused {mc_ms[('fused', n_assets)]}", flush=True)
+        del res
+    del paths5, planes5, cf5, tau5
+
+    # ---- bounds: bytes each kernel must move and its arithmetic ----------
+    P4, k4 = 20, 5  # step kernels and mega induction: Chebyshev degree 4
+    P21 = 252
+    row = N_PATHS * 4
+    bounds = {
+        # writes the (T+1, n) paths; ~6 f32 operations per path-step (Box-
+        # Muller's share, the log-increment multiply-add, the exp)
+        "gbm_paths": _bound((N_STEPS + 1) * row, f32_ops=6 * N_STEPS * N_PATHS),
+        # reads the paths once; per path-step the P pair products (f32) and
+        # their f64 sums, and the 2k-1 operations of the fitted continuation
+        "lsmc_mega": _bound((N_STEPS + 1) * row + 4 * (N_STEPS + 1) * 4,
+                            f32_ops=N_STEPS * N_PATHS * (P4 + 2 * k4 - 1),
+                            f64_ops=N_STEPS * N_PATHS * P4),
+        # reads S_t, cf, tau; P products and f64 sums per path
+        "lsmc_step_moments": _bound(3 * row, f32_ops=N_PATHS * P4, f64_ops=N_PATHS * P4),
+        # reads S_t (never cf or tau), writes the surface row and cf/tau of
+        # the exercised paths
+        "lsmc_step_apply": _bound(2 * row + 8 * n_ex_step, f32_ops=N_PATHS * (2 * k4 - 1)),
+        # reads the 5 asset planes of every date once; per path and step the
+        # 252 pair products and f64 sums, and the 2m-1 operations of the
+        # fitted continuation on the 8 exercise dates
+        "ma_mega": _bound((MC_DATES + 1) * 5 * row, f32_ops=N_PATHS * (MC_DATES * P21
+                                                                        + 8 * (2 * m5 - 1)),
+                          f64_ops=MC_DATES * N_PATHS * P21),
+        # reads the step's 5 planes, cf and tau; 252 products and f64 sums
+        "ma_step_moments": _bound(7 * row, f32_ops=N_PATHS * P21, f64_ops=N_PATHS * P21),
+        # reads the step's 5 planes (never cf or tau), writes cf/tau of the
+        # exercised paths
+        "ma_step_apply": _bound(5 * row + 8 * n_ex5, f32_ops=N_PATHS * (2 * m5 - 1)),
+    }
+
     print(smi)
-    print(json.dumps({"kernels": [
+    print(json.dumps({"kernels": [dict(k, bound_ms=bounds[k["name"]][0],
+                                       bound_by=bounds[k["name"]][1]) for k in [
         {"name": "gbm_paths", "route": "cuda", "source": "amcx_torch/csrc/gbm.cu",
          "replaces": "amcx/ops/gbm_pallas.py:115", "launches": launches["gbm_paths"],
-         "max_abs_err": gbm_err, "ms": ms_gbm, "plain_ms": ms_gbm_plain},
+         "max_abs_err": gbm_err, "ms": ms_gbm, "plain_ms": ms_gbm_plain, "library_ms": None},
         {"name": "lsmc_mega", "route": "cuda", "source": "amcx_torch/csrc/lsmc_mega.cu",
          "replaces": "amcx/ops/lsmc_megakernel.py:282", "launches": launches["lsmc_mega"],
-         "max_abs_err": mega_err, "ms": ms_mega, "plain_ms": ms_mega_plain},
+         "max_abs_err": mega_err, "ms": ms_mega, "plain_ms": ms_mega_plain, "library_ms": None},
         {"name": "lsmc_step_moments", "route": "cuda", "source": "amcx_torch/csrc/lsmc_step.cu",
          "replaces": "amcx/ops/lsmc_pallas.py:117",
          "launches": fused_launches["lsmc_step_moments"],
          "max_abs_err": max(moments_err, fused_err), "ms": ms_moments,
-         "plain_ms": ms_moments_plain},
+         "plain_ms": ms_moments_plain, "library_ms": ms_moments_lib},
         {"name": "lsmc_step_apply", "route": "cuda", "source": "amcx_torch/csrc/lsmc_step.cu",
          "replaces": "amcx/ops/lsmc_pallas.py:249", "launches": fused_launches["lsmc_step_apply"],
-         "max_abs_err": max(apply_err, fused_err), "ms": ms_apply, "plain_ms": ms_apply_plain},
-    ]}))
+         "max_abs_err": max(apply_err, fused_err), "ms": ms_apply, "plain_ms": ms_apply_plain,
+         "library_ms": None},
+        {"name": "ma_mega", "route": "cuda", "source": "amcx_torch/csrc/lsmc_ma_mega.cu",
+         "replaces": "amcx/ops/lsmc_ma_mega.py:94",
+         "launches": mc_launches[("mega", 5)]["ma_mega"], "max_abs_err": ma_mega_err,
+         "ms": ms_ma_mega, "plain_ms": ms_ma_mega_plain, "library_ms": None},
+        {"name": "ma_step_moments", "route": "cuda", "source": "amcx_torch/csrc/ma_step.cu",
+         "replaces": "amcx/ops/maxcall_pallas.py:137",
+         "launches": mc_launches[("fused", 5)]["ma_step_moments"],
+         "max_abs_err": max(ma_moments_err, ma_fused_err), "ms": ms_ma_moments,
+         "plain_ms": ms_ma_moments_plain, "library_ms": ms_ma_moments_lib},
+        {"name": "ma_step_apply", "route": "cuda", "source": "amcx_torch/csrc/ma_step.cu",
+         "replaces": "amcx/ops/maxcall_pallas.py:239",
+         "launches": mc_launches[("fused", 5)]["ma_step_apply"],
+         "max_abs_err": max(ma_apply_err, ma_fused_err), "ms": ms_ma_apply,
+         "plain_ms": ms_ma_apply_plain, "library_ms": None},
+    ]]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

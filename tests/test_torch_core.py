@@ -238,7 +238,9 @@ def test_port_imports_without_jax():
         "sys.modules['amcx'] = None\n"
         "import amcx_torch, amcx_torch.ops, amcx_torch.ops.gbm, "
         "amcx_torch.ops.lsmc_megakernel, amcx_torch.ops.lsmc_pallas, amcx_torch.ops._build, "
-        "amcx_torch.interop, amcx_torch.engine_pallas, amcx_torch.greeks\n"
+        "amcx_torch.interop, amcx_torch.engine_pallas, amcx_torch.greeks, "
+        "amcx_torch.models, amcx_torch.models.maxcall, amcx_torch.ops.maxcall_pallas, "
+        "amcx_torch.ops.lsmc_ma_mega, amcx_torch.kernel_profile\n"
         "from amcx_torch.ops._build import build_info\n"
         "assert build_info['paths'] is None\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules "

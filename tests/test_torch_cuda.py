@@ -14,9 +14,12 @@ import torch
 
 import amcx_torch as at
 from amcx_torch import engine_pallas as tfused
+from amcx_torch.models import maxcall as tmaxcall
 from amcx_torch.ops import gbm as tgbm
+from amcx_torch.ops import lsmc_ma_mega as tmamega
 from amcx_torch.ops import lsmc_megakernel as tmega
 from amcx_torch.ops import lsmc_pallas as tstep
+from amcx_torch.ops import maxcall_pallas as tma
 
 pytestmark = pytest.mark.cuda
 
@@ -195,3 +198,101 @@ def test_fused_price_diff_on_card(cuda_device):
     torch.testing.assert_close(g_r, torch.mean(-dt32 * tau * cf * disc), rtol=1e-5, atol=0)
     torch.testing.assert_close(g_K, torch.mean(torch.where(ex, disc, 0.0)), rtol=1e-5, atol=0)
     torch.testing.assert_close(g_dt, torch.mean(-r32 * tau * cf * disc), rtol=1e-5, atol=0)
+
+
+# the Andersen-Broadie max-call (S0 = K = 100, r = 5%, q = 10%, sigma = 20%,
+# T = 3, 9 exercise dates)
+MC = dict(K=100.0, T=3.0, r=0.05, sigma=0.2, q=0.1)
+RDT_MC = float(torch.tensor(0.05 / 3.0))  # r * dt, an f32 value
+
+
+def _basket_paths(device, n, n_assets, seed, antithetic=False):
+    sim = at.SimConfig(n_paths=n, n_steps=9, antithetic=antithetic)
+    return at.simulate_gbm_multi(seed, [100.0] * n_assets, MC["r"], MC["sigma"], MC["T"], sim,
+                                 q=MC["q"], device=device)
+
+
+@pytest.mark.parametrize("n", [8_192, 131_072])
+@pytest.mark.parametrize("itm", [False, True], ids=["all", "itm"])
+def test_ma_step_kernels_match_plain(cuda_device, n, itm):
+    # kernels 8+9 at 5 assets, m = 21: one step, then the whole fused
+    # induction, against the plain versions on the same card - f64 moments
+    # rounded once, -fmad=false and the same pinv_solve: identical bits
+    paths = _basket_paths(cuda_device, n, 5, 21)
+    spec = at.RegressionSpec(basis="chebyshev", degree=2, regress_on="itm" if itm else "all")
+    mean_t, inv_std_t = tma.maxcall_standardization(paths, "sorted")
+    stats = tma.ma_stats(mean_t, inv_std_t, MC["r"], 1.0 / 3.0, torch.ones(10, device=cuda_device))
+    planes = paths.permute(0, 2, 1).contiguous()
+    cf = tma._payoff_for(list(planes[9]), 100.0, "maxcall")
+    tau = torch.full((n,), 9.0, device=cuda_device)
+    kw = dict(K=100.0, basis="chebyshev", degree=2, mode="total", sorted_basis=True)
+    before = (tma.ma_step_moments.launches, tma.ma_step_apply.launches)
+    packed = tma.ma_step_moments(stats, 5, planes[5], cf, tau, rdt=RDT_MC, itm_weights=itm, **kw)
+    ref = tma.ma_step_moments_reference(stats, 5, planes[5], cf, tau, rdt=RDT_MC,
+                                        itm_weights=itm, **kw)
+    coeffs = at.pinv_solve(*tstep.unpack_moments(ref, 21))
+    cf_k, tau_k, cf_p, tau_p = cf.clone(), tau.clone(), cf.clone(), tau.clone()
+    tma.ma_step_apply(stats, 5, coeffs, planes[5], cf_k, tau_k, **kw)
+    tma.ma_step_apply_reference(stats, 5, coeffs, planes[5], cf_p, tau_p, **kw)
+    torch.cuda.synchronize()
+    assert (tma.ma_step_moments.launches, tma.ma_step_apply.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    assert packed.shape == (252,) and torch.equal(packed, ref)
+    assert torch.equal(cf_k, cf_p) and torch.equal(tau_k, tau_p) and bool((tau_k == 5).any())
+    ker = tmaxcall.backward_induction_fused_maxcall(paths, 100.0, 0.05, 1.0 / 3.0, spec)
+    again = tmaxcall.backward_induction_fused_maxcall(paths, 100.0, 0.05, 1.0 / 3.0, spec)
+    plain = tmaxcall.backward_induction_fused_maxcall_reference(paths, 100.0, 0.05, 1.0 / 3.0,
+                                                                spec)
+    torch.cuda.synchronize()
+    for out in (again, plain):
+        for a, b in zip(ker[:4], out[:4]):
+            assert torch.equal(a, b)
+
+
+MA_MEGA_CARD_CASES = {
+    # (n_assets, payoff_kind, keywords)
+    "maxcall-cf-tau": (5, "maxcall", dict(sorted_basis=True, return_cf_tau=True)),
+    "maxcall-itm-antithetic": (5, "maxcall", dict(sorted_basis=True, itm_weights=True,
+                                                  antithetic=True)),
+    "basket-cf-tau": (5, "basket", dict(return_cf_tau=True)),
+    "geobasket-separable": (3, "geobasket", dict(mode="separable", degree=3)),
+}
+
+
+@pytest.mark.parametrize("n", [8_192, 131_072])
+@pytest.mark.parametrize("case", sorted(MA_MEGA_CARD_CASES))
+def test_ma_mega_kernel_matches_plain(cuda_device, case, n):
+    # kernel 7 against its plain version on the same card paths: identical
+    # bits (price, stderr and the cf/tau planes), and a rerun identical
+    n_assets, kind, kw = MA_MEGA_CARD_CASES[case]
+    paths = _basket_paths(cuda_device, n, n_assets, 3, antithetic=kw.get("antithetic", False))
+    args = (paths, 100.0, MC["r"], 1.0 / 3.0)
+    kw = dict(dict(degree=2, exercise_from_step=1, payoff_kind=kind), **kw)
+    before = tmamega.lsmc_price_ma_mega.launches
+    ker = tmamega.lsmc_price_ma_mega(*args, **kw)
+    again = tmamega.lsmc_price_ma_mega(*args, **kw)
+    ref = tmamega.lsmc_price_ma_mega_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert tmamega.lsmc_price_ma_mega.launches == before + 2
+    assert math.isfinite(float(ker[0])) and float(ker[1]) > 0
+    for out in (again, ref):
+        for a, b in zip(ker, out):
+            assert torch.equal(a, b)
+
+
+def test_price_max_call_routes_on_card(cuda_device):
+    # the slice's entry point at 131k paths, 2 assets: mega and fused price
+    # the same card paths within 5e-3 of each other and within 0.35 of the
+    # Andersen-Broadie 13.90; each route launches its kernels
+    tmamega.lsmc_price_ma_mega.launches = 0
+    tma.ma_step_moments.launches = tma.ma_step_apply.launches = 0
+    kw = dict(n_paths=131_072, q=MC["q"], return_paths=True, device=cuda_device)
+    args = (7, [100.0, 100.0], MC["K"], MC["T"], MC["r"], MC["sigma"])
+    mega, paths = at.price_max_call(*args, engine="mega", **kw)
+    fused, paths_f = at.price_max_call(*args, engine="fused", **kw)
+    torch.cuda.synchronize()
+    assert tmamega.lsmc_price_ma_mega.launches == 1
+    assert tma.ma_step_moments.launches == tma.ma_step_apply.launches == 9
+    assert torch.equal(paths, paths_f) and paths.shape == (10, 131_072, 2)
+    assert abs(float(mega.price) - float(fused.price)) <= 5e-3
+    assert abs(float(mega.price) - 13.90) <= 0.35

@@ -200,11 +200,40 @@ def test_price_option_mega_on_cpu_launches_no_kernel():
                           at.ProductSpec(K=K, T=1.0, option_type="put", exercise="american"),
                           at.RegressionSpec(), at.SimConfig(n_paths=4096, n_steps=8,
                                                             backend="philox"),
-                          engine="mega", return_coeffs=True)
+                          engine="mega", return_coeffs=True, device="cpu")
     assert tgbm.gbm_paths.launches == 0
     assert tmega.lsmc_price_megakernel.launches == 0
     assert res.coeffs.shape == (9, 5) and not res.coeffs[0].any()
     assert np.isfinite(float(res.price)) and float(res.stderr) > 0
+
+
+ENTRY_POINTS = {
+    "price_option": lambda: at.price_option(
+        0, at.MarketParams(S0, R, SIGMA), at.ProductSpec(K=K, T=1.0, option_type="put"),
+        sim=at.SimConfig(n_paths=64, n_steps=4)),
+    "simulate_gbm": lambda: at.simulate_gbm(0, at.MarketParams(S0, R, SIGMA), 1.0,
+                                            at.SimConfig(n_paths=64, n_steps=4)),
+    "price_and_greeks": lambda: at.price_and_greeks(
+        0, at.MarketParams(S0, R, SIGMA), at.ProductSpec(K=K, T=1.0, option_type="put"),
+        sim=at.SimConfig(n_paths=64, n_steps=4)),
+    "gamma_fd": lambda: at.gamma_fd(
+        0, at.MarketParams(S0, R, SIGMA), at.ProductSpec(K=K, T=1.0, option_type="put"),
+        sim=at.SimConfig(n_paths=64, n_steps=4)),
+    "gbm_paths": lambda: tgbm.gbm_paths(0, S0, R, SIGMA, 0.0, 1.0, 4, 64),
+    "price_max_call": lambda: at.price_max_call(0, [S0, S0], K, 3.0, 0.05, SIGMA, q=0.1,
+                                                n_paths=64),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(entry):
+    # the card by default: without a card, a call that does not ask for the
+    # CPU raises (torch's own error allocating on "cuda") and never carries
+    # on quietly on the CPU
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises((RuntimeError, AssertionError)):
+        ENTRY_POINTS[entry]()
 
 
 def test_price_option_engines_agree_and_gate_on_crr():
@@ -214,8 +243,8 @@ def test_price_option_engines_agree_and_gate_on_crr():
     market = at.MarketParams(S0, R, SIGMA)
     prod = at.ProductSpec(K=K, T=1.0, option_type="put", exercise="american")
     sim = at.SimConfig(n_paths=16384, n_steps=32, backend="philox")
-    mega = at.price_option(5, market, prod, at.RegressionSpec(), sim, engine="mega")
-    ref = at.price_option(5, market, prod, at.RegressionSpec(), sim, engine="xla")
+    mega = at.price_option(5, market, prod, at.RegressionSpec(), sim, engine="mega", device="cpu")
+    ref = at.price_option(5, market, prod, at.RegressionSpec(), sim, engine="xla", device="cpu")
     crr = at.crr_price(S0, K, 1.0, R, SIGMA, 2000, option_type="put", american=True)
     se = float(ref.stderr)
     assert abs(float(mega.price) - crr) <= 4 * se + 0.05  # 0.05: 32-date discretisation
@@ -228,17 +257,19 @@ def test_unported_routes_raise():
     sim = at.SimConfig(n_paths=64, n_steps=4, backend="philox")
     prod = at.ProductSpec(K=K, T=1.0, option_type="put", exercise="american")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        at.price_option(0, market, prod, sim=sim, engine="fusedpath")
+        at.price_option(0, market, prod, sim=sim, engine="fusedpath", device="cpu")
     barrier = at.ProductSpec(K=K, T=1.0, barrier=80.0, option_type="put", exercise="american")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        at.price_option(0, market, barrier, sim=sim, engine="mega")
+        at.price_option(0, market, barrier, sim=sim, engine="mega", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        at.price_option(0, market, prod, sim=sim, engine="mega", exercise_steps=(1, 2))
+        at.price_option(0, market, prod, sim=sim, engine="mega", exercise_steps=(1, 2),
+                        device="cpu")
     with pytest.raises(ValueError, match="engine"):
-        at.price_option(0, market, prod, sim=sim, engine="tpu")
+        at.price_option(0, market, prod, sim=sim, engine="tpu", device="cpu")
     with pytest.raises(ValueError, match="coeffs"):
-        at.price_option(0, market, prod, sim=sim, engine="fused", return_coeffs=True)
-    paths = tgbm.gbm_paths(0, S0, R, SIGMA, 0.0, 1.0, 4, 64)
+        at.price_option(0, market, prod, sim=sim, engine="fused", return_coeffs=True,
+                        device="cpu")
+    paths = tgbm.gbm_paths(0, S0, R, SIGMA, 0.0, 1.0, 4, 64, device="cpu")
     for kw in (dict(replay_coeffs=np.zeros((4, 5))), dict(antithetic=True),
                dict(r=torch.full((5,), R))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -208,13 +208,14 @@ def test_price_option_fused_on_cpu():
     market = at.MarketParams(S0, R, SIGMA)
     prod = at.ProductSpec(K=K, T=1.0, option_type="put", exercise="american")
     sim = at.SimConfig(n_paths=16384, n_steps=32, backend="philox")
-    fused = at.price_option(5, market, prod, sim=sim, engine="fused")
-    ref = at.price_option(5, market, prod, sim=sim, engine="xla")
+    fused = at.price_option(5, market, prod, sim=sim, engine="fused", device="cpu")
+    ref = at.price_option(5, market, prod, sim=sim, engine="xla", device="cpu")
     assert tstep.step_moments.launches == tstep.step_apply.launches == 0
     assert fused.cashflows.shape == fused.exercise_times.shape == (16384,)
     crr = at.crr_price(S0, K, 1.0, R, SIGMA, 2000, option_type="put", american=True)
     se = float(ref.stderr)
     assert abs(float(fused.price) - float(ref.price)) <= 2 * se
     assert abs(float(fused.price) - crr) <= 4 * se + 0.05
-    surf = at.price_option(5, market, prod, sim=sim, engine="fused", return_surface=True)
+    surf = at.price_option(5, market, prod, sim=sim, engine="fused", return_surface=True,
+                          device="cpu")
     assert surf.continuation.shape == (33, 16384)

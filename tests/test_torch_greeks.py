@@ -132,8 +132,8 @@ def test_xla_greeks_european_call_match_closed_form():
     n, T, K = 65_536, 1.0, 100.0
     sim = at.SimConfig(n_paths=n, n_steps=20)
     prod = at.ProductSpec(K=K, T=T, option_type="call", exercise="european")
-    p, g = at.price_and_greeks(42, M, prod, SPEC, sim, engine="xla")
-    S_T = at.simulate_gbm(42, M, T, sim)[-1].double()
+    p, g = at.price_and_greeks(42, M, prod, SPEC, sim, engine="xla", device="cpu")
+    S_T = at.simulate_gbm(42, M, T, sim, device="cpu")[-1].double()
     disc, itm = math.exp(-M.r * T), (S_T > K).double()
     W_T = (torch.log(S_T / M.S0) - (M.r - 0.5 * M.sigma ** 2) * T) / M.sigma
     terms = {"delta": disc * itm * S_T / M.S0,
@@ -158,8 +158,8 @@ def test_kernel_routes_match_xla_greeks(engine):
     # (measured up to 0.45% over 8 seeds)
     sim = at.SimConfig(n_paths=16_384, n_steps=20)
     prod = at.ProductSpec(K=100.0, T=1.0, option_type="put", exercise="american")
-    p_x, g_x = at.price_and_greeks(11, M, prod, SPEC, sim, engine="xla")
-    p_k, g_k = at.price_and_greeks(11, M, prod, SPEC, sim, engine=engine)
+    p_x, g_x = at.price_and_greeks(11, M, prod, SPEC, sim, engine="xla", device="cpu")
+    p_k, g_k = at.price_and_greeks(11, M, prod, SPEC, sim, engine=engine, device="cpu")
     if engine == "mega":
         assert abs(float(p_k) - float(p_x)) <= 0.01
         for name in ("delta", "vega", "rho"):
@@ -178,12 +178,13 @@ def test_fused_ad_barrier_and_gamma():
     # positive for a vanilla call
     sim = at.SimConfig(n_paths=16_384, n_steps=20)
     prod = at.ProductSpec(K=100.0, T=1.0, option_type="put", exercise="american", barrier=85.0)
-    p_x, g_x = at.price_and_greeks(4, M, prod, SPEC, sim, engine="xla")
-    p_f, g_f = at.price_and_greeks(4, M, prod, SPEC, sim, engine="fused-ad")
+    p_x, g_x = at.price_and_greeks(4, M, prod, SPEC, sim, engine="xla", device="cpu")
+    p_f, g_f = at.price_and_greeks(4, M, prod, SPEC, sim, engine="fused-ad", device="cpu")
     assert abs(float(p_f) - float(p_x)) <= 5e-3
     assert abs(float(g_f["delta"]) - float(g_x["delta"])) <= 1e-2
     call = at.ProductSpec(K=100.0, T=1.0, option_type="call", exercise="european")
-    assert float(at.gamma_fd(0, M, call, SPEC, at.SimConfig(n_paths=16_384, n_steps=10))) > 0
+    sim_g = at.SimConfig(n_paths=16_384, n_steps=10)
+    assert float(at.gamma_fd(0, M, call, SPEC, sim_g, device="cpu")) > 0
 
 
 def test_barrier_products_raise_on_fused_and_mega():
@@ -191,6 +192,6 @@ def test_barrier_products_raise_on_fused_and_mega():
     sim = at.SimConfig(n_paths=64, n_steps=4)
     for engine in ("fused", "mega"):
         with pytest.raises(ValueError, match="vanilla"):
-            at.price_and_greeks(0, M, prod, SPEC, sim, engine=engine)
+            at.price_and_greeks(0, M, prod, SPEC, sim, engine=engine, device="cpu")
     with pytest.raises(ValueError, match="engine"):
-        at.price_and_greeks(0, M, prod, SPEC, sim, engine="tpu")
+        at.price_and_greeks(0, M, prod, SPEC, sim, engine="tpu", device="cpu")

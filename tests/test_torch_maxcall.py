@@ -1,0 +1,487 @@
+"""The port's multi-asset slice (`amcx_torch.basis` cross terms,
+`amcx_torch.paths.simulate_gbm_multi`, `amcx_torch.models.maxcall`,
+`amcx_torch.ops.maxcall_pallas`, `amcx_torch.ops.lsmc_ma_mega`) against the
+JAX package on shared paths.
+
+Paths come from amcx's `simulate_gbm_multi` (JAX on the CPU) and reach the
+port as numpy arrays; amcx's kernels run in Pallas interpret mode, as its
+own tests run them. The port's kernel wrappers run their plain versions on
+CPU tensors. Early exercise makes f32 LSMC chaotic, so an engine pair with
+exercise flips is held to the first-flipped-step rules of `_lsmc_parity`.
+The configuration is the Andersen-Broadie max-call: S0 = K = 100,
+r = 5%, q = 10%, sigma = 20%, T = 3, 9 exercise dates, cut to 8,192 paths.
+"""
+
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import amcx
+import amcx_torch as at
+from amcx import basis as jbasis
+from amcx import engine as jengine
+from amcx.models import maxcall as jmaxcall
+from amcx.ops import lsmc_ma_mega as jmamega
+from amcx.ops import maxcall_pallas as jma
+from amcx_torch import basis as tbasis
+from amcx_torch.models import maxcall as tmaxcall
+from amcx_torch.ops import lsmc_ma_mega as tmamega
+from amcx_torch.ops import maxcall_pallas as tma
+from amcx_torch.ops.lsmc_pallas import unpack_moments
+from _lsmc_parity import first_divergence, hold_pair
+
+K, T, R, SIGMA, Q = 100.0, 3.0, 0.05, 0.2, 0.10
+N_PATHS, N_STEPS = 8192, 9
+DT = T / N_STEPS
+RDT = float(np.float32(np.float32(R) * np.float32(DT)))
+FAMILIES = ["power", "chebyshev", "legendre", "laguerre", "hermite"]
+JSPEC = amcx.RegressionSpec(basis="chebyshev", degree=2)
+TSPEC = at.RegressionSpec(basis="chebyshev", degree=2)
+
+
+def _jax_paths(n_assets, seed=0, antithetic=False, n_paths=N_PATHS):
+    sim = amcx.SimConfig(n_paths=n_paths, n_steps=N_STEPS, antithetic=antithetic)
+    return np.asarray(amcx.simulate_gbm_multi(jax.random.key(seed), jnp.full((n_assets,), 100.0),
+                                              R, SIGMA, T, sim, q=Q))
+
+
+@pytest.fixture(scope="module")
+def paths2():
+    return _jax_paths(2)
+
+
+@pytest.fixture(scope="module")
+def paths5():
+    return _jax_paths(5)
+
+
+def _t(a):
+    return at.tensor_from_numpy(a)
+
+
+def _values(cf, tau):
+    return np.asarray(cf, np.float64) * np.exp(-R * DT * np.asarray(tau, np.float64))
+
+
+def _hold_carry_pair(what, jres, tres, price_tol, se_rtol):
+    """An amcx/port pair of kernel-engine runs with cf/τ carries: decisions
+    read from τ (exercised at t ⟺ τ = t); no per-step rows are exported."""
+    tau_j, tau_t = np.asarray(jres[3]), tres[3].numpy()
+    steps = np.arange(N_STEPS)[:, None]
+    first = first_divergence(tau_j[None] == steps, tau_t[None] == steps)
+    empty = np.zeros((N_STEPS, 1))
+    hold_pair(what, jres[0], tres[0], jres[1], tres[1], empty, empty, first,
+              _values(jres[2], tau_j), _values(tres[2], tau_t), price_tol)
+    np.testing.assert_allclose(float(tres[1]), float(jres[1]), rtol=se_rtol)
+
+
+# ---------------------------------------------------------------------------
+# basis, payoffs, paths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["total", "separable"])
+@pytest.mark.parametrize("degree", [1, 2, 3])
+@pytest.mark.parametrize("n_assets", [2, 3, 5])
+def test_multi_asset_basis_matches_amcx(n_assets, degree, mode):
+    # index sets exact (the kernels read their column order from this
+    # table); columns rtol 1e-6: the same recurrences and products in the
+    # same f32 order
+    idx = tbasis._multi_index_set(n_assets, degree, mode)
+    assert idx == jbasis._multi_index_set(n_assets, degree, mode)
+    assert at.n_multi_terms(n_assets, degree, mode) == jbasis.n_multi_terms(n_assets, degree,
+                                                                            mode) == len(idx)
+    if len(idx) <= tma.MAX_COLS:
+        p = tma.ma_params(n_assets, "chebyshev", degree, mode, True, "maxcall", K, 1.0)
+        assert p.n_cols == len(idx)
+        assert [tuple(p.alpha[c][:n_assets]) for c in range(len(idx))] == idx
+    else:
+        with pytest.raises(ValueError, match="columns"):
+            tma.ma_params(n_assets, "chebyshev", degree, mode, True, "maxcall", K, 1.0)
+    X = np.random.default_rng(n_assets * 10 + degree).uniform(-2.0, 2.0, (512, n_assets))
+    X = X.astype(np.float32)
+    for family in FAMILIES:
+        ref = np.asarray(jbasis.multi_asset_design_matrix(jnp.asarray(X), family, degree, mode))
+        got = at.multi_asset_design_matrix(_t(X), family, degree, mode).numpy()
+        assert got.shape == ref.shape == (512, len(idx))
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0, err_msg=family)
+
+
+def _planes(n_assets, seed):
+    return np.random.default_rng(seed).uniform(60.0, 140.0, (n_assets, 4096)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", sorted(tma.PAYOFF_KINDS))
+def test_payoff_kinds_match_amcx(kind):
+    # exact on random positive planes: the same f32 operations in amcx's
+    # order. geobasket's log/exp are XLA's and torch's own f32 routines,
+    # which differ by a few ulp of the basket level (~100, ulp 7.6e-6)
+    # before the strike cancels it: atol 1e-4 there
+    pl = _planes(3, 1)
+    phi = -1.0 if kind in ("first", "spread") else 1.0
+    weights = (0.5, 0.3, 0.2) if kind in ("basket", "geobasket") else None
+    strike = 10.0 if kind == "spreadk" else K
+    ref = np.asarray(jma._payoff_for([jnp.asarray(p) for p in pl], strike, kind, phi, weights))
+    got = tma._payoff_for([_t(p) for p in pl], strike, kind, phi, weights).numpy()
+    assert (ref > 0).sum() > 100
+    if kind == "geobasket":
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    else:
+        np.testing.assert_array_equal(got, ref)
+    if kind == "maxcall":
+        S = np.moveaxis(pl, 0, -1)
+        np.testing.assert_array_equal(at.max_call_payoff(_t(S), K).numpy(),
+                                      np.asarray(amcx.max_call_payoff(jnp.asarray(S), K)))
+
+
+def test_simulate_gbm_multi_statistics(paths5):
+    # the torch RNG differs from amcx's: gates are statistical. E[S_T] per
+    # asset within 4 stderr of S0 e^{(r-q)T} and of amcx's mean; the
+    # correlation of the pooled log-increments (73,728 pairs, stderr ~0.003)
+    # within 0.02 of corr = 0.5
+    sim = at.SimConfig(n_paths=N_PATHS, n_steps=N_STEPS)
+    corr = np.array([[1.0, 0.5], [0.5, 1.0]])
+    S = at.simulate_gbm_multi(3, [100.0, 100.0], R, SIGMA, T, sim, q=Q, corr=corr,
+                              device="cpu").double()
+    assert S.shape == (N_STEPS + 1, N_PATHS, 2) and bool(torch.all(S[0] == 100.0))
+    ST = S[-1]
+    want = 100.0 * np.exp((R - Q) * T)
+    for a in range(2):
+        se = float(ST[:, a].std()) / np.sqrt(N_PATHS)
+        assert abs(float(ST[:, a].mean()) - want) < 4 * se
+        js = paths5[-1, :, a].astype(np.float64)
+        assert abs(float(ST[:, a].mean()) - js.mean()) < 4 * np.sqrt(se ** 2 + js.var() / N_PATHS)
+    inc = torch.log(S[1:] / S[:-1]).reshape(-1, 2)
+    assert abs(float(torch.corrcoef(inc.T)[0, 1]) - 0.5) < 0.02
+    # independent assets by default
+    S5 = at.simulate_gbm_multi(4, [100.0] * 5, R, SIGMA, T, sim, q=Q, device="cpu").double()
+    inc5 = torch.log(S5[1:] / S5[:-1]).reshape(-1, 5)
+    off = torch.corrcoef(inc5.T) - torch.eye(5, dtype=torch.float64)
+    assert float(off.abs().max()) < 0.02
+
+
+def test_simulate_gbm_multi_antithetic_and_autograd():
+    # antithetic: path i + n/2 mirrors path i, so their log-increments
+    # around the drift are negated (atol 2e-6: f32 log of f32 paths);
+    # autograd in S0 against a central difference of the European max-call
+    # value under the same seed (rtol 1e-3: the f32 rounding of the bumped
+    # paths and the few paths whose max or strike crossing moves inside
+    # the bump)
+    sim = at.SimConfig(n_paths=N_PATHS, n_steps=N_STEPS, antithetic=True)
+    S = at.simulate_gbm_multi(5, [100.0, 100.0], R, SIGMA, T, sim, q=Q, device="cpu")
+    la = torch.log(S[1:] / S[:-1]).double()
+    drift = (R - Q - 0.5 * SIGMA ** 2) * DT
+    h = N_PATHS // 2
+    np.testing.assert_allclose((la[:, :h] - drift).numpy(), -(la[:, h:] - drift).numpy(),
+                               atol=2e-6)
+    sim = at.SimConfig(n_paths=N_PATHS, n_steps=N_STEPS)
+    S0 = torch.tensor([100.0, 100.0], requires_grad=True)
+
+    def euro(s0):
+        S_T = at.simulate_gbm_multi(6, s0, R, SIGMA, T, sim, q=Q, device="cpu")[-1]
+        return np.exp(-R * T) * torch.mean(at.max_call_payoff(S_T, K).double())
+
+    (grad,) = torch.autograd.grad(euro(S0), S0)
+    bump = 1e-2
+    for a in range(2):
+        e = torch.zeros(2)
+        e[a] = bump
+        fd = (float(euro(S0.detach() + e)) - float(euro(S0.detach() - e))) / (2 * bump)
+        assert abs(float(grad[a]) - fd) <= 1e-3 * abs(fd), (a, float(grad[a]), fd)
+
+
+# ---------------------------------------------------------------------------
+# the step kernels' plain versions against amcx's kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+def _one_step(paths, t, sorted_basis, kind, phi, strike):
+    """Step t of a basket: the asset planes, a (cf, τ) carry with some paths
+    exercised at later steps, and the step's standardization."""
+    n_assets = paths.shape[-1]
+    rng = np.random.default_rng(t)
+    pl = [p for p in np.moveaxis(paths, -1, 0)]  # A x (T+1, n)
+    pay = np.asarray(jma._payoff_for([jnp.asarray(p) for p in pl], strike, kind, phi))
+    tau = np.full(N_PATHS, float(N_STEPS), np.float32)
+    early = rng.random(N_PATHS) < 0.3
+    tau[early] = rng.integers(t + 1, N_STEPS, early.sum())
+    cf = pay[tau.astype(int), np.arange(N_PATHS)].astype(np.float32)
+    mean, inv_std = (np.asarray(v) for v in jmaxcall.maxcall_standardization(
+        jnp.asarray(paths), "sorted" if sorted_basis else "total"))
+    planes = np.ascontiguousarray(np.moveaxis(paths[t], -1, 0))  # (A, n)
+    return planes, cf, tau, mean[t], inv_std[t], n_assets
+
+
+def _scalars(t, mean, inv_std, strike):
+    return jnp.asarray(np.concatenate([[t, RDT, strike], mean, inv_std, [1.0]]), jnp.float32)
+
+
+def _stats(t, mean, inv_std, allow=1.0):
+    A = mean.shape[0]
+    stats = np.zeros((2 * A + 3, N_STEPS + 1), np.float32)
+    stats[:A, t], stats[A:2 * A, t], stats[-1, t] = mean, inv_std, allow
+    return _t(stats)
+
+
+def _rows(a):
+    return jnp.asarray(a).reshape(-1, 512)
+
+
+# (n_assets, basis_mode, itm_weights, payoff_kind, phi, weights, direct_y,
+# strike): each value of each axis at least once; one 5-asset case (m = 21)
+STEP_CASES = {
+    "5-sorted-itm-maxcall": (5, "sorted", True, "maxcall", 1.0, None, False, K),
+    "2-total-all-basket": (2, "total", False, "basket", 1.0, (0.6, 0.4), False, K),
+    "2-separable-itm-maxcall": (2, "separable", True, "maxcall", 1.0, None, False, K),
+    "2-sorted-itm-first-put": (2, "sorted", True, "first", -1.0, None, False, K),
+    "2-total-itm-second": (2, "total", True, "second", 1.0, None, False, K),
+    "2-total-itm-spread-direct-y": (2, "total", True, "spread", -1.0, None, True, K),
+    "2-sorted-itm-spreadk": (2, "sorted", True, "spreadk", 1.0, None, False, 5.0),
+    "2-sorted-all-geobasket": (2, "sorted", False, "geobasket", 1.0, None, False, K),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+def test_plain_ma_step_kernels_match_amcx(paths2, paths5, case):
+    # moments: rtol 1e-5 on the packed vector (amcx sums in f32 in XLA's
+    # order, the port in f64 rounded once), atol 1e-6 of the largest entry
+    # for sums that cancel to near 0. apply, with coefficients solved from
+    # these moments: the same exercise decisions (τ) except on paths within
+    # 1e-5 of the boundary, and the same cf - exact, but for the baskets to
+    # atol 1e-4 (a few ulp of the basket level: amcx's interpreted kernel
+    # contracts the weighted sum into FMAs, and geobasket's log/exp are
+    # another library's)
+    n_assets, bmode, itm, kind, phi, weights, direct_y, strike = STEP_CASES[case]
+    paths = paths5 if n_assets == 5 else paths2
+    t = 5
+    sorted_basis = bmode == "sorted"
+    mode = "total" if sorted_basis else bmode
+    planes, cf, tau, mean, inv_std, A = _one_step(paths, t, sorted_basis, kind, phi, strike)
+    m = at.n_multi_terms(A, 2, mode)
+    common = dict(basis="chebyshev", degree=2, mode=mode, sorted_basis=sorted_basis,
+                  payoff_kind=kind, phi=phi, weights=weights)
+    jw = None if weights is None else tuple(weights)
+    jkw = dict(common, weights=jw, n_assets=A, interpret=True)
+    jplanes = jnp.asarray(planes).reshape(A, -1, 512)
+    j = np.asarray(jma.ma_step_moments(_scalars(t, mean, inv_std, strike), jplanes, _rows(cf),
+                                       _rows(tau), itm_weights=itm, direct_y=direct_y, **jkw))
+    got = tma.ma_step_moments(_stats(t, mean, inv_std), t, _t(planes), _t(cf), _t(tau), rdt=RDT,
+                              K=strike, itm_weights=itm, direct_y=direct_y, **common)
+    assert got.shape == (tma.ma_pack_dim(m),) == j.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), j, rtol=1e-5, atol=1e-6 * np.abs(j).max())
+
+    coeffs = at.pinv_solve(*unpack_moments(got, m))
+    cf_j, tau_j = (np.asarray(a).reshape(-1) for a in jma.ma_step_apply(
+        _scalars(t, mean, inv_std, strike), jnp.asarray(coeffs.numpy()), jplanes, _rows(cf),
+        _rows(tau), **jkw))
+    cf_t, tau_t = _t(cf), _t(tau)
+    out = tma.ma_step_apply(_stats(t, mean, inv_std), t, coeffs, _t(planes), cf_t, tau_t,
+                            K=strike, **common)
+    assert out[0] is cf_t and out[1] is tau_t  # updated in place
+    cols = tma._columns(list(_t(planes)), _stats(t, mean, inv_std), t, "chebyshev", 2, mode,
+                        sorted_basis)
+    cont = torch.clamp_min(tma._fitted(cols, coeffs), 0.0).numpy()
+    ex = tma._payoff_for(list(_t(planes)), strike, kind, phi, weights).numpy()
+    near = (ex > 0) & (np.abs(ex - cont) <= 1e-5 * (1.0 + ex))
+    same = tau_t.numpy() == tau_j
+    assert not (~same & ~near).any()
+    np.testing.assert_allclose(cf_t.numpy()[same], cf_j[same], rtol=0,
+                               atol=1e-4 if kind in ("basket", "geobasket") else 0.0)
+    assert (tau_j == t).sum() > 10  # the select did fire
+    # allow_t = 0 (not an exercise date): the carry stays
+    cf2, tau2 = _t(cf), _t(tau)
+    tma.ma_step_apply(_stats(t, mean, inv_std, allow=0.0), t, coeffs, _t(planes), cf2, tau2,
+                      K=strike, **common)
+    assert torch.equal(cf2, _t(cf)) and torch.equal(tau2, _t(tau))
+
+
+# ---------------------------------------------------------------------------
+# the engines against amcx's on shared paths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("basis_mode,n_assets", [
+    pytest.param("sorted", 2, id="sorted"), pytest.param("separable", 2, id="separable"),
+    pytest.param("sorted", 5, id="sorted-5-assets")])
+def test_fused_maxcall_matches_amcx(paths2, paths5, basis_mode, n_assets):
+    # price within 2.5e-3 and stderr rtol 0.05 (tests/test_maxcall.py's
+    # fused-vs-xla gates), under the first-flipped-step rules; at 5 assets
+    # the slice's configuration (m = 21, the 21 x 21 solve between kernels)
+    paths = {2: paths2, 5: paths5}[n_assets]
+    jres = jmaxcall.backward_induction_fused_maxcall(jnp.asarray(paths), K, R, DT, JSPEC,
+                                                     basis_mode)
+    tres = tmaxcall.backward_induction_fused_maxcall(_t(paths), K, R, DT, TSPEC, basis_mode)
+    assert tres.cashflows.shape == tres.exercise_times.shape == (N_PATHS,)
+    assert int((tres.exercise_times < N_STEPS).sum()) > N_PATHS // 10
+    _hold_carry_pair(f"fused {basis_mode} {n_assets} assets", jres, tres, 2.5e-3, 0.05)
+
+
+# (n_assets, payoff_kind, keywords, antithetic paths)
+MEGA_CASES = {
+    "maxcall-5-sorted-cf-tau": (5, "maxcall", dict(sorted_basis=True, return_cf_tau=True), False),
+    "maxcall-sorted-cf-tau": (2, "maxcall", dict(sorted_basis=True, return_cf_tau=True), False),
+    "basket-itm-antithetic": (2, "basket", dict(itm_weights=True, antithetic=True,
+                                                weights=(0.7, 0.3)), True),
+    "geobasket-put": (2, "geobasket", dict(phi=-1.0), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MEGA_CASES))
+def test_plain_ma_mega_matches_amcx(paths2, paths5, case):
+    # price within 1e-3 (tests/test_ma_mega.py's mega-vs-fused gate) under
+    # the first-flipped-step rules where the cf/τ planes are exported, and
+    # the port's mega within 2e-3 of its own fused engine (the same gate
+    # between amcx's two kernel routes); at 5 assets the slice's m = 21
+    # in-kernel solve, and the routes within 5e-3 (chip_smoke.py's gate):
+    # there the f32 ridge Cholesky and the fused route's pinv flip near-tie
+    # decisions, and amcx's own two routes end 2.6e-3 apart on these paths
+    n_assets, kind, kw, anti = MEGA_CASES[case]
+    paths = _jax_paths(2, seed=1, antithetic=True) if anti else {2: paths2, 5: paths5}[n_assets]
+    kw = dict(kw, payoff_kind=kind, degree=2, exercise_from_step=1)
+    jout = jmamega.lsmc_price_ma_mega(jnp.asarray(paths), K, R, DT,
+                                      **dict(kw, weights=kw.get("weights")))
+    tout = tmamega.lsmc_price_ma_mega(_t(paths), K, R, DT, **kw)
+    if kw.get("return_cf_tau"):
+        _hold_carry_pair(case, jout, tout, 1e-3, 1e-3)
+        v = _values(tout[2], tout[3])
+        np.testing.assert_allclose(v.mean(), float(tout[0]), rtol=1e-5)
+    else:
+        assert abs(float(tout[0]) - float(jout[0])) <= 1e-3
+        np.testing.assert_allclose(float(tout[1]), float(jout[1]), rtol=1e-3)
+    spec = at.RegressionSpec(basis="chebyshev", degree=2,
+                             regress_on="itm" if kw.get("itm_weights") else "all")
+    fused = tmaxcall.backward_induction_fused_maxcall(
+        _t(paths), K, R, DT, spec, "sorted" if kw.get("sorted_basis") else "total",
+        payoff_kind=kind, phi=kw.get("phi", 1.0), weights=kw.get("weights"))
+    assert abs(float(fused.price) - float(tout[0])) <= (5e-3 if n_assets == 5 else 2e-3)
+
+
+@pytest.mark.parametrize("n_assets", [2, 5])
+def test_xla_maxcall_matches_amcx(paths2, paths5, n_assets):
+    # the reference loop engine with the cross-term fit on amcx's paths:
+    # price within 2.5e-3, coefficient rows to 1e-3 of the largest before
+    # the first flipped step (decisions from each side's surface)
+    paths = paths5 if n_assets == 5 else paths2
+    kw = dict(american=True, return_surface=True, fit_fn_returns_coeffs=True,
+              return_coeffs=True, exercise_from_step=1)
+    jres = jengine.backward_induction(
+        jnp.asarray(paths), jnp.ones(paths.shape[:2], bool), R, DT,
+        lambda S: amcx.max_call_payoff(S, K), JSPEC,
+        fit_fn=partial(jmaxcall.max_call_fit, mode="sorted"), **kw)
+    S = _t(paths)
+    tres = at.backward_induction(
+        S, torch.ones(paths.shape[:2], dtype=torch.bool), R, DT,
+        lambda s: at.max_call_payoff(s, K), TSPEC,
+        fit_fn=partial(tmaxcall.max_call_fit, mode="sorted"), **kw)
+    m = at.n_multi_terms(n_assets, 2, "total")
+    assert tres.coeffs.shape == (N_STEPS, m) and tres.continuation.shape == (N_STEPS + 1, N_PATHS)
+    ex = at.max_call_payoff(S[:-1], K)
+    allow = (torch.arange(N_STEPS) >= 1)[:, None]
+
+    def decide(cont):
+        return ((ex > 0) & (ex > _t(np.asarray(cont))[:-1]) & allow).numpy()
+
+    first = first_divergence(decide(jres.continuation), decide(tres.continuation))
+    hold_pair(f"xla {n_assets} assets", jres.price, tres.price, jres.stderr, tres.stderr,
+              np.asarray(jres.coeffs)[1:], tres.coeffs.numpy()[1:],
+              (None if first[0] is None else first[0] - 1, first[1]),
+              _values(jres.cashflows, jres.exercise_times),
+              _values(tres.cashflows, tres.exercise_times), 2.5e-3)
+    # the regressor hook: sorting the state before a total-degree fit is
+    # the sorted fit, to the bit
+    reg = at.backward_induction(
+        S, torch.ones(paths.shape[:2], dtype=torch.bool), R, DT,
+        lambda s: at.max_call_payoff(s, K), TSPEC,
+        regressor=lambda s: torch.sort(s, dim=-1, descending=True).values,
+        fit_fn=partial(tmaxcall.max_call_fit, mode="total"), **kw)
+    assert torch.equal(reg.price, tres.price) and torch.equal(reg.coeffs, tres.coeffs)
+    # the custom-fit hooks: values-only fits cannot export coefficients
+    with pytest.raises(ValueError, match="return_coeffs"):
+        at.backward_induction(S, torch.ones(paths.shape[:2], dtype=torch.bool), R, DT,
+                              lambda s: at.max_call_payoff(s, K), TSPEC,
+                              fit_fn=tmaxcall.max_call_fit_values, return_coeffs=True)
+
+
+def test_reprice_with_amcx_coefficients():
+    # the exercise policy carried across: amcx's exported coefficient rows
+    # and standardization frame, replayed by the port on fresh paths, give
+    # amcx's out-of-sample price (atol 1e-4: the same f32 rule, but the
+    # two packages' f32 exp/matmul may round a near-tie decision apart)
+    key = jax.random.key(11)
+    jres, fit_paths = jmaxcall.price_max_call(key, [100.0] * 5, K, T, R, SIGMA, q=Q,
+                                              n_paths=N_PATHS, return_coeffs=True,
+                                              return_paths=True)
+    frame = jmaxcall.maxcall_standardization(fit_paths, "sorted")
+    fresh = _jax_paths(5, seed=12)
+    jout = jmaxcall.reprice_max_call_with_coeffs(jnp.asarray(fresh), jres, frame, K, T, R, JSPEC)
+    coeffs = _t(np.asarray(jres.coeffs))
+    tframe = tuple(_t(np.asarray(f)) for f in frame)
+    tres = at.LSMCResult(None, None, None, None, None, coeffs=coeffs)
+    tout = at.reprice_max_call_with_coeffs(_t(fresh), tres, tframe, K, T, R, TSPEC)
+    assert abs(float(tout.price) - float(jout.price)) <= 1e-4
+    np.testing.assert_allclose(float(tout.stderr), float(jout.stderr), rtol=1e-3)
+    # the port's own frame equals amcx's to f32 sums in two orders
+    mean, inv_std = tmaxcall.maxcall_standardization(_t(np.asarray(fit_paths)), "sorted")
+    np.testing.assert_allclose(mean.numpy(), np.asarray(frame[0]), rtol=1e-5)
+    np.testing.assert_allclose(inv_std.numpy(), np.asarray(frame[1]), rtol=1e-4)
+    with pytest.raises(ValueError, match="return_coeffs"):
+        at.reprice_max_call_with_coeffs(_t(fresh), at.LSMCResult(None, None, None, None, None),
+                                        tframe, K, T, R, TSPEC)
+
+
+def test_price_max_call_routes_on_cpu():
+    # the entry point on the CPU (its own torch paths, returned): the three
+    # engines on the same paths - mega within 2e-3 of fused, xla within one
+    # stderr of fused - no kernel launched, and the 2-asset price within
+    # 0.35 of the Andersen-Broadie 13.90 (tests/test_maxcall.py's gate)
+    tmamega.lsmc_price_ma_mega.launches = 0
+    tma.ma_step_moments.launches = tma.ma_step_apply.launches = 0
+    args = (7, [100.0, 100.0], K, T, R, SIGMA)
+    kw = dict(q=Q, n_paths=N_PATHS, return_paths=True, device="cpu")
+    fused, paths = at.price_max_call(*args, engine="fused", **kw)
+    mega, paths_m = at.price_max_call(*args, engine="mega", **kw)
+    xla, paths_x = at.price_max_call(*args, **kw)
+    assert torch.equal(paths, paths_m) and torch.equal(paths, paths_x)
+    assert tmamega.lsmc_price_ma_mega.launches == 0
+    assert tma.ma_step_moments.launches == tma.ma_step_apply.launches == 0
+    assert abs(float(mega.price) - float(fused.price)) <= 2e-3
+    assert abs(float(xla.price) - float(fused.price)) <= float(fused.stderr)
+    assert abs(float(xla.price) - 13.90) <= 0.35
+    with pytest.raises(ValueError, match="price-only"):
+        at.price_max_call(*args, engine="fused", return_coeffs=True, device="cpu")
+    with pytest.raises(ValueError, match="engine"):
+        at.price_max_call(*args, engine="tpu", device="cpu")
+    with pytest.raises(ValueError, match="corr"):
+        at.price_max_call(*args, corr=np.eye(3), device="cpu")
+
+
+def test_max_call_greeks_match_common_random_numbers():
+    # autograd through the xla route: symmetric deltas, positive vega, and
+    # the delta sum against a central difference of the port's own price
+    # under common random numbers (bump both assets by 0.5; atol 0.03, the
+    # gate of tests/test_maxcall.py)
+    kw = dict(q=Q, n_paths=16_384, spec=at.RegressionSpec(degree=3), device="cpu")
+    p, g = at.max_call_greeks(4, [100.0, 100.0], K, T, R, SIGMA, **kw)
+    d = g["delta"].numpy()
+    assert d.shape == (2,) and abs(d[0] - d[1]) <= 0.02 and 0.0 < d.sum() < 2.0
+    assert float(g["vega"]) > 0
+    h = 0.5
+    up = at.price_max_call(4, [100.0 + h] * 2, K, T, R, SIGMA, **kw)
+    dn = at.price_max_call(4, [100.0 - h] * 2, K, T, R, SIGMA, **kw)
+    fd = (float(up.price) - float(dn.price)) / (2 * h)
+    assert abs(d.sum() - fd) <= 0.03, (d.sum(), fd)
+    assert abs(float(p) - float(at.price_max_call(4, [100.0] * 2, K, T, R, SIGMA,
+                                                  **kw).price)) == 0.0
+
+
+def test_unported_ma_mega_options_raise(paths2):
+    S = _t(paths2[:, :1024])
+    for kw in (dict(barrier=90.0), dict(discount_planes=torch.ones(N_STEPS, 1024)),
+               dict(axis_name="paths"), dict(r=torch.full((N_STEPS,), R))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmamega.lsmc_price_ma_mega(S, K, kw.pop("r", R), DT, **kw)
+    with pytest.raises(ValueError, match="payoff_kind"):
+        tmamega.lsmc_price_ma_mega(S, K, R, DT, payoff_kind="rainbow")
+    with pytest.raises(ValueError, match="two planes"):
+        tma.ma_params(1, "chebyshev", 2, "total", False, "spread", K, 1.0)

@@ -63,7 +63,7 @@ def test_philox_stream_is_a_function_of_seed_path_step():
 def test_plain_pathgen_statistics():
     # 8192 x 16 from the documented stream; every gate is 4 standard errors
     n, T = 8192, 16
-    S = gbm.gbm_paths(7, 100.0, 0.01, 0.2, 0.0, 1.0, T, n).double()
+    S = gbm.gbm_paths(7, 100.0, 0.01, 0.2, 0.0, 1.0, T, n, device="cpu").double()
     assert S.shape == (T + 1, n) and bool(torch.all(S[0] == 100.0))
     disc = math.exp(-0.01) * S[-1]
     assert abs(float(disc.mean()) - 100.0) < 4 * float(disc.std()) / math.sqrt(n)
@@ -85,7 +85,8 @@ def test_pathgen_matches_amcx_in_law():
     n, T = 8192, 16
     js = np.asarray(jpaths.simulate_gbm(jax.random.key(3), amcx.MarketParams(100.0, 0.01, 0.2),
                                         1.0, amcx.SimConfig(n_paths=n, n_steps=T)))[-1]
-    ts = at.simulate_gbm(3, M, 1.0, at.SimConfig(n_paths=n, n_steps=T, backend="philox"))[-1]
+    ts = at.simulate_gbm(3, M, 1.0, at.SimConfig(n_paths=n, n_steps=T, backend="philox"),
+                         device="cpu")[-1]
     ts = ts.double().numpy()
     se = math.sqrt(js.var() / n + ts.var() / n)
     assert abs(js.mean() - ts.mean()) < 4 * se
@@ -93,12 +94,13 @@ def test_pathgen_matches_amcx_in_law():
 
 def test_simulate_gbm_torch_backend():
     sim = at.SimConfig(n_paths=4096, n_steps=8)
-    a = at.simulate_gbm(5, M, 1.0, sim)
+    a = at.simulate_gbm(5, M, 1.0, sim, device="cpu")
     gen = torch.Generator().manual_seed(5)
-    b = at.simulate_gbm(gen, M, 1.0, sim)
+    b = at.simulate_gbm(gen, M, 1.0, sim, device="cpu")
     assert a.shape == (9, 4096) and a.dtype == torch.float32
     assert torch.equal(a, b)  # an int seed is a Generator seeded with it
-    anti = at.simulate_gbm(5, M, 1.0, at.SimConfig(n_paths=4096, n_steps=8, antithetic=True))
+    anti = at.simulate_gbm(5, M, 1.0, at.SimConfig(n_paths=4096, n_steps=8, antithetic=True),
+                           device="cpu")
     # antithetic: the mirror path's log-increments are the negated normals
     la = torch.log(anti[1:] / anti[:-1]).double()
     drift = (0.01 - 0.02) / 8
@@ -109,15 +111,15 @@ def test_simulate_gbm_torch_backend():
 
 def test_simulate_gbm_philox_backend_rules():
     sim = at.SimConfig(n_paths=64, n_steps=4, backend="philox")
-    S = at.simulate_gbm(9, M, 1.0, sim)
+    S = at.simulate_gbm(9, M, 1.0, sim, device="cpu")
     assert torch.equal(S, gbm.gbm_paths_reference(9, 100.0, 0.01, 0.2, 0.0, 1.0, 4, 64))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         at.simulate_gbm(9, M, 1.0, at.SimConfig(n_paths=64, n_steps=4, backend="philox",
-                                                antithetic=True))
+                                                antithetic=True), device="cpu")
     with pytest.raises(TypeError):
-        at.simulate_gbm(torch.Generator(), M, 1.0, sim)
+        at.simulate_gbm(torch.Generator(), M, 1.0, sim, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gbm.gbm_paths(9, 100.0, torch.full((4,), 0.01), 0.2, 0.0, 1.0, 4, 64)
+        gbm.gbm_paths(9, 100.0, torch.full((4,), 0.01), 0.2, 0.0, 1.0, 4, 64, device="cpu")
 
 
 def test_cpu_pathgen_never_launches_the_kernel():
@@ -136,7 +138,7 @@ def test_simulate_gbm_is_differentiable_in_market_inputs():
     sim = at.SimConfig(n_paths=4096, n_steps=8)
     leaves = [torch.tensor(v, requires_grad=True) for v in (100.0, 0.01, 0.2, 0.02, 1.0)]
     S0, r, sigma, q, T = leaves
-    S_T = at.simulate_gbm(3, at.MarketParams(S0, r, sigma, q), T, sim)[-1]
+    S_T = at.simulate_gbm(3, at.MarketParams(S0, r, sigma, q), T, sim, device="cpu")[-1]
     grads = torch.autograd.grad(S_T.mean(), leaves)
     assert all(bool(torch.isfinite(g)) and float(g) != 0.0 for g in grads)
     torch.testing.assert_close(grads[0], (S_T / S0).mean().detach(), rtol=1e-6, atol=0)
@@ -144,7 +146,7 @@ def test_simulate_gbm_is_differentiable_in_market_inputs():
 
     def mean_S_T(sig):
         m = at.MarketParams(100.0, 0.01, sig, 0.02)
-        return float(at.simulate_gbm(3, m, 1.0, sim)[-1].double().mean())
+        return float(at.simulate_gbm(3, m, 1.0, sim, device="cpu")[-1].double().mean())
 
     fd = (mean_S_T(0.2 + h) - mean_S_T(0.2 - h)) / (2 * h)
     assert abs(float(grads[2]) - fd) <= 1e-3 * abs(fd), (float(grads[2]), fd)
