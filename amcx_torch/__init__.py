@@ -9,6 +9,7 @@ builds them.
 """
 
 from .basis import BASIS_FAMILIES, design_matrix, multi_asset_design_matrix, n_multi_terms
+from .book import BookResult, book_ccr_exposures, book_greeks, price_mixed_book, price_strike_grid
 from .engine import (
     LSMCResult,
     backward_induction,
@@ -20,6 +21,13 @@ from .engine_pallas import (
     backward_induction_fused,
     lsmc_option_pricing_fused,
     precompute_standardization,
+)
+from .exposures import (
+    CCRExposures,
+    bilateral_cva,
+    compute_ccr_exposures,
+    cva_from_epe,
+    exposures_from_coeffs,
 )
 from .greeks import fast_greeks, fused_price_diff, gamma_fd, price_and_greeks
 from .interop import config_from_jax, tensor_from_numpy
@@ -62,6 +70,8 @@ from .types import MarketParams, ProductSpec, RegressionSpec, SimConfig
 
 __all__ = [
     "BASIS_FAMILIES",
+    "BookResult",
+    "CCRExposures",
     "LSMCResult",
     "MarketParams",
     "ProductSpec",
@@ -73,17 +83,23 @@ __all__ = [
     "barrier_gate",
     "barrier_knocked",
     "barrier_price",
+    "bilateral_cva",
+    "book_ccr_exposures",
+    "book_greeks",
     "brownian_normals",
     "bs_greeks",
     "bs_price",
+    "compute_ccr_exposures",
     "config_from_jax",
     "crr_barrier_price",
     "crr_down_in_price",
     "crr_price",
+    "cva_from_epe",
     "design_matrix",
     "discrete_barrier_shift",
     "down_in_price",
     "exercise_allow_row",
+    "exposures_from_coeffs",
     "fast_greeks",
     "fit_continuation",
     "fit_continuation_with_coeffs",
@@ -104,7 +120,9 @@ __all__ = [
     "precompute_standardization",
     "price_and_greeks",
     "price_max_call",
+    "price_mixed_book",
     "price_option",
+    "price_strike_grid",
     "regression_fitted_values",
     "reprice_max_call_with_coeffs",
     "resolve_regression_spec",

@@ -1,10 +1,13 @@
 // Device helpers shared by the LSMC kernels (lsmc_mega.cu, lsmc_step.cu,
-// and through ma_common.cuh ma_step.cu and lsmc_ma_mega.cu): the packed
-// moment layout, the basis recurrences, the fixed-order f64 block and
-// cross-block reductions that make the moments independent of the grid
-// (and the one-block kernel that sums the partial rows), and the
-// one-thread equilibrated ridge-Cholesky solve with its one-block kernel.
+// lsmc_book.cu, and through ma_common.cuh ma_step.cu and lsmc_ma_mega.cu):
+// the packed moment layout, the basis recurrences, the fixed-order f64
+// block and cross-block reductions that make the moments independent of the
+// grid (and the one-block kernel that sums the partial rows), and the
+// one-thread equilibrated ridge-Cholesky solve - a factor step and a
+// refined solve per right-hand side - with its one-block kernel.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstddef>
 
@@ -12,6 +15,18 @@ namespace amcx {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// Row stride, in floats, of the shared-memory tiles that stage kThreads
+// paths per row: threads reading different rows of one path hit different
+// banks.
+constexpr int kTileStride = kThreads + 1;
+
+// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
 
 enum Basis : int { kPower = 0, kChebyshev = 1, kLegendre = 2, kLaguerre = 3, kHermite = 4 };
 
@@ -116,8 +131,13 @@ sum_partials_kernel(const double* __restrict__ partials, int n_blocks, int P,
 // in the same order, so the results do not depend on KC.
 constexpr int kMaxSolveK = 32;
 
-// Floats of scratch that solve_equilibrated_ridge needs for a k x k system.
-__host__ __device__ constexpr int solve_scratch_floats(int k) { return 2 * k * k + 6 * k; }
+// Floats of scratch that solve_equilibrated_ridge needs for a k x k system:
+// the factor (Gnr, L, d) and the work of one right-hand side.
+__host__ __device__ constexpr int factor_floats(int k) { return 2 * k * k + k; }
+__host__ __device__ constexpr int solve_work_floats(int k) { return 5 * k; }
+__host__ __device__ constexpr int solve_scratch_floats(int k) {
+  return factor_floats(k) + solve_work_floats(k);
+}
 
 // Two triangular solves with the factor L (k x k, row-major) of the ridged
 // Gram; z is scratch.
@@ -141,27 +161,18 @@ __device__ __forceinline__ void chol_solve(const float* L, const float* rhs, flo
   }
 }
 
-// Solve the packed [G upper triangle..., b...] system of size k on ONE
-// thread: amcx's _factor_equilibrated_ridge + _solve_factored
-// (amcx/ops/lsmc_megakernel.py) in its operation order - column
-// equilibration, the rcond ridge, Cholesky, two refinement steps against
-// the UN-ridged Gram, de-equilibration. scratch holds
-// solve_scratch_floats(k) floats.
+// The factor step of amcx's _factor_equilibrated_ridge
+// (amcx/ops/lsmc_megakernel.py), on ONE thread, from the Gram head of the
+// packed [G upper triangle..., ...] moments: column equilibration d, the
+// UN-ridged equilibrated Gram Gnr (k x k), and the Cholesky factor L of Gnr
+// plus the rcond ridge. The strike book factors its shared Gram once and
+// back-solves every strike against it (solve_factored).
 template <int KC>
-__device__ __forceinline__ void solve_equilibrated_ridge(const float* packed, int k_rt,
-                                                         float rcond, float* coeffs,
-                                                         float* scratch) {
+__device__ __forceinline__ void factor_equilibrated_ridge(const float* packed, int k_rt,
+                                                          float rcond, float* Gnr, float* L,
+                                                          float* d) {
   const int k = KC > 0 ? KC : k_rt;
-  const int n_pairs = k * (k + 1) / 2;
   const float tiny = 1e-30f;
-  float* Gnr = scratch;
-  float* L = Gnr + k * k;
-  float* d = L + k * k;
-  float* b = d + k;
-  float* c = b + k;
-  float* resid = c + k;
-  float* dc = resid + k;
-  float* z = dc + k;
 #pragma unroll
   for (int i = 0; i < k; ++i) d[i] = 1.0f / sqrtf(fmaxf(packed[pair_index(k, i, i)], tiny));
 #pragma unroll
@@ -183,8 +194,24 @@ __device__ __forceinline__ void solve_equilibrated_ridge(const float* packed, in
       L[i * k + j] = (i == j) ? sqrtf(fmaxf(s, tiny)) : s / L[j * k + j];
     }
   }
+}
+
+// The refined solve of amcx's _solve_factored for one right-hand side b_raw
+// (k raw moments), on ONE thread: equilibrate b, two triangular solves with
+// L, two refinement steps against the UN-ridged Gnr, de-equilibrate into
+// coeffs[0..k). work holds solve_work_floats(k) floats.
+template <int KC>
+__device__ __forceinline__ void solve_factored(const float* L, const float* d, const float* Gnr,
+                                               const float* b_raw, int k_rt, float* coeffs,
+                                               float* work) {
+  const int k = KC > 0 ? KC : k_rt;
+  float* b = work;
+  float* c = b + k;
+  float* resid = c + k;
+  float* dc = resid + k;
+  float* z = dc + k;
 #pragma unroll
-  for (int i = 0; i < k; ++i) b[i] = packed[n_pairs + i] * d[i];
+  for (int i = 0; i < k; ++i) b[i] = b_raw[i] * d[i];
   chol_solve<KC>(L, b, c, z, k);
 #pragma unroll
   for (int step = 0; step < 2; ++step) {
@@ -201,6 +228,22 @@ __device__ __forceinline__ void solve_equilibrated_ridge(const float* packed, in
   }
 #pragma unroll
   for (int i = 0; i < k; ++i) coeffs[i] = c[i] * d[i];
+}
+
+// Solve the packed [G upper triangle..., b...] system of size k on ONE
+// thread: the factor step, then the refined solve of its one right-hand
+// side, in amcx's operation order. scratch holds solve_scratch_floats(k)
+// floats.
+template <int KC>
+__device__ __forceinline__ void solve_equilibrated_ridge(const float* packed, int k_rt,
+                                                         float rcond, float* coeffs,
+                                                         float* scratch) {
+  const int k = KC > 0 ? KC : k_rt;
+  float* Gnr = scratch;
+  float* L = Gnr + k * k;
+  float* d = L + k * k;
+  factor_equilibrated_ridge<KC>(packed, k, rcond, Gnr, L, d);
+  solve_factored<KC>(L, d, Gnr, packed + k * (k + 1) / 2, k, coeffs, d + k);
 }
 
 // One block: sum the (n_blocks, P) partial rows of a k-column system in a

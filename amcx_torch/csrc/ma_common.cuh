@@ -40,7 +40,6 @@ namespace amcx {
 constexpr int kMaxAssets = 8;
 constexpr int kMaxCols = 32;
 constexpr int kMaxMaDegree = 4;
-constexpr int kTileStride = kThreads + 1;
 static_assert(kMaxCols <= kMaxSolveK, "the induction's m x m solve must fit solve_kernel<0>");
 
 enum PayoffKind : int {
@@ -262,14 +261,6 @@ __device__ __forceinline__ void ma_moments_block(const float* __restrict__ plane
     const int q = tid + s * kThreads;
     if (q < P) partials_row[q] = acc[s];
   }
-}
-
-// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 }  // namespace amcx

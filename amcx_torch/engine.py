@@ -29,6 +29,7 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
+from .exposures import _profile, step_exposures
 from .payoff import barrier_gate, exercise_allow_row, payoff_fn_for
 from .regress import fit_continuation_with_coeffs
 from .types import MarketParams, ProductSpec, RegressionSpec, SimConfig
@@ -64,7 +65,9 @@ class LSMCResult(NamedTuple):
     """Engine output: ``price`` and its Monte-Carlo ``stderr``; the
     ``cashflows``/``exercise_times`` carry; the dense ``(n_steps+1,
     n_paths)`` ``continuation`` surface when asked (zeros at maturity);
-    ``exposures`` (not ported yet, always None); per-step ``coeffs``."""
+    ``exposures``, the per-step EPE/PFE profile
+    (`amcx_torch.exposures.CCRExposures`) when run with ``surface_stats``;
+    per-step ``coeffs``."""
 
     price: torch.Tensor
     stderr: torch.Tensor
@@ -91,6 +94,7 @@ def backward_induction(
     fit_fn_returns_coeffs: bool = False,
     exercise_steps=None,
     antithetic: bool = False,
+    surface_stats: bool = False,
 ) -> LSMCResult:
     """Generic LSMC backward induction on time-major state, ``(n_steps+1,
     n_paths)`` or ``(n_steps+1, n_paths, n_assets)``, with the
@@ -107,7 +111,9 @@ def backward_induction(
     ``antithetic`` folds each path i with its mirror i + n/2 before the
     variance, so the stderr is that of the pair means. The per-step
     coefficient rows (``return_coeffs``) are ``(n_steps, n_coeffs)``, as
-    amcx exports them.
+    amcx exports them. ``surface_stats`` fills ``exposures`` with each
+    step's EPE, PFE-5 and PFE-95 of the clamped continuation (exact,
+    sort-based; the maturity row is zero) without keeping the surface.
     """
     n_steps = paths_tm.shape[0] - 1
     n_paths = paths_tm.shape[1]
@@ -129,7 +135,7 @@ def backward_induction(
     if exercise_steps is not None:
         allowed = exercise_allow_row(exercise_steps, n_steps, device=device)
     ts = torch.arange(n_steps, dtype=dtype, device=device)
-    conts, coefs = [None] * n_steps, [None] * n_steps
+    conts, coefs, rows = [None] * n_steps, [None] * n_steps, [None] * n_steps
     for step in range(n_steps - 1, -1, -1):
         S_t, knocked_t, t = paths_tm[step], knocked_tm[step], ts[step]
         # regression target: each cashflow discounted from τ back to t (Q5)
@@ -154,6 +160,8 @@ def backward_induction(
         coefs[step] = coef
         if return_surface:
             conts[step] = cont
+        if surface_stats:
+            rows[step] = step_exposures(cont)
 
     discounted = cashflows * torch.exp(-r * dt * tau)
     if antithetic:
@@ -171,6 +179,7 @@ def backward_induction(
         surface = torch.cat([torch.stack(conts),
                              torch.zeros((1, n_paths), dtype=dtype, device=device)])
     return LSMCResult(price, stderr, cashflows, tau, surface,
+                      exposures=_profile(rows, dtype, device) if surface_stats else None,
                       coeffs=torch.stack(coefs) if return_coeffs else None)
 
 
@@ -183,12 +192,16 @@ def lsmc_option_pricing(
     return_coeffs: bool = False,
     exercise_steps=None,
     antithetic: bool = False,
+    surface_stats: bool = False,
 ) -> LSMCResult:
     """Price a (possibly barrier) put/call from pre-simulated time-major
-    paths; ``dt = T / n_steps`` comes from the path grid."""
+    paths; ``dt = T / n_steps`` comes from the path grid. ``surface_stats``:
+    the per-step EPE/PFE profile in ``exposures`` (see
+    :func:`backward_induction`)."""
     n_steps = paths_tm.shape[0] - 1
     dt = product.T / n_steps
-    spec = resolve_regression_spec(spec, product, for_surface=return_surface)
+    spec = resolve_regression_spec(spec, product,
+                                   for_surface=return_surface or surface_stats)
     knocked = barrier_gate(paths_tm, product.barrier, product.barrier_type)
     return backward_induction(
         paths_tm, knocked, r, dt, payoff_fn_for(product), spec,
@@ -197,6 +210,7 @@ def lsmc_option_pricing(
         return_coeffs=return_coeffs,
         exercise_steps=exercise_steps,
         antithetic=antithetic,
+        surface_stats=surface_stats,
     )
 
 

@@ -48,7 +48,8 @@ def config_from_jax(obj):
     return cls(**kwargs)
 
 
-def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
     """A contiguous tensor copy of ``arr`` (paths, ``mean_t``/``inv_std_t``
-    rows, ``(n_steps+1, k)`` coefficient arrays) on ``device``, dtype kept."""
+    rows, ``(n_steps+1, k)`` coefficient arrays) on ``device`` (the card
+    unless the caller asks for ``"cpu"``), dtype kept."""
     return torch.from_numpy(np.array(arr, order="C", copy=True)).to(device)

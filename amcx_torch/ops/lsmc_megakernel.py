@@ -1,12 +1,14 @@
-"""LSMC backward induction on the card: the CUDA kernels' wrapper and their
-plain version.
+"""LSMC backward induction on the card: the CUDA kernels' wrappers and their
+plain versions.
 
-Port of `amcx.ops.lsmc_megakernel` (``_mega_kernel``, via
-``lsmc_price_megakernel``) for vanilla puts and calls. The TPU kernel runs
-the whole induction in one launch because its grid is sequential; on
-Hopper the per-step Gram is a grid-wide dependency, so
-``amcx_torch/csrc/lsmc_mega.cu`` drives moments → solve → apply kernels per
-step from a host loop on one stream (see the note at the top of that file).
+Port of `amcx.ops.lsmc_megakernel`: ``_mega_kernel`` (via
+``lsmc_price_megakernel``) for one vanilla put or call, and
+``_book_kernel`` (via :func:`lsmc_book_megakernel`) for a strike/maturity
+book of them on one path set. The TPU kernels run the whole induction in
+one launch because their grid is sequential; on Hopper the per-step Gram is
+a grid-wide dependency, so ``amcx_torch/csrc/lsmc_mega.cu`` and
+``csrc/lsmc_book.cu`` drive moments → solve → apply kernels per step from a
+host loop on one stream (see the notes at the top of those files).
 
 :func:`_mega_reference` is a plain-torch transcription of the same
 algorithm: V carried in time-T units, explicit pair moments, and the same
@@ -17,24 +19,31 @@ it sums the moments and the final two sums in f64 and rounds them once to
 f32, which makes the result independent of the summation order but for
 f64 noise of ~1e-6 f32 ulp, so on the card the two agree to the bit (the
 closed-form-frame ITM fit turns any f32 summation-order noise into
-exercise flips; see the note in ``csrc/lsmc_mega.cu``).
+exercise flips; see the note in ``csrc/lsmc_mega.cu``). :func:`_book_reference`
+does the same for the book: the shared Gram head and every option's rhs
+sums, one factor, one refined back-solve per option (vectorized over the
+options: the same f32 operations on each element).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..basis import BASIS_IDS, basis_cols
+from ..payoff import barrier_gate
 
 __all__ = ["lsmc_price_megakernel", "lsmc_price_mega_reference", "MegaOutputs",
-           "mega_stats"]
+           "mega_stats", "lsmc_book_megakernel", "lsmc_book_mega_reference", "BOOK_MAX_STRIKES"]
 
 MAX_DEGREE = 10
 _THREADS = 256  # csrc/lsmc_mega.cu kThreads
 _MAX_BLOCKS = 1024
+BOOK_MAX_STRIKES = 64  # csrc/lsmc_book.cu kMaxStrikes
+_BOOK_MAX_BLOCKS = 512  # the solve kernel sums n_blocks x P partials on one block
 
 
 class MegaOutputs(NamedTuple):
@@ -111,7 +120,10 @@ def _solve_factored(L, d, Gnr, b_raw, k, refine_steps=2):
 
 
 def _solve_equilibrated_ridge(packed, k, rcond):
-    """Solve the packed ``[G_upper..., b...]`` system; returns k 0-d tensors."""
+    """Solve the packed ``[G_upper..., b...]`` system; returns k 0-d tensors.
+    The k entries of ``b`` may be ``(n_rhs,)`` tensors (the book's options):
+    each coefficient is then ``(n_rhs,)``, every right-hand side solved
+    against the one factor."""
     idx = {p: n for n, p in enumerate(_pairs(k))}
 
     def g_raw(i, j):
@@ -324,4 +336,237 @@ def _price(run, paths_tm, K, r, dt, phi, basis="chebyshev", degree=4, rcond=1e-6
     stderr = torch.sqrt(var / n_paths)
     if return_coeffs or return_cf_tau:
         return MegaOutputs(price, stderr, cf, tau, coeffs if return_coeffs else None)
+    return price, stderr
+
+
+# ---------------------------------------------------------------------------
+# the strike/maturity book (kernel 3)
+# ---------------------------------------------------------------------------
+
+class BookParams(ctypes.Structure):
+    """``struct BookParams`` of ``csrc/lsmc_book.cu``: the options of a book
+    and the induction's switches, handed to the kernels by value."""
+
+    _fields_ = [("n_strikes", ctypes.c_int), ("basis", ctypes.c_int),
+                ("american", ctypes.c_int), ("antithetic", ctypes.c_int),
+                ("rcond", ctypes.c_float),
+                ("strikes", ctypes.c_float * BOOK_MAX_STRIKES),
+                ("phis", ctypes.c_float * BOOK_MAX_STRIKES),
+                ("mats", ctypes.c_int * BOOK_MAX_STRIKES)]
+
+
+@functools.lru_cache(maxsize=64)
+def _book_params(strikes: tuple, phis: tuple, mats: tuple, basis: str, american: bool,
+                 antithetic: bool, rcond: float) -> BookParams:
+    # cached: the block is built once per book, and the kernels only read it
+    p = BookParams(n_strikes=len(strikes), basis=BASIS_IDS[basis], american=int(american),
+                   antithetic=int(antithetic), rcond=rcond)
+    for j, (K, phi, m) in enumerate(zip(strikes, phis, mats)):
+        p.strikes[j], p.phis[j], p.mats[j] = K, phi, m
+    return p
+
+
+def _book_reference(paths, knock, stats, cfg, cf_tau):
+    """Plain-torch book induction on ``(n_steps+1, n_paths)`` paths;
+    returns ``(sums, squares, cf, tau)``: the per-option ``(n_strikes,)``
+    sums of c_0·V and of its (pair-folded) squares, and the ``(n_strikes,
+    n_paths)`` cf/τ planes (None unless ``cf_tau``)."""
+    n_steps = paths.shape[0] - 1
+    dev, f32 = paths.device, torch.float32
+    degree, mats = cfg["degree"], cfg["mats"]
+    k = degree + 1
+    mean_t, inv_std_t, c, inv_c = stats.view(4, n_steps + 1)
+    K = torch.tensor(cfg["strikes"], dtype=f32, device=dev)[:, None]
+    phi = torch.tensor(cfg["phis"], dtype=f32, device=dev)[:, None]
+
+    def exercise(t):
+        return torch.clamp_min(phi * (paths[t] - K), 0.0)
+
+    def gated(t, ex):
+        return ex if knock is None else torch.where(knock[t], ex, 0.0)
+
+    full = torch.tensor([m == n_steps for m in mats], device=dev)[:, None]
+    V = torch.where(full, gated(n_steps, exercise(n_steps)), 0.0)
+    cf = tau = None
+    if cf_tau:
+        cf = V.clone()
+        tau = torch.tensor(mats, dtype=f32, device=dev)[:, None].expand_as(V).clone()
+    for t in range(n_steps - 1, -1, -1):
+        ex = exercise(t)
+        if cfg["american"]:
+            cols = basis_cols((paths[t] - mean_t[t]) * inv_std_t[t], cfg["basis"], degree)
+            y = c[t] * V
+            packed = [_sum_once_rounded(cols[a] * cols[b]) for a, b in _pairs(k)]
+            packed += [torch.sum(cols[a] * y, dim=1, dtype=torch.float64).to(f32)
+                       for a in range(k)]
+            coef = _solve_equilibrated_ridge(packed, k, cfg["rcond"])
+            fitted = cols[0] * coef[0][:, None]
+            for a in range(1, k):
+                fitted = fitted + cols[a] * coef[a][:, None]
+            cont = torch.clamp_min(fitted, 0.0)  # Q2; a NaN fit stays NaN
+            live = torch.tensor([t < m for m in mats], device=dev)[:, None]
+            mask = (ex > cont) & live
+            if knock is not None:
+                mask = mask & knock[t]
+            V = torch.where(mask, ex * inv_c[t], V)
+            if cf_tau:
+                cf = torch.where(mask, ex, cf)
+                tau = torch.where(mask, float(t), tau)
+        if t in mats:  # shorter-dated options start at their own maturity
+            at_mat = torch.tensor([t == m for m in mats], device=dev)[:, None]
+            pay = gated(t, ex)
+            V = torch.where(at_mat, pay * inv_c[t], V)
+            if cf_tau:
+                cf = torch.where(at_mat, pay, cf)
+    v = c[0] * V
+    sq = v
+    if cfg["antithetic"]:
+        half = v.shape[1] // 2
+        sq = 0.5 * (v[:, :half] + v[:, half:])
+    return (torch.sum(v, dim=1, dtype=torch.float64).to(f32),
+            torch.sum(sq * sq, dim=1, dtype=torch.float64).to(f32), cf, tau)
+
+
+def _book_cuda(paths, knock, stats, cfg, cf_tau):
+    from . import _build
+
+    n_steps, n_paths = paths.shape[0] - 1, paths.shape[1]
+    n_s, k = len(cfg["strikes"]), cfg["degree"] + 1
+    dev = paths.device
+    n_blocks = max(1, min(_BOOK_MAX_BLOCKS, -(-n_paths // _THREADS)))
+    V = torch.empty((n_s, n_paths), dtype=torch.float32, device=dev)
+    cf = tau = None
+    if cf_tau:
+        cf, tau = torch.empty_like(V), torch.empty_like(V)
+    P = k * (k + 1) // 2 + k * n_s
+    partials = torch.empty(n_blocks * max(P, 2 * n_s), dtype=torch.float64, device=dev)
+    coeffs = torch.empty(n_s * k, dtype=torch.float32, device=dev)
+    sums = torch.empty((n_s, 2), dtype=torch.float32, device=dev)
+    Vp, I = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("amcx_lsmc_book", [Vp] * 9 + [I, I, I, I, ctypes.POINTER(BookParams),
+                                                       Vp])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(paths.data_ptr(), None if knock is None else knock.data_ptr(), stats.data_ptr(),
+            V.data_ptr(), None if cf is None else cf.data_ptr(),
+            None if tau is None else tau.data_ptr(), partials.data_ptr(), coeffs.data_ptr(),
+            sums.data_ptr(), n_steps, n_paths, n_blocks, cfg["degree"],
+            ctypes.byref(cfg["params"]), stream)
+    lsmc_book_megakernel.launches += 1
+    _build.check(rc, "amcx_lsmc_book")
+    return sums[:, 0], sums[:, 1], cf, tau
+
+
+def lsmc_book_megakernel(
+    paths_tm: torch.Tensor,
+    strikes,
+    r,
+    dt,
+    phi,
+    basis: str = "chebyshev",
+    degree: int = 4,
+    rcond: float = 1e-6,
+    american: bool = True,
+    mean_t: Optional[torch.Tensor] = None,
+    inv_std_t: Optional[torch.Tensor] = None,
+    maturity_steps=None,
+    axis_name: Optional[str] = None,
+    axis_size: int = 1,
+    return_cf_tau: bool = False,
+    antithetic: bool = False,
+    barrier=None,
+    barrier_type: str = "down-in",
+):
+    """Price a book of vanilla puts and calls on shared time-major paths
+    ``(n_steps+1, n_paths)`` f32, by one LSMC induction that shares the
+    path reads, the Gram and its factor across the options (fit on all
+    paths; ITM-weighted Grams would differ per option).
+
+    Runs where ``paths_tm`` lies: on a CUDA tensor the kernels of
+    ``csrc/lsmc_book.cu`` (or it raises), on a CPU tensor
+    :func:`_book_reference`. ``phi`` is +1 (calls) / −1 (puts) or a
+    per-option vector. ``maturity_steps``: per-option maturity step indices
+    in 1..n_steps (option s pays at its own step and is priced below it).
+    ``barrier``: one knock level shared by the book, any ``barrier_type``.
+    ``antithetic`` folds path i with i + n_paths/2 before the variance.
+    ``mean_t``/``inv_std_t``: the standardization (all-paths statistics of
+    the raw spots when omitted). Returns ``(prices, stderrs)``, each
+    ``(n_strikes,)``, or with ``return_cf_tau`` also the ``(n_strikes,
+    n_paths)`` cashflow and exercise-step planes. At most
+    ``BOOK_MAX_STRIKES`` options. ``lsmc_book_megakernel.launches`` counts
+    kernel launches.
+
+    Unlike amcx: the knock state is a byte plane, not the spot's sign bit;
+    any ``n_paths`` (amcx: a multiple of 4096); the discount rows are
+    ``mega_stats``' (c_t from f32(r)·f32(dt), amcx's book f32(r·dt): at most
+    an ulp apart).
+    """
+    dev = torch.device(paths_tm.device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"lsmc_book_megakernel runs on 'cpu' or 'cuda', got {dev}")
+    run = _book_cuda if dev.type == "cuda" else _book_reference
+    return _price_book(run, paths_tm, strikes, r, dt, phi, basis, degree, rcond, american,
+                       mean_t, inv_std_t, maturity_steps, axis_name, axis_size, return_cf_tau,
+                       antithetic, barrier, barrier_type)
+
+
+lsmc_book_megakernel.launches = 0
+
+
+def lsmc_book_mega_reference(paths_tm: torch.Tensor, *args, **kwargs):
+    """:func:`lsmc_book_megakernel`'s plain version on any device (the
+    card's check compares the two on the same CUDA paths)."""
+    return _price_book(_book_reference, paths_tm, *args, **kwargs)
+
+
+def _price_book(run, paths_tm, strikes, r, dt, phi, basis="chebyshev", degree=4, rcond=1e-6,
+                american=True, mean_t=None, inv_std_t=None, maturity_steps=None,
+                axis_name=None, axis_size=1, return_cf_tau=False, antithetic=False,
+                barrier=None, barrier_type="down-in"):
+    if axis_name is not None:
+        _not_ported("the book kernel's collective mode", "A15")
+    basis = basis.strip().lower()
+    if basis not in BASIS_IDS:
+        raise ValueError(f"Unknown basis type {basis!r}")
+    if not 0 <= degree <= MAX_DEGREE:
+        raise ValueError(f"degree must lie in 0..{MAX_DEGREE}, got {degree}")
+    if paths_tm.ndim != 2 or paths_tm.shape[0] < 2 or paths_tm.dtype != torch.float32:
+        raise ValueError(
+            f"paths must be time-major (n_steps+1, n_paths) float32, got "
+            f"{tuple(paths_tm.shape)} {paths_tm.dtype}")
+    paths = paths_tm.contiguous()
+    n_steps, n_paths = paths.shape[0] - 1, paths.shape[1]
+    if n_paths >= 2 ** 31:
+        raise ValueError(f"n_paths must be < 2^31, got {n_paths}")
+    if antithetic and n_paths % 2:
+        raise ValueError(f"antithetic pair folding needs an even n_paths, got {n_paths}")
+    ks = torch.atleast_1d(torch.as_tensor(strikes, dtype=torch.float32)).detach().cpu()
+    n_s = ks.shape[0]
+    if not 1 <= n_s <= BOOK_MAX_STRIKES:
+        raise ValueError(f"the book kernel prices 1..{BOOK_MAX_STRIKES} options, got {n_s} "
+                         "(the cap of csrc/lsmc_book.cu; split the book)")
+    phis = torch.broadcast_to(torch.as_tensor(phi, dtype=torch.float32).detach().cpu(), (n_s,))
+    if maturity_steps is None:
+        mats = (n_steps,) * n_s
+    else:
+        mats = tuple(int(m) for m in maturity_steps)
+        if len(mats) != n_s:
+            raise ValueError(f"maturity_steps has {len(mats)} entries for {n_s} strikes")
+        if any(m < 1 or m > n_steps for m in mats):
+            raise ValueError(f"maturity_steps must lie in 1..{n_steps}")
+    if mean_t is None or inv_std_t is None:
+        mean_t, inv_std_t = _data_standardization(paths, 0.0, 1.0, False)
+    stats = mega_stats(mean_t, inv_std_t, r, dt, n_steps, paths.device)
+    knock = None if barrier is None else barrier_gate(paths, barrier, barrier_type).contiguous()
+    strikes_t, phis_t = tuple(ks.tolist()), tuple(phis.tolist())
+    cfg = dict(strikes=strikes_t, phis=phis_t, mats=mats, basis=basis, degree=degree,
+               rcond=float(rcond), american=bool(american), antithetic=bool(antithetic),
+               params=_book_params(strikes_t, phis_t, mats, basis, bool(american),
+                                   bool(antithetic), float(rcond)))
+    sums, squares, cf, tau = run(paths, knock, stats, cfg, bool(return_cf_tau))
+    price = sums / n_paths
+    n_eff = n_paths // 2 if antithetic else n_paths
+    var = torch.clamp_min(squares / n_eff - price * price, 0.0)
+    stderr = torch.sqrt(var / n_eff)
+    if return_cf_tau:
+        return price, stderr, cf, tau
     return price, stderr

@@ -24,7 +24,13 @@ width:
   ``ma_step_moments``/``ma_step_apply`` and the induction kernel
   ``ma_mega`` against their plain versions, then
   ``amcx_torch.price_max_call(engine="mega"|"fused")`` against the
-  published values 26.15 (5 assets) and 13.90 (2 assets).
+  published values 26.15 (5 assets) and 13.90 (2 assets);
+- phases 11-12: the strike/maturity book (``book-16-1M``: 16 American puts,
+  strikes 80..120, S0 = 95, 1,048,576 paths x 100 steps): the book kernel
+  ``lsmc_book`` against its plain version in four cases, then
+  ``amcx_torch.price_strike_grid(engine="mega")`` on the Philox pathgen
+  against CRR-2000 per strike, the xla book, the single-option kernel and,
+  for mixed maturities and the Greeks ladder, the xla routes.
 
 It times the pricings, each kernel, each plain version and, where one
 PyTorch call computes the same function, that call, with CUDA events, and
@@ -53,6 +59,9 @@ SEED = 20261016
 MC_DATES, MC_R, MC_Q, MC_SIGMA, MC_T = 9, 0.05, 0.10, 0.2, 3.0
 MC_VALUES = {5: 26.15, 2: 13.90}
 MC_TOL = 0.35
+# book-16-1M (amcx's published book set-up, scripts/make_results.py:335-345)
+BOOK_S0, BOOK_N = 95.0, 16
+BOOK_CRR_TOL = 0.2
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): HBM3
 # bandwidth, f32 and f64 arithmetic outside the tensor cores
@@ -136,7 +145,9 @@ def main():
                                           backward_induction_fused_reference)
     from amcx_torch.ops import _build
     from amcx_torch.ops.gbm import gbm_paths, gbm_paths_reference
-    from amcx_torch.ops.lsmc_megakernel import (lsmc_price_mega_reference,
+    from amcx_torch.ops.lsmc_megakernel import (lsmc_book_mega_reference,
+                                                lsmc_book_megakernel,
+                                                lsmc_price_mega_reference,
                                                 lsmc_price_megakernel)
     from amcx_torch.ops.lsmc_pallas import (step_apply, step_apply_reference, step_moments,
                                             step_moments_reference, step_stats, unpack_moments)
@@ -657,8 +668,135 @@ def main():
         del res
     del paths5, planes5, cf5, tau5
 
+    # ---- phase 11: kernel 3 (the strike/maturity book) vs its plain ------
+    # ---- version, at book-16-1M's shape ----------------------------------------
+    book_market = amcx_torch.MarketParams(BOOK_S0, R, SIGMA)
+    book_mean, book_inv_std = amcx_torch.gbm_standardization(book_market, T, N_STEPS, device=dev)
+    frame = dict(mean_t=book_mean, inv_std_t=book_inv_std)
+    ladder = torch.linspace(80.0, 120.0, BOOK_N)
+    book_paths = gbm_paths(SEED + 11, BOOK_S0, R, SIGMA, 0.0, T, N_STEPS, N_PATHS, device=dev)
+    anti_sim = amcx_torch.SimConfig(n_paths=N_PATHS, n_steps=N_STEPS, backend="torch",
+                                    antithetic=True)
+    anti_paths = amcx_torch.simulate_gbm(SEED + 12, book_market, T, anti_sim, device=dev)
+    quarters = tuple(N_STEPS * q // 4 for q in (1, 2, 3, 4))  # maturity steps 25/50/75/100
+    book_err = 0.0
+    for case, bpaths, strikes, phi, kw in (
+            ("16-put ladder, cf/tau", book_paths, ladder, -1.0, dict(return_cf_tau=True)),
+            ("4 puts + 4 calls", book_paths, torch.linspace(85.0, 115.0, 8),
+             torch.tensor([-1.0] * 4 + [1.0] * 4), {}),
+            ("16 puts, shared down-in H=80", book_paths, ladder, -1.0, dict(barrier=80.0)),
+            ("4 puts, maturities 25/50/75/100, antithetic", anti_paths,
+             torch.linspace(85.0, 115.0, 4), -1.0,
+             dict(maturity_steps=quarters, antithetic=True, return_cf_tau=True))):
+        args, kw = (bpaths, strikes, R, dt, phi), dict(kw, **frame)
+        before = lsmc_book_megakernel.launches
+        ker = lsmc_book_megakernel(*args, **kw)
+        again = lsmc_book_megakernel(*args, **kw)
+        torch.cuda.synchronize()
+        n_launch = lsmc_book_megakernel.launches - before
+        ref = lsmc_book_mega_reference(*args, **kw)
+        torch.cuda.synchronize()
+        diffs = [float(torch.max(torch.abs(a - b))) for a, b in zip(ker, ref)]
+        same_ref = all(torch.equal(a, b) for a, b in zip(ker, ref))
+        same_rerun = all(torch.equal(a, b) for a, b in zip(ker, again))
+        ex_note = ""
+        if kw.get("return_cf_tau"):
+            mats = torch.tensor(kw.get("maturity_steps", (N_STEPS,) * len(strikes)), device=dev)
+            ex_note = f" | early-exercised paths {int((ker[3] < mats[:, None]).sum())}"
+        print(f"phase 11 book kernel {case} {N_PATHS}x{N_STEPS}: prices "
+              f"{[round(float(v), 5) for v in ker[0]]} stderrs max {float(ker[1].max()):.5f} | "
+              f"max|d| price/stderr{'/cf/tau' if len(ker) == 4 else ''} {diffs}{ex_note} | "
+              f"launches {n_launch} | equal to plain {same_ref} | bit-identical rerun "
+              f"{same_rerun}", flush=True)
+        _require(bool(torch.isfinite(ker[0]).all()) and bool((ker[1] > 0).all()),
+                 f"book {case}: finite prices, positive stderrs")
+        _require(n_launch == 2, f"book {case}: launches {n_launch}")
+        _require(same_ref, f"book {case}: kernel equal to its plain version {diffs}")
+        _require(same_rerun, f"book {case}: two kernel runs bit-identical")
+        book_err = max(book_err, *diffs)
+        del ker, again, ref
+    del anti_paths
+
+    # ---- phase 12: the book through its entry points at full width -------
+    def book_pricing(seed=SEED, **kw):
+        bp = amcx_torch.simulate_gbm(seed, book_market, T, sim, device=dev)
+        return bp, amcx_torch.price_strike_grid(bp, ladder, R, T, "put", True, spec_all,
+                                                engine="mega", **frame, **kw)
+
+    torch.cuda.synchronize()
+    book_kernels = all_kernels + (lsmc_book_megakernel,)
+    for kernel in book_kernels:
+        kernel.launches = 0
+    paths12, book = book_pricing()
+    torch.cuda.synchronize()
+    book_launches = {k.__name__: k.launches for k in book_kernels}
+    _require(book_launches["gbm_paths"] == 1 and book_launches["lsmc_book_megakernel"] == 1
+             and sum(book_launches.values()) == 2,
+             f"the book path launched pathgen + kernel 3 once each {book_launches}")
+    crr16 = torch.tensor([amcx_torch.crr_price(BOOK_S0, float(K), T, R, SIGMA, 2000,
+                                               option_type="put", american=True)
+                          for K in ladder], dtype=torch.float64)
+    b_prices, b_se = book.prices.double().cpu(), book.stderrs.double().cpu()
+    crr_err = torch.abs(b_prices - crr16)
+    _require(bool(torch.isfinite(b_prices).all()) and bool((b_se > 0).all()),
+             "book: finite prices, positive stderrs")
+    _require(float(crr_err.max()) <= BOOK_CRR_TOL,
+             f"book: max |price - CRR-2000| = {float(crr_err.max()):.5f} <= {BOOK_CRR_TOL}")
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    xla_book = amcx_torch.price_strike_grid(paths12, ladder, R, T, "put", True, spec_all)
+    e1.record()
+    e1.synchronize()
+    ms_xla_book = e0.elapsed_time(e1)
+    d_xla = float(torch.max(torch.abs(book.prices - xla_book.prices)))
+    _require(d_xla <= 3e-3, f"book: max |mega - xla| = {d_xla:.2e} <= 3e-3")
+    single = torch.stack([lsmc_price_megakernel(paths12, float(K), R, dt, -1.0, itm_weights=False,
+                                                **frame)[0] for K in ladder])
+    n_bit = int((single == book.prices).sum())
+    d_single = float(torch.max(torch.abs(single - book.prices)))
+    _require(d_single <= 1e-4, f"book vs kernel 2 per strike: max |d| {d_single:.2e} <= 1e-4")
+    mix_strikes, mix_mats = torch.linspace(85.0, 115.0, 8), quarters * 2
+    mix_mega = amcx_torch.price_mixed_book(paths12, mix_strikes, mix_mats, R, T, "put", True,
+                                           spec_all, engine="mega", **frame)
+    mix_xla = amcx_torch.price_mixed_book(paths12, mix_strikes, mix_mats, R, T, "put", True,
+                                          spec_all)
+    d_mix = float(torch.max(torch.abs(mix_mega.prices - mix_xla.prices)))
+    _require(d_mix <= 8e-3, f"mixed book: max |mega - xla| = {d_mix:.2e} <= 8e-3")
+    _, cf_book = book_pricing(return_cf_tau=True)
+    g_mega = amcx_torch.book_greeks(cf_book, book_market, ladder, T, N_STEPS)
+    g_xla = amcx_torch.book_greeks(xla_book, book_market, ladder, T, N_STEPS)
+    d_delta = float(torch.max(torch.abs(g_mega["delta"] - g_xla["delta"])))
+    _require(d_delta <= 1e-2, f"book Greeks: max |delta mega - xla| = {d_delta:.2e} <= 1e-2")
+    del cf_book, xla_book
+    seeds = iter(range(SEED + 1, SEED + 1000))
+    ms_book_pricing = _time_ms(torch, lambda: book_pricing(next(seeds)), 10, 2)
+    ms_book = _time_ms(torch, lambda: lsmc_book_megakernel(paths12, ladder, R, dt, -1.0, **frame),
+                       20, 3)
+    ms_book_plain = _time_ms(torch, lambda: lsmc_book_mega_reference(paths12, ladder, R, dt, -1.0,
+                                                                     **frame), 1, 0)
+    ms_single = _time_ms(torch, lambda: lsmc_price_megakernel(paths12, 100.0, R, dt, -1.0,
+                                                              itm_weights=False, **frame), 10, 2)
+    book_rate = BOOK_N * N_PATHS * N_STEPS / (ms_book_pricing / 1e3)
+    print(f"phase 12 book-16-1M (16 American puts K=80..120, S0={BOOK_S0}, {N_PATHS}x{N_STEPS}, "
+          f"price_strike_grid mega): prices {[round(v, 5) for v in b_prices.tolist()]} | "
+          f"CRR-2000 {[round(v, 5) for v in crr16.tolist()]} | max |err| "
+          f"{float(crr_err.max()):.5f} (K={float(ladder[int(crr_err.argmax())]):.2f}) | stderr "
+          f"max {float(b_se.max()):.5f} | launches {book_launches}", flush=True)
+    print(f"phase 12 cross-checks: max |mega - xla book| {d_xla:.3e} | kernel 2 per strike: "
+          f"{n_bit} of {BOOK_N} bit-equal, max |d| {d_single:.3e} | mixed maturities "
+          f"{list(mix_mats)} max |mega - xla| {d_mix:.3e} | delta ladder max |mega - xla| "
+          f"{d_delta:.3e}", flush=True)
+    print(f"phase 12 book-16-1M: {ms_book_pricing:.3f} ms per book pricing (pathgen + kernel 3, "
+          f"median of 10) = {book_rate:.4e} option-path-steps/s | kernel 3 alone {ms_book:.3f} "
+          f"ms, plain {ms_book_plain:.3f} ms | xla book (16 strikes, one run) {ms_xla_book:.3f} "
+          f"ms | kernel 2 for one strike {ms_single:.3f} ms", flush=True)
+    prof = _profile(torch, lambda: book_pricing(), 3)
+    print(f"phase 12 profile book pricing: {prof or 'no device activity recorded'}", flush=True)
+    del paths12, book_paths, book
+
     # ---- bounds: bytes each kernel must move and its arithmetic ----------
     P4, k4 = 20, 5  # step kernels and mega induction: Chebyshev degree 4
+    P_book = 15 + k4 * BOOK_N  # the book's shared Gram head + 16 rhs rows
     P21 = 252
     row = N_PATHS * 4
     bounds = {
@@ -686,6 +824,11 @@ def main():
         # reads the step's 5 planes (never cf or tau), writes cf/tau of the
         # exercised paths
         "ma_step_apply": _bound(5 * row + 8 * n_ex5, f32_ops=N_PATHS * (2 * m5 - 1)),
+        # reads the paths once; per path-step the P_book products (f32) and
+        # their f64 sums, and 16 fitted continuations of 2k-1 operations
+        "lsmc_book": _bound((N_STEPS + 1) * row + 4 * (N_STEPS + 1) * 4,
+                            f32_ops=N_STEPS * N_PATHS * (P_book + BOOK_N * (2 * k4 - 1)),
+                            f64_ops=N_STEPS * N_PATHS * P_book),
     }
 
     print(smi)
@@ -720,6 +863,10 @@ def main():
          "launches": mc_launches[("fused", 5)]["ma_step_apply"],
          "max_abs_err": max(ma_apply_err, ma_fused_err), "ms": ms_ma_apply,
          "plain_ms": ms_ma_apply_plain, "library_ms": None},
+        {"name": "lsmc_book", "route": "cuda", "source": "amcx_torch/csrc/lsmc_book.cu",
+         "replaces": "amcx/ops/lsmc_megakernel.py:485",
+         "launches": book_launches["lsmc_book_megakernel"], "max_abs_err": book_err,
+         "ms": ms_book, "plain_ms": ms_book_plain, "library_ms": None},
     ]]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

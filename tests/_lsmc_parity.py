@@ -32,16 +32,33 @@ def first_divergence(dec_j, dec_t):
     return int(steps.max()), int(diff[steps.max()].sum())
 
 
+def first_divergence_tau(tau_j, tau_t):
+    """``(t*, n)`` from two (n_paths,) exercise-step planes, for runs that
+    export no per-step rows (the book): a path whose recorded exercise
+    steps differ was decided differently at the later-in-time of its two
+    steps or earlier, so t* is the largest such step min(τ_j, τ_t) over the
+    paths that differ, and n the paths that part there; (None, 0) if the
+    planes are equal."""
+    tau_j, tau_t = np.asarray(tau_j), np.asarray(tau_t)
+    differ = tau_j != tau_t
+    if not differ.any():
+        return None, 0
+    parted = np.minimum(tau_j, tau_t)[differ]
+    return int(parted.max()), int((parted == parted.max()).sum())
+
+
 def hold_pair(what, price_j, price_t, se_j, se_t, rows_j, rows_t, first, v_j, v_t, price_tol):
     """Hold an amcx/port pair to the module docstring's rules. ``rows_*``:
-    per-step coefficient or continuation rows indexed by t; ``first``:
-    `first_divergence`; ``v_*``: per-path discounted values (f64)."""
+    per-step coefficient or continuation rows indexed by t (None where the
+    runs export none); ``first``: `first_divergence` or
+    `first_divergence_tau`; ``v_*``: per-path discounted values (f64)."""
     t_star, n_first = first
-    scale = np.abs(rows_j).max()
-    # rows: 1e-3 of the largest entry (f32 solves of the same moments
-    # summed in different orders)
-    rows = slice(t_star, None) if t_star is not None else slice(None)
-    np.testing.assert_allclose(rows_t[rows], rows_j[rows], rtol=0, atol=1e-3 * scale)
+    if rows_j is not None:
+        scale = np.abs(rows_j).max()
+        # rows: 1e-3 of the largest entry (f32 solves of the same moments
+        # summed in different orders)
+        rows = slice(t_star, None) if t_star is not None else slice(None)
+        np.testing.assert_allclose(rows_t[rows], rows_j[rows], rtol=0, atol=1e-3 * scale)
     d_price = float(price_t) - float(price_j)
     if t_star is None:
         assert abs(d_price) <= price_tol, (what, d_price)
@@ -70,7 +87,7 @@ def hold_engine_pair(what, paths, jres, tres, prod, r, exercise_steps=None, pric
     the per-step ``rows`` ("coeffs" or "continuation") before the first
     flip."""
     n_steps = paths.shape[0] - 1
-    S = at.tensor_from_numpy(paths)
+    S = at.tensor_from_numpy(paths, device="cpu")
     ex = at.intrinsic_value(S[:-1], prod.K, prod.option_type)
     gate = at.barrier_gate(S, prod.barrier, prod.barrier_type)[:-1] & (ex > 0)
     if exercise_steps is not None:
@@ -79,7 +96,7 @@ def hold_engine_pair(what, paths, jres, tres, prod, r, exercise_steps=None, pric
     def decide(cont):
         if not prod.is_american:
             return np.zeros(gate.shape, bool)
-        return (gate & (ex > at.tensor_from_numpy(np.asarray(cont))[:-1])).numpy()
+        return (gate & (ex > at.tensor_from_numpy(np.asarray(cont), device="cpu")[:-1])).numpy()
 
     first = first_divergence(decide(jres.continuation), decide(tres.continuation))
     dt = prod.T / n_steps

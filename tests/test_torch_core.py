@@ -209,7 +209,7 @@ def test_config_from_jax_maps_every_dataclass():
 
 def test_tensor_from_numpy_roundtrip():
     a = np.arange(12, dtype=np.float32).reshape(3, 4)[:, ::2]
-    t = at.tensor_from_numpy(a)
+    t = at.tensor_from_numpy(a, device="cpu")
     assert t.is_contiguous() and t.dtype == torch.float32
     np.testing.assert_array_equal(t.numpy(), a)
     t[0, 0] = -1.0  # a copy: the source array is untouched
@@ -240,7 +240,8 @@ def test_port_imports_without_jax():
         "amcx_torch.ops.lsmc_megakernel, amcx_torch.ops.lsmc_pallas, amcx_torch.ops._build, "
         "amcx_torch.interop, amcx_torch.engine_pallas, amcx_torch.greeks, "
         "amcx_torch.models, amcx_torch.models.maxcall, amcx_torch.ops.maxcall_pallas, "
-        "amcx_torch.ops.lsmc_ma_mega, amcx_torch.kernel_profile\n"
+        "amcx_torch.ops.lsmc_ma_mega, amcx_torch.kernel_profile, amcx_torch.book, "
+        "amcx_torch.exposures\n"
         "from amcx_torch.ops._build import build_info\n"
         "assert build_info['paths'] is None\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules "

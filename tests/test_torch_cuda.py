@@ -296,3 +296,56 @@ def test_price_max_call_routes_on_card(cuda_device):
     assert torch.equal(paths, paths_f) and paths.shape == (10, 131_072, 2)
     assert abs(float(mega.price) - float(fused.price)) <= 5e-3
     assert abs(float(mega.price) - 13.90) <= 0.35
+
+
+# kernel 3: the four cases of chip_smoke.py phase 11 (book-16-1M's market,
+# S0 = 95, r = 1%, sigma = 20%, T = 1, at 131,072 paths x 100 steps)
+BOOK_MARKET = at.MarketParams(95.0, 0.01, 0.2)
+BOOK_CARD_CASES = {
+    # (strikes, phi, keywords, antithetic torch paths)
+    "put-ladder-cf-tau": (torch.linspace(80.0, 120.0, 16), -1.0, dict(return_cf_tau=True),
+                          False),
+    "put-call": (torch.linspace(85.0, 115.0, 8), torch.tensor([-1.0] * 4 + [1.0] * 4), {},
+                 False),
+    "down-in-80": (torch.linspace(80.0, 120.0, 16), -1.0, dict(barrier=80.0), False),
+    "mixed-maturity-antithetic": (torch.linspace(85.0, 115.0, 4), -1.0,
+                                  dict(maturity_steps=(25, 50, 75, 100), antithetic=True,
+                                       return_cf_tau=True), True),
+}
+
+
+def _book_paths(device, n, seed, antithetic):
+    sim = at.SimConfig(n_paths=n, n_steps=100, backend="torch" if antithetic else "philox",
+                       antithetic=antithetic)
+    return at.simulate_gbm(seed, BOOK_MARKET, 1.0, sim, device=device)
+
+
+@pytest.mark.parametrize("case", sorted(BOOK_CARD_CASES))
+def test_book_kernel_matches_plain(cuda_device, case):
+    # kernel 3 against its plain version on the same card paths: f64 moments
+    # rounded once, -fmad=false and the same factor and back-solve order:
+    # identical prices, stderrs and cf/tau planes, and a rerun identical
+    strikes, phi, kw, antithetic = BOOK_CARD_CASES[case]
+    paths = _book_paths(cuda_device, 131_072, 9, antithetic)
+    mean_t, inv_std_t = at.gbm_standardization(BOOK_MARKET, 1.0, 100, device=cuda_device)
+    args = (paths, strikes, 0.01, 0.01, phi)
+    kw = dict(kw, mean_t=mean_t, inv_std_t=inv_std_t)
+    before = tmega.lsmc_book_megakernel.launches
+    ker = tmega.lsmc_book_megakernel(*args, **kw)
+    again = tmega.lsmc_book_megakernel(*args, **kw)
+    ref = tmega.lsmc_book_mega_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert tmega.lsmc_book_megakernel.launches == before + 2
+    assert bool(torch.isfinite(ker[0]).all()) and bool((ker[1] > 0).all())
+    for out in (again, ref):
+        for a, b in zip(ker, out):
+            assert torch.equal(a, b)
+
+
+def test_book_kernel_strike_cap(cuda_device):
+    paths = _book_paths(cuda_device, 1024, 3, False)
+    with pytest.raises(ValueError, match="1[.][.]64"):
+        tmega.lsmc_book_megakernel(paths, torch.linspace(80.0, 120.0, 65), 0.01, 0.01, -1.0)
+    prices, _ = tmega.lsmc_book_megakernel(paths, torch.linspace(80.0, 120.0, 64), 0.01, 0.01,
+                                           -1.0)
+    assert prices.shape == (64,) and bool(torch.isfinite(prices).all())

@@ -44,7 +44,7 @@ def paths_8k():
 
 
 def _t(a):
-    return at.tensor_from_numpy(a)
+    return at.tensor_from_numpy(a, device="cpu")
 
 
 def _fit_at_zero(c):
@@ -222,6 +222,7 @@ ENTRY_POINTS = {
     "gbm_paths": lambda: tgbm.gbm_paths(0, S0, R, SIGMA, 0.0, 1.0, 4, 64),
     "price_max_call": lambda: at.price_max_call(0, [S0, S0], K, 3.0, 0.05, SIGMA, q=0.1,
                                                 n_paths=64),
+    "tensor_from_numpy": lambda: at.tensor_from_numpy(np.zeros((2, 3), np.float32)),
 }
 
 

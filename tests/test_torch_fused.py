@@ -39,7 +39,7 @@ def paths_8k():
 
 
 def _t(a):
-    return at.tensor_from_numpy(a)
+    return at.tensor_from_numpy(a, device="cpu")
 
 
 def _rows(a):

@@ -77,7 +77,7 @@ def fused_run():
     paths = np.asarray(amcx.simulate_gbm(jax.random.key(5), amcx.MarketParams(100.0, 0.05, 0.2),
                                          1.0, amcx.SimConfig(n_paths=8192, n_steps=16)))
     prod = at.ProductSpec(K=100.0, T=1.0, option_type="put", exercise="american")
-    res = at.lsmc_option_pricing_fused(at.tensor_from_numpy(paths), prod, M.r, SPEC)
+    res = at.lsmc_option_pricing_fused(at.tensor_from_numpy(paths, device="cpu"), prod, M.r, SPEC)
     return paths, prod, res
 
 
@@ -105,7 +105,7 @@ def test_fused_price_diff_backward_matches_amcx(fused_run):
     # same nonzeros, each within 1e-6 (XLA's and torch's f32 exp differ by
     # an ulp)
     paths, _, res = fused_run
-    P = at.tensor_from_numpy(paths).requires_grad_(True)
+    P = at.tensor_from_numpy(paths, device="cpu").requires_grad_(True)
     r, K, dt = (torch.tensor(v, requires_grad=True) for v in (0.05, 100.0, 1.0 / 16))
     spec = at.RegressionSpec(degree=4, regress_on="itm")
     price = at.fused_price_diff(P, r, K, dt, None, 16, -1.0, spec, True)

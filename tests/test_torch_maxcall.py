@@ -60,7 +60,7 @@ def paths5():
 
 
 def _t(a):
-    return at.tensor_from_numpy(a)
+    return at.tensor_from_numpy(a, device="cpu")
 
 
 def _values(cf, tau):
