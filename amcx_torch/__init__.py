@@ -51,6 +51,8 @@ from .oracle import (
 )
 from .paths import (brownian_normals, gbm_standardization, simulate_gbm, simulate_gbm_multi,
                     to_path_major)
+from .ops.lsmc_fusedpath import lsmc_price_fusedpath
+from .policy import OOSResult, price_out_of_sample, reprice_with_coeffs
 from .payoff import (
     barrier_gate,
     barrier_knocked,
@@ -74,6 +76,7 @@ __all__ = [
     "CCRExposures",
     "LSMCResult",
     "MarketParams",
+    "OOSResult",
     "ProductSpec",
     "RegressionSpec",
     "SimConfig",
@@ -109,6 +112,7 @@ __all__ = [
     "intrinsic_value",
     "lsmc_option_pricing",
     "lsmc_option_pricing_fused",
+    "lsmc_price_fusedpath",
     "max_call_greeks",
     "max_call_payoff",
     "maxcall_standardization",
@@ -122,9 +126,11 @@ __all__ = [
     "price_max_call",
     "price_mixed_book",
     "price_option",
+    "price_out_of_sample",
     "price_strike_grid",
     "regression_fitted_values",
     "reprice_max_call_with_coeffs",
+    "reprice_with_coeffs",
     "resolve_regression_spec",
     "simulate_gbm",
     "simulate_gbm_multi",

@@ -55,4 +55,22 @@ __device__ __forceinline__ void philox_normals4(uint4 x, float (&z)[4]) {
   z[3] = r1 * s1;
 }
 
+// The four standard normals of one Philox draw by exactly the f32
+// operations of the plain version of the fusedpath kernel
+// (ops/lsmc_fusedpath.py, fusedpath_normals): the angle u * 2pi is one f32
+// product, and cosf/sinf/logf/sqrtf are the same library functions as
+// torch's CUDA cos/sin/log/sqrt, so the two give the same bits (under
+// -fmad=false). philox_normals4 above keeps kernel 1's sincospif.
+__device__ __forceinline__ void philox_normals4_cos_sin(uint4 x, float (&z)[4]) {
+  constexpr float kTwoPi = 6.28318530717958647692f;
+  const float r0 = sqrtf(-2.0f * logf(philox_uniform(x.x)));
+  const float r1 = sqrtf(-2.0f * logf(philox_uniform(x.z)));
+  const float a0 = philox_uniform(x.y) * kTwoPi;
+  const float a1 = philox_uniform(x.w) * kTwoPi;
+  z[0] = r0 * cosf(a0);
+  z[1] = r0 * sinf(a0);
+  z[2] = r1 * cosf(a1);
+  z[3] = r1 * sinf(a1);
+}
+
 }  // namespace amcx

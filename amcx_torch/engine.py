@@ -247,13 +247,15 @@ def price_option(
     """Simulate → price on ``device``.
 
     ``engine``: ``"xla"`` (the reference loop engine of this module),
-    ``"fused"`` (the per-step moments/apply kernels) or ``"mega"`` (the
-    induction kernel); the kernels run their plain versions on the CPU.
-    ``"fusedpath"`` is not ported yet. ``seed``: an integer (either
-    simulator) or a ``torch.Generator`` (``"torch"`` backend).
-    ``return_coeffs`` fills ``coeffs`` ("xla", "mega"); ``return_cf_tau``
-    fills ``cashflows``/``exercise_times`` for "mega" ("xla" and "fused"
-    always return them).
+    ``"fused"`` (the per-step moments/apply kernels), ``"mega"`` (the
+    induction kernel) or ``"fusedpath"`` (the induction kernel that
+    regenerates its own paths, `amcx_torch.ops.lsmc_fusedpath`: no path
+    array, ``sim.backend`` unused, barriers through the first-crossing
+    plane); the kernels run their plain versions on the CPU. ``seed``: an
+    integer (every engine) or a ``torch.Generator`` (``"torch"`` backend).
+    ``return_coeffs`` fills ``coeffs`` ("xla", "mega", "fusedpath");
+    ``return_cf_tau`` fills ``cashflows``/``exercise_times`` for "mega" and
+    "fusedpath" ("xla" and "fused" always return them).
     """
     from .paths import gbm_standardization, simulate_gbm
 
@@ -275,8 +277,24 @@ def price_option(
                                          exercise_steps=exercise_steps,
                                          antithetic=sim.antithetic)
     if engine == "fusedpath":
-        raise NotImplementedError(
-            "engine='fusedpath' is not ported yet (ROADMAP A10 / B5)")
+        from .ops.lsmc_fusedpath import lsmc_price_fusedpath
+
+        if return_surface:
+            raise ValueError(
+                "engine='fusedpath' stores no paths, so no dense surface; use "
+                "return_coeffs=True + amcx_torch.exposures_from_coeffs on any same-law paths")
+        out = lsmc_price_fusedpath(
+            seed, market.S0, product.K, market.r, market.sigma, product.T / sim.n_steps,
+            sim.n_steps, sim.n_paths, 1.0 if product.option_type == "call" else -1.0,
+            q=market.q, basis=spec.basis, degree=spec.degree, rcond=spec.rcond,
+            american=product.is_american, itm_weights=spec.regress_on == "itm",
+            antithetic=sim.antithetic, return_stats=True, exercise_steps=exercise_steps,
+            return_cf_tau=return_cf_tau, return_coeffs=return_coeffs,
+            barrier=product.barrier, barrier_type=product.barrier_type, device=device)
+        if return_cf_tau or return_coeffs:
+            return LSMCResult(out.price, out.stderr, out.cashflows, out.exercise_times, None,
+                              coeffs=out.coeffs)
+        return LSMCResult(out[0], out[1], None, None, None)
     if engine == "mega":
         from .ops.lsmc_megakernel import lsmc_price_megakernel
 

@@ -30,7 +30,15 @@ width:
   ``lsmc_book`` against its plain version in four cases, then
   ``amcx_torch.price_strike_grid(engine="mega")`` on the Philox pathgen
   against CRR-2000 per strike, the xla book, the single-option kernel and,
-  for mixed maturities and the Greeks ladder, the xla routes.
+  for mixed maturities and the Greeks ladder, the xla routes;
+- phases 13-14: zero-path-memory pricing: the kernel ``lsmc_fusedpath``,
+  which regenerates the paths inside the induction, against its plain
+  version in five cases and against ``lsmc_mega`` on the same paths, then
+  ``price_option(engine="fusedpath")`` (the put against CRR-2000, a
+  down-and-in put against the CRR barrier tree, 1M x 1000 steps) and
+  ``price_out_of_sample`` fitted on 1M paths and replayed on 16 blocks of
+  1M, with the time and device memory of a pricing beside the
+  pathgen + ``lsmc_mega`` pipeline's.
 
 It times the pricings, each kernel, each plain version and, where one
 PyTorch call computes the same function, that call, with CUDA events, and
@@ -62,6 +70,10 @@ MC_TOL = 0.35
 # book-16-1M (amcx's published book set-up, scripts/make_results.py:335-345)
 BOOK_S0, BOOK_N = 95.0, 16
 BOOK_CRR_TOL = 0.2
+# the zero-path-memory route (amcx's scale configurations,
+# scripts/make_results.py:253-275 and :310-327)
+OOS_BLOCKS, DEEP_STEPS = 16, 1000
+FP_MEMORY_CAP = 64 * 2 ** 20
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): HBM3
 # bandwidth, f32 and f64 arithmetic outside the tensor cores
@@ -154,6 +166,8 @@ def main():
     from amcx_torch.models.maxcall import (backward_induction_fused_maxcall,
                                            backward_induction_fused_maxcall_reference)
     from amcx_torch.ops import lsmc_ma_mega, maxcall_pallas
+    from amcx_torch.ops.lsmc_fusedpath import (fusedpath_paths_reference, lsmc_price_fusedpath,
+                                               lsmc_price_fusedpath_reference)
     from amcx_torch.ops.lsmc_ma_mega import lsmc_price_ma_mega, lsmc_price_ma_mega_reference
     from amcx_torch.ops.maxcall_pallas import (ma_step_apply, ma_step_apply_reference,
                                                ma_step_moments, ma_step_moments_reference)
@@ -794,12 +808,182 @@ def main():
     print(f"phase 12 profile book pricing: {prof or 'no device activity recorded'}", flush=True)
     del paths12, book_paths, book
 
+    # ---- phase 13: kernel 6 (zero-path-memory induction) vs its plain ---
+    # ---- version, and vs kernel 2 on the paths it regenerates -----------------
+    fp_args = (S0, STRIKE, R, SIGMA, dt, N_STEPS, N_PATHS, -1.0)
+    fit_a = dict(itm_weights=True, return_cf_tau=True, return_coeffs=True)
+    fp_err, fp_coeffs_a = 0.0, None
+    for case, seed, kw in (
+            ("(a) ITM fit, cf/tau + coeffs", SEED + 21, fit_a),
+            ("(b) all-paths fit", SEED + 22, dict(return_coeffs=True)),
+            ("(c) down-in put H=90", SEED + 23, dict(fit_a, barrier=90.0)),
+            ("(d) Bermudan every 10th step, antithetic", SEED + 24,
+             dict(fit_a, exercise_steps=tuple(range(0, N_STEPS, 10)), antithetic=True)),
+            ("(e) replay of (a)'s coeffs, new seed", SEED + 25, dict(return_cf_tau=True))):
+        if case.startswith("(e)"):
+            kw = dict(kw, replay_coeffs=fp_coeffs_a)
+        before = lsmc_price_fusedpath.launches
+        ker = lsmc_price_fusedpath(seed, *fp_args, **kw, device=dev)
+        again = lsmc_price_fusedpath(seed, *fp_args, **kw, device=dev)
+        torch.cuda.synchronize()
+        n_launch = lsmc_price_fusedpath.launches - before
+        ref = lsmc_price_fusedpath_reference(seed, *fp_args, **kw, device=dev)
+        torch.cuda.synchronize()
+        fields = [f for f in ker._fields if getattr(ker, f) is not None]
+        diffs = {f: float(torch.max(torch.abs(getattr(ker, f) - getattr(ref, f))))
+                 for f in fields}
+        same_ref = all(torch.equal(getattr(ker, f), getattr(ref, f)) for f in fields)
+        same_rerun = all(torch.equal(getattr(ker, f), getattr(again, f)) for f in fields)
+        n_ex = "" if ker.exercise_times is None else (
+            f" | early-exercised paths {int((ker.exercise_times < N_STEPS).sum())}")
+        print(f"phase 13 fusedpath kernel {N_PATHS}x{N_STEPS} {case}: kernel "
+              f"{float(ker.price):.6f} plain {float(ref.price):.6f} stderr "
+              f"{float(ker.stderr):.5f} | max|d| {diffs}{n_ex} | launches {n_launch} | equal to "
+              f"plain {same_ref} | bit-identical rerun {same_rerun}", flush=True)
+        _require(math.isfinite(float(ker.price)) and float(ker.stderr) > 0,
+                 f"fusedpath {case}: finite price, positive stderr")
+        _require(n_launch == 2, f"fusedpath {case}: launches {n_launch}")
+        _require(same_ref, f"fusedpath {case}: kernel equal to its plain version {diffs}")
+        _require(same_rerun, f"fusedpath {case}: two kernel runs bit-identical")
+        fp_err = max(fp_err, *diffs.values())
+        if case.startswith("(a)"):
+            fp_coeffs_a = ker.coeffs
+            fp_a = ker
+        del ker, again, ref
+    # kernel 2 on the (T+1, n) spots kernel 6 regenerates for case (a): the
+    # one place this route's 424 MB path array exists
+    fp_paths = fusedpath_paths_reference(SEED + 21, S0, R, SIGMA, dt, N_STEPS, N_PATHS,
+                                         device=dev)
+    fp_mean, fp_inv_std = amcx_torch.gbm_standardization(market, dt * N_STEPS, N_STEPS,
+                                                         device=dev)
+    mega_a = lsmc_price_megakernel(fp_paths, STRIKE, R, dt, -1.0, itm_weights=True,
+                                   mean_t=fp_mean, inv_std_t=fp_inv_std, return_cf_tau=True,
+                                   return_coeffs=True)
+    torch.cuda.synchronize()
+    k2_diffs = {f: float(torch.max(torch.abs(getattr(mega_a, f) - getattr(fp_a, f))))
+                for f in mega_a._fields}
+    k2_same = all(torch.equal(a, b) for a, b in zip(mega_a, fp_a))
+    print(f"phase 13 kernel 6 vs kernel 2 on the regenerated paths (case (a)): fusedpath "
+          f"{float(fp_a.price):.6f} mega {float(mega_a.price):.6f} | max|d| {k2_diffs} | "
+          f"equal {k2_same}", flush=True)
+    _require(k2_same, f"kernel 6 equal to kernel 2 on its own paths {k2_diffs}")
+    fp_err = max(fp_err, *k2_diffs.values())
+    del fp_paths, mega_a, fp_a
+
+    # ---- phase 14: the route at full width: price_option(engine= ---------
+    # ---- "fusedpath"), price_out_of_sample, 1M x 1000 ---------------------------
+    def fp_pricing(seed=SEED, prod=product, psim=sim):
+        return amcx_torch.price_option(seed, market, prod, spec, psim, engine="fusedpath",
+                                       device=dev)
+
+    fp_kernels = book_kernels + (lsmc_price_fusedpath,)
+    torch.cuda.synchronize()
+    for kernel in fp_kernels:
+        kernel.launches = 0
+    res = fp_pricing()
+    torch.cuda.synchronize()
+    fp_launches = {k.__name__: k.launches for k in fp_kernels}
+    fp_price, fp_se = float(res.price), float(res.stderr)
+    _require(fp_launches["lsmc_price_fusedpath"] == 1 and sum(fp_launches.values()) == 1,
+             f"the fusedpath route launched kernel 6 alone {fp_launches}")
+    _require(math.isfinite(fp_price) and math.isfinite(fp_se) and fp_se > 0,
+             "fusedpath finite price/stderr")
+    _require(abs(fp_price - crr) <= 4 * fp_se + 0.005,
+             f"fusedpath |price - CRR-2000| = {abs(fp_price - crr):.5f} <= 4*{fp_se:.5f} + 0.005")
+    fp_di = fp_pricing(prod=di_prod)
+    fp_di_err = abs(float(fp_di.price) - crr_di)
+    _require(fp_di_err <= 0.2, f"fusedpath down-in |price - CRR barrier tree| = "
+                               f"{fp_di_err:.5f} <= 0.2")
+    print(f"phase 14 fusedpath route {N_PATHS}x{N_STEPS} American put: price {fp_price:.5f} "
+          f"stderr {fp_se:.5f} CRR-2000 {crr:.5f} |err| {abs(fp_price - crr):.5f} | launches "
+          f"{fp_launches} | down-in H=90 {float(fp_di.price):.5f} stderr "
+          f"{float(fp_di.stderr):.5f} CRR-100 barrier tree {crr_di:.5f} |err| {fp_di_err:.5f}",
+          flush=True)
+
+    for kernel in fp_kernels:
+        kernel.launches = 0
+    t_oos = time.perf_counter()
+    oos = amcx_torch.price_out_of_sample(SEED + 77, market, product, spec, sim,
+                                         engine="fusedpath", replay_engine="fusedpath",
+                                         replay_blocks=OOS_BLOCKS, device=dev)
+    oos_price, oos_se = float(oos.oos.price), float(oos.oos.stderr)
+    oos_s = time.perf_counter() - t_oos
+    oos_launches = lsmc_price_fusedpath.launches
+    _require(oos_launches == 1 + OOS_BLOCKS, f"OOS fit + {OOS_BLOCKS} replays: {oos_launches}")
+    _require(crr - 0.03 <= oos_price <= crr + 4 * oos_se,
+             f"OOS {oos_price:.5f} in [CRR - 0.03, CRR + 4*{oos_se:.5f}] around {crr:.5f}")
+    deep_sim = amcx_torch.SimConfig(n_paths=N_PATHS, n_steps=DEEP_STEPS)
+    deep = fp_pricing(psim=deep_sim)
+    deep_err = abs(float(deep.price) - crr)
+    _require(math.isfinite(float(deep.price)) and deep_err <= 0.05,
+             f"1M x {DEEP_STEPS} |price - CRR-2000| = {deep_err:.5f} <= 0.05")
+    seeds = iter(range(SEED + 2000, SEED + 3000))
+    ms_oos = _time_ms(torch, lambda: amcx_torch.price_out_of_sample(
+        next(seeds), market, product, spec, sim, engine="fusedpath", replay_engine="fusedpath",
+        replay_blocks=OOS_BLOCKS, device=dev).oos.price, 3, 1)
+    ms_deep = _time_ms(torch, lambda: fp_pricing(next(seeds), psim=deep_sim).price, 3, 1)
+    print(f"phase 14 out of sample {1 + OOS_BLOCKS}M x {N_STEPS} (fit 1M, {OOS_BLOCKS} replay "
+          f"blocks of 1M): fit {float(oos.fit.price):.5f} OOS {oos_price:.5f} stderr "
+          f"{oos_se:.5f} CRR-2000 {crr:.5f} err {oos_price - crr:+.5f} | launches "
+          f"{oos_launches} | first call {oos_s * 1e3:.1f} ms, {ms_oos:.3f} ms per OOS pricing "
+          f"(median of 3) | 1M x {DEEP_STEPS} ITM put {float(deep.price):.5f} stderr "
+          f"{float(deep.stderr):.5f} |err| {deep_err:.5f}, {ms_deep:.3f} ms (median of 3)",
+          flush=True)
+    del oos, deep
+
+    def added_memory(fn):
+        """Device bytes one call adds at its peak over what was allocated
+        before it."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        added = torch.cuda.max_memory_allocated() - before
+        del out
+        return added
+
+    mem_fp = added_memory(lambda: fp_pricing().price)
+    mem_mega = added_memory(lambda: pricing().price)
+    _require(mem_fp < FP_MEMORY_CAP, f"fusedpath adds {mem_fp} B < {FP_MEMORY_CAP} B")
+    _require(mem_mega >= (N_STEPS + 1) * N_PATHS * 4,
+             f"the mega pipeline adds {mem_mega} B >= the (T+1, n) paths")
+    route_ms = {}
+    for name, fn in (("fusedpath", fp_pricing), ("mega", pricing), ("mega 2", pricing),
+                     ("fusedpath 2", fp_pricing)):
+        seeds = iter(range(SEED + 4000, SEED + 5000))
+        route_ms[name] = _time_ms(torch, lambda fn=fn: fn(next(seeds)).price, 20, 3)
+    print(f"phase 14 ms per 1M x {N_STEPS} pricing (median of 20, in this order): {route_ms} | "
+          f"device memory added during one pricing: fusedpath {mem_fp / 2 ** 20:.2f} MiB, mega "
+          f"pipeline {mem_mega / 2 ** 20:.2f} MiB", flush=True)
+    prof = _profile(torch, lambda: fp_pricing(), 3)
+    print(f"phase 14 profile fusedpath pricing: {prof or 'no device activity recorded'}",
+          flush=True)
+    fkw = dict(itm_weights=True, return_stats=True)
+    ms_fp = _time_ms(torch, lambda: lsmc_price_fusedpath(SEED, *fp_args, **fkw, device=dev), 20,
+                     3)
+    ms_fp_plain = _time_ms(torch, lambda: lsmc_price_fusedpath_reference(
+        SEED, *fp_args, **fkw, device=dev), 2, 1)
+    print(f"phase 14 kernel 6 alone {ms_fp:.3f} ms, plain {ms_fp_plain:.3f} ms", flush=True)
+
     # ---- bounds: bytes each kernel must move and its arithmetic ----------
     P4, k4 = 20, 5  # step kernels and mega induction: Chebyshev degree 4
     P_book = 15 + k4 * BOOK_N  # the book's shared Gram head + 16 rhs rows
     P21 = 252
     row = N_PATHS * 4
+    # kernel 6, per path-step: a quarter of a Philox4x32-10 call (10 rounds
+    # of 2 mul.hi, 2 mul.lo, 4 xor, 2 key adds: 25 integer operations, at
+    # half the f32 rate since an SM has 64 INT32 lanes against 128 FP32, so
+    # 50 f32 slots), half a Box-Muller pair (two uniforms of 4 operations,
+    # log, scale, sqrt, angle, cos, sin, two products: 8), the bridge
+    # multiply-add (3), the spot (sigma W, + drift, exp, S0 *: 4), the P f32
+    # products (and their P f64 sums) and the 2k-1 operations of the fit;
+    # its bytes are only the stats rows in and the two sums out
+    fp_f32 = 2 * 25 + 8 + 3 + 4 + P4 + 2 * k4 - 1
     bounds = {
+        "lsmc_fusedpath": _bound(4 * (N_STEPS + 1) * 4 + 2 * 4,
+                                 f32_ops=N_STEPS * N_PATHS * fp_f32,
+                                 f64_ops=N_STEPS * N_PATHS * P4),
         # writes the (T+1, n) paths; ~6 f32 operations per path-step (Box-
         # Muller's share, the log-increment multiply-add, the exp)
         "gbm_paths": _bound((N_STEPS + 1) * row, f32_ops=6 * N_STEPS * N_PATHS),
@@ -867,6 +1051,10 @@ def main():
          "replaces": "amcx/ops/lsmc_megakernel.py:485",
          "launches": book_launches["lsmc_book_megakernel"], "max_abs_err": book_err,
          "ms": ms_book, "plain_ms": ms_book_plain, "library_ms": None},
+        {"name": "lsmc_fusedpath", "route": "cuda", "source": "amcx_torch/csrc/lsmc_fusedpath.cu",
+         "replaces": "amcx/ops/lsmc_fusedpath.py:79",
+         "launches": fp_launches["lsmc_price_fusedpath"], "max_abs_err": fp_err, "ms": ms_fp,
+         "plain_ms": ms_fp_plain, "library_ms": None},
     ]]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -241,7 +241,7 @@ def test_port_imports_without_jax():
         "amcx_torch.interop, amcx_torch.engine_pallas, amcx_torch.greeks, "
         "amcx_torch.models, amcx_torch.models.maxcall, amcx_torch.ops.maxcall_pallas, "
         "amcx_torch.ops.lsmc_ma_mega, amcx_torch.kernel_profile, amcx_torch.book, "
-        "amcx_torch.exposures\n"
+        "amcx_torch.exposures, amcx_torch.ops.lsmc_fusedpath, amcx_torch.policy\n"
         "from amcx_torch.ops._build import build_info\n"
         "assert build_info['paths'] is None\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules "

@@ -17,6 +17,7 @@ from amcx_torch import engine_pallas as tfused
 from amcx_torch.models import maxcall as tmaxcall
 from amcx_torch.ops import gbm as tgbm
 from amcx_torch.ops import lsmc_ma_mega as tmamega
+from amcx_torch.ops import lsmc_fusedpath as tfp
 from amcx_torch.ops import lsmc_megakernel as tmega
 from amcx_torch.ops import lsmc_pallas as tstep
 from amcx_torch.ops import maxcall_pallas as tma
@@ -349,3 +350,72 @@ def test_book_kernel_strike_cap(cuda_device):
     prices, _ = tmega.lsmc_book_megakernel(paths, torch.linspace(80.0, 120.0, 64), 0.01, 0.01,
                                            -1.0)
     assert prices.shape == (64,) and bool(torch.isfinite(prices).all())
+
+
+# kernel 6: the five cases of chip_smoke.py phase 13 (the flagship market,
+# S0 = K = 100, r = 1%, sigma = 20%, T = 1, Chebyshev degree 4) at 131,072
+# paths x 100 steps
+FP_ARGS = (S0, K, R, SIGMA, 0.01, 100)
+FP_CARD_CASES = {
+    "itm-cf-tau-coeffs": (21, dict(itm_weights=True, return_cf_tau=True, return_coeffs=True)),
+    "all-paths": (22, dict(return_coeffs=True)),
+    "down-in-90": (23, dict(itm_weights=True, barrier=90.0, return_cf_tau=True,
+                            return_coeffs=True)),
+    "bermudan-antithetic": (24, dict(itm_weights=True, exercise_steps=tuple(range(0, 100, 10)),
+                                     antithetic=True, return_cf_tau=True, return_coeffs=True)),
+    "replay": (25, dict(return_cf_tau=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FP_CARD_CASES))
+def test_fusedpath_kernel_matches_plain(cuda_device, case):
+    # kernel 6 against its plain version on the same seed: the same Philox
+    # normals (logf, sqrtf, cosf/sinf of one f32 angle), the same bridge and
+    # spot arithmetic under -fmad=false, f64 moments rounded once: identical
+    # prices, stderrs, cf/tau planes and coefficients, and a rerun identical
+    n = 131_072
+    seed, kw = FP_CARD_CASES[case]
+    if case == "replay":
+        fit = tfp.lsmc_price_fusedpath(21, *FP_ARGS, n, -1.0, itm_weights=True,
+                                       return_coeffs=True, device=cuda_device)
+        kw = dict(kw, replay_coeffs=fit.coeffs)
+    args = (seed, *FP_ARGS, n, -1.0)
+    before = tfp.lsmc_price_fusedpath.launches
+    ker = tfp.lsmc_price_fusedpath(*args, **kw, device=cuda_device)
+    again = tfp.lsmc_price_fusedpath(*args, **kw, device=cuda_device)
+    ref = tfp.lsmc_price_fusedpath_reference(*args, **kw, device=cuda_device)
+    torch.cuda.synchronize()
+    assert tfp.lsmc_price_fusedpath.launches == before + 2
+    assert math.isfinite(float(ker.price)) and float(ker.stderr) > 0
+    if ker.exercise_times is not None:
+        assert int((ker.exercise_times < 100).sum()) > 0  # early exercise happened
+    for out in (again, ref):
+        for a, b in zip(ker, out):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_fusedpath_kernel_matches_kernel_2(cuda_device):
+    # the paths kernel 6 regenerates, materialised by the plain recursion,
+    # priced by kernel 2 in the same frame with the same discount rows:
+    # the same bits as kernel 6 itself
+    n = 131_072
+    paths = tfp.fusedpath_paths_reference(31, S0, R, SIGMA, 0.01, 100, n, device=cuda_device)
+    mean_t, inv_std_t = at.gbm_standardization(at.MarketParams(S0, R, SIGMA), 1.0, 100,
+                                               device=cuda_device)
+    mega = tmega.lsmc_price_megakernel(paths, K, R, 0.01, -1.0, itm_weights=True,
+                                       mean_t=mean_t, inv_std_t=inv_std_t, return_coeffs=True,
+                                       return_cf_tau=True)
+    fp = tfp.lsmc_price_fusedpath(31, *FP_ARGS, n, -1.0, itm_weights=True, return_coeffs=True,
+                                  return_cf_tau=True, device=cuda_device)
+    torch.cuda.synchronize()
+    for a, b in zip(mega, fp):
+        assert torch.equal(a, b)
+
+
+def test_fusedpath_wrapper_rejects_bad_inputs(cuda_device):
+    with pytest.raises(TypeError, match="integer seed"):
+        tfp.lsmc_price_fusedpath(torch.Generator(), *FP_ARGS, 1024, -1.0, device=cuda_device)
+    with pytest.raises(ValueError, match="divisible by 8"):
+        tfp.lsmc_price_fusedpath(1, *FP_ARGS, 1028, -1.0, antithetic=True, device=cuda_device)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        tfp.lsmc_price_fusedpath(1, *FP_ARGS, 1026, -1.0, device=cuda_device)

@@ -223,6 +223,11 @@ ENTRY_POINTS = {
     "price_max_call": lambda: at.price_max_call(0, [S0, S0], K, 3.0, 0.05, SIGMA, q=0.1,
                                                 n_paths=64),
     "tensor_from_numpy": lambda: at.tensor_from_numpy(np.zeros((2, 3), np.float32)),
+    "lsmc_price_fusedpath": lambda: at.lsmc_price_fusedpath(0, S0, K, R, SIGMA, 0.25, 4, 64,
+                                                            -1.0),
+    "price_out_of_sample": lambda: at.price_out_of_sample(
+        0, at.MarketParams(S0, R, SIGMA), at.ProductSpec(K=K, T=1.0, option_type="put"),
+        sim=at.SimConfig(n_paths=64, n_steps=4), engine="fusedpath"),
 }
 
 
@@ -258,7 +263,8 @@ def test_unported_routes_raise():
     sim = at.SimConfig(n_paths=64, n_steps=4, backend="philox")
     prod = at.ProductSpec(K=K, T=1.0, option_type="put", exercise="american")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        at.price_option(0, market, prod, sim=sim, engine="fusedpath", device="cpu")
+        at.lsmc_price_fusedpath(0, S0, K, torch.full((4,), R), SIGMA, 0.25, 4, 64, -1.0,
+                                device="cpu")
     barrier = at.ProductSpec(K=K, T=1.0, barrier=80.0, option_type="put", exercise="american")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         at.price_option(0, market, barrier, sim=sim, engine="mega", device="cpu")
