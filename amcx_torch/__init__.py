@@ -52,6 +52,8 @@ from .oracle import (
 from .paths import (brownian_normals, gbm_standardization, simulate_gbm, simulate_gbm_multi,
                     to_path_major)
 from .ops.lsmc_fusedpath import lsmc_price_fusedpath
+from .ops.lsmc_swing import lsmc_price_swing
+from .ops.sobol_pallas import simulate_gbm_qmc_device, sobol_gbm_paths
 from .policy import OOSResult, price_out_of_sample, reprice_with_coeffs
 from .payoff import (
     barrier_gate,
@@ -68,6 +70,9 @@ from .regress import (
     regression_fitted_values,
     weighted_standardize,
 )
+from .qmc import brownian_bridge_matrix, simulate_gbm_multi_qmc, simulate_gbm_qmc, sobol_normals
+from .swing import (SwingContractResult, crr_swing_price, price_swing_contract,
+                    price_swing_option, price_swing_option_curves)
 from .types import MarketParams, ProductSpec, RegressionSpec, SimConfig
 
 __all__ = [
@@ -80,6 +85,7 @@ __all__ = [
     "ProductSpec",
     "RegressionSpec",
     "SimConfig",
+    "SwingContractResult",
     "backward_induction",
     "backward_induction_fused",
     "backward_induction_fused_maxcall",
@@ -89,6 +95,7 @@ __all__ = [
     "bilateral_cva",
     "book_ccr_exposures",
     "book_greeks",
+    "brownian_bridge_matrix",
     "brownian_normals",
     "bs_greeks",
     "bs_price",
@@ -97,6 +104,7 @@ __all__ = [
     "crr_barrier_price",
     "crr_down_in_price",
     "crr_price",
+    "crr_swing_price",
     "cva_from_epe",
     "design_matrix",
     "discrete_barrier_shift",
@@ -113,6 +121,7 @@ __all__ = [
     "lsmc_option_pricing",
     "lsmc_option_pricing_fused",
     "lsmc_price_fusedpath",
+    "lsmc_price_swing",
     "max_call_greeks",
     "max_call_payoff",
     "maxcall_standardization",
@@ -128,12 +137,20 @@ __all__ = [
     "price_option",
     "price_out_of_sample",
     "price_strike_grid",
+    "price_swing_contract",
+    "price_swing_option",
+    "price_swing_option_curves",
     "regression_fitted_values",
     "reprice_max_call_with_coeffs",
     "reprice_with_coeffs",
     "resolve_regression_spec",
     "simulate_gbm",
     "simulate_gbm_multi",
+    "simulate_gbm_multi_qmc",
+    "simulate_gbm_qmc",
+    "simulate_gbm_qmc_device",
+    "sobol_gbm_paths",
+    "sobol_normals",
     "tensor_from_numpy",
     "to_path_major",
     "weighted_standardize",

@@ -178,29 +178,6 @@ book_moments_kernel(const float* __restrict__ S, const float* __restrict__ V,
   }
 }
 
-// One block: sum the partial rows in a fixed order (rounded once to f32),
-// factor the shared Gram on thread 0, then thread j back-solves option j
-// into coeffs[j * K ..].
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-book_solve_kernel(const double* __restrict__ partials, int n_blocks, int n_strikes, float rcond,
-                  float* __restrict__ coeffs) {
-  constexpr int kPairs = Layout<K>::kPairs;
-  __shared__ float packed[kPairs + K * kMaxStrikes];
-  __shared__ float factor[factor_floats(K)];  // Gnr, L, d
-  sum_partials(partials, n_blocks, kPairs + K * n_strikes, packed);
-  __syncthreads();
-  float* Gnr = factor;
-  float* L = Gnr + K * K;
-  float* d = L + K * K;
-  if (threadIdx.x == 0) factor_equilibrated_ridge<K>(packed, K, rcond, Gnr, L, d);
-  __syncthreads();
-  for (int j = threadIdx.x; j < n_strikes; j += kThreads) {
-    float work[solve_work_floats(K)];
-    solve_factored<K>(L, d, Gnr, packed + kPairs + j * K, K, coeffs + j * K, work);
-  }
-}
-
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 book_apply_kernel(const float* __restrict__ S, const uint8_t* __restrict__ knock,
@@ -301,8 +278,8 @@ cudaError_t run_book(const float* paths, const uint8_t* knock, const float* stat
       book_moments_kernel<K><<<n_blocks, kThreads, smem, stream>>>(S_t, V, stats, partials, t,
                                                                    n_steps, n_paths, p);
       AMCX_LAUNCH_CHECK();
-      book_solve_kernel<K><<<1, kThreads, 0, stream>>>(partials, n_blocks, p.n_strikes, p.rcond,
-                                                       coeffs);
+      multi_rhs_solve_kernel<K, kMaxStrikes><<<1, kThreads, 0, stream>>>(
+          partials, n_blocks, p.n_strikes, p.rcond, coeffs);
       AMCX_LAUNCH_CHECK();
     }
     if (p.american || short_dated) {

@@ -1,10 +1,11 @@
 // Device helpers shared by the LSMC kernels (lsmc_mega.cu, lsmc_step.cu,
-// lsmc_book.cu, and through ma_common.cuh ma_step.cu and lsmc_ma_mega.cu):
-// the packed moment layout, the basis recurrences, the fixed-order f64
-// block and cross-block reductions that make the moments independent of the
-// grid (and the one-block kernel that sums the partial rows), and the
-// one-thread equilibrated ridge-Cholesky solve - a factor step and a
-// refined solve per right-hand side - with its one-block kernel.
+// lsmc_book.cu, lsmc_swing.cu, and through ma_common.cuh ma_step.cu and
+// lsmc_ma_mega.cu): the packed moment layout, the basis recurrences, the
+// fixed-order f64 block and cross-block reductions that make the moments
+// independent of the grid (and the one-block kernel that sums the partial
+// rows), and the one-thread equilibrated ridge-Cholesky solve - a factor
+// step and a refined solve per right-hand side - with its one-block
+// kernels (one right-hand side, or one shared factor and many).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -265,6 +266,31 @@ solve_kernel(const double* __restrict__ partials, int n_blocks, int k_rt, float 
     solve_equilibrated_ridge<KC>(packed, k, rcond, coeffs, scratch);
   } else {
     solve_equilibrated_ridge<0>(packed, k, rcond, coeffs, shared_scratch);
+  }
+}
+
+// One block: sum the (n_blocks, P) partial rows of a system with one shared
+// k x k Gram head and n_rhs right-hand sides of k moments each (P = k(k+1)/2
+// + k n_rhs, n_rhs <= kMaxRhs) in a fixed order (rounded once to f32), factor
+// the Gram on thread 0, then thread j back-solves right-hand side j into
+// coeffs[j * K ..] (the strike book's options, the swing's rights).
+template <int K, int kMaxRhs>
+__global__ void __launch_bounds__(kThreads)
+multi_rhs_solve_kernel(const double* __restrict__ partials, int n_blocks, int n_rhs,
+                       float rcond, float* __restrict__ coeffs) {
+  constexpr int kPairs = Layout<K>::kPairs;
+  __shared__ float packed[kPairs + K * kMaxRhs];
+  __shared__ float factor[factor_floats(K)];  // Gnr, L, d
+  sum_partials(partials, n_blocks, kPairs + K * n_rhs, packed);
+  __syncthreads();
+  float* Gnr = factor;
+  float* L = Gnr + K * K;
+  float* d = L + K * K;
+  if (threadIdx.x == 0) factor_equilibrated_ridge<K>(packed, K, rcond, Gnr, L, d);
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_rhs; j += kThreads) {
+    float work[solve_work_floats(K)];
+    solve_factored<K>(L, d, Gnr, packed + kPairs + j * K, K, coeffs + j * K, work);
   }
 }
 

@@ -1,0 +1,187 @@
+// Exact-GBM paths from scrambled-Sobol points, one launch per path array.
+//
+// Replaces: amcx/ops/sobol_pallas.py::_sobol_gbm_kernel (via
+// sobol_gbm_paths / _run), the TPU kernel that XORs two direction tables
+// into the Sobol point of each (step, path), maps it to a normal by
+// Acklam's inverse CDF and builds the log path by a prefix sum or by the
+// Brownian-bridge matrix.
+//
+// Computes, for path p and step j (Sobol dimension j):
+//   u     = u_hi[j, p >> 9] ^ u_lo[j, p & 511]   (30-bit digital-net point)
+//   f     = bitcast(((u >> 7) & 0x7FFFFF) | 0x3F800000) - (1 - 2^-24)
+//   z_j   = Acklam's inverse normal CDF of f (branchless central and tail
+//           forms, the select at |f - 1/2| <= f32(0.5 - 0.02425))
+//   increment mode: cum_t = sum_{j<t} (drift_dt + vol z_j)
+//   bridge mode:    cum_t = drift_dt t + vol W_t, W_t = sum_s B[t-1, s] z_s
+//                   with B the (n_steps, n_steps) bridge matrix carrying
+//                   sqrt(dt), summed in ascending s
+// and S[0] = S0, S[t] = S0 exp(cum_t), time-major (n_steps+1, n_paths) f32.
+// The tables come from scipy's scrambled engine on the host
+// (ops/sobol_pallas.py, _direction_tables); the XOR over the index bits
+// factors over the bit ranges 0..8 and 9..29, so one XOR per element
+// rebuilds the point in natural order.
+//
+// Bound on the H100 (1M paths x 100 steps): in increment mode the store of
+// the path array (4 B per path-step, 424 MB, about 0.13 ms at 3.35 TB/s;
+// the tables add 1 MB), with ~60 f32 operations per path-step (the inverse
+// CDF's two rational forms, a log and a sqrt); in bridge mode the 2 n_steps
+// f32 operations per path-step of the bridge product (2e10 at 1M x 100,
+// about 0.3 ms at 67 TFLOP/s). Design: one thread per path, neighbouring
+// threads on neighbouring paths, so every store of row t is coalesced; the
+// u_hi word is uniform over a 512-path group (a broadcast load) and u_lo's
+// 512 words per step stay in L2. The increment mode walks the steps with a
+// running sum in a register (amcx's log-step doubling scan was a TPU
+// layout choice). The bridge mode stages B in shared memory (40 KB at 100
+// steps) and each thread's n_steps normals in a shared column (stride
+// blockDim), then forms each W_t in full f32, in a fixed order: no tensor
+// cores, no TF32, no library call. Built with -fmad=false and without fast
+// math: logf, sqrtf, expf and the division give torch's CUDA bits, so the
+// plain version (ops/sobol_pallas.py, sobol_gbm_paths_reference) equals
+// the kernel to the bit.
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+constexpr int kLanes = 512;  // paths per u_hi column (the low 9 index bits)
+constexpr int kLowBits = 9;
+constexpr int kIncrementThreads = 256;
+
+// Acklam's coefficients, rounded from double to float as amcx rounds its
+// Python floats.
+#define F(x) static_cast<float>(x)
+__constant__ float kA[6] = {F(-3.969683028665376e+01), F(2.209460984245205e+02),
+                            F(-2.759285104469687e+02), F(1.383577518672690e+02),
+                            F(-3.066479806614716e+01), F(2.506628277459239e+00)};
+__constant__ float kB[5] = {F(-5.447609879822406e+01), F(1.615858368580409e+02),
+                            F(-1.556989798598866e+02), F(6.680131188771972e+01),
+                            F(-1.328068155288572e+01)};
+__constant__ float kC[6] = {F(-7.784894002430293e-03), F(-3.223964580411365e-01),
+                            F(-2.400758277161838e+00), F(-2.549732539343734e+00),
+                            F(4.374664141464968e+00), F(2.938163982698783e+00)};
+__constant__ float kD[4] = {F(7.784695709041462e-03), F(3.224671290700398e-01),
+                            F(2.445134137142996e+00), F(3.754408661907416e+00)};
+#undef F
+
+__device__ __forceinline__ float bits_to_uniform(uint32_t u) {
+  const uint32_t mant = (u >> 7) & 0x007FFFFFu;
+  // 0x3F7FFFFF is 1 - 2^-24: the uniform lies in [2^-24, 1 - 2^-24]
+  return __uint_as_float(mant | 0x3F800000u) - __uint_as_float(0x3F7FFFFFu);
+}
+
+// amcx's norm_ppf, operation for operation.
+__device__ __forceinline__ float norm_ppf(float p) {
+  const float half = p - 0.5f;
+  const float r = half * half;
+  float num = kA[0];
+#pragma unroll
+  for (int i = 1; i < 6; ++i) num = num * r + kA[i];
+  float den = kB[0];
+#pragma unroll
+  for (int i = 1; i < 5; ++i) den = den * r + kB[i];
+  den = den * r + 1.0f;
+  const float x_c = num * half / den;
+  const float pt = fminf(p, 1.0f - p);
+  const float qt = sqrtf(-2.0f * logf(fmaxf(pt, static_cast<float>(1e-38))));
+  num = kC[0];
+#pragma unroll
+  for (int i = 1; i < 6; ++i) num = num * qt + kC[i];
+  den = kD[0];
+#pragma unroll
+  for (int i = 1; i < 4; ++i) den = den * qt + kD[i];
+  den = den * qt + 1.0f;
+  float x_t = num / den;  // the lower-tail form
+  x_t = half < 0.0f ? x_t : -x_t;
+  return fabsf(half) <= static_cast<float>(0.5 - 0.02425) ? x_c : x_t;
+}
+
+__device__ __forceinline__ float sobol_normal(const uint32_t* __restrict__ u_hi,
+                                              const uint32_t* __restrict__ u_lo, int j,
+                                              int n_blocks, int p) {
+  const uint32_t u = u_hi[static_cast<size_t>(j) * n_blocks + (p >> kLowBits)] ^
+                     u_lo[j * kLanes + (p & (kLanes - 1))];
+  return norm_ppf(bits_to_uniform(u));
+}
+
+__global__ void __launch_bounds__(kIncrementThreads)
+sobol_increment_kernel(const uint32_t* __restrict__ u_hi, const uint32_t* __restrict__ u_lo,
+                       float* __restrict__ out, int n_steps, int n_paths, float S0,
+                       float drift_dt, float vol) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_paths) return;
+  const size_t row = static_cast<size_t>(n_paths);
+  const int n_blocks = n_paths / kLanes;
+  out[p] = S0;
+  float cum = 0.0f;
+  for (int j = 0; j < n_steps; ++j) {
+    cum = cum + (drift_dt + vol * sobol_normal(u_hi, u_lo, j, n_blocks, p));
+    out[(static_cast<size_t>(j) + 1) * row + p] = S0 * expf(cum);
+  }
+}
+
+// Dynamic shared memory: B (n_steps x n_steps) then the normals, n_steps
+// columns of blockDim floats.
+__global__ void sobol_bridge_kernel(const uint32_t* __restrict__ u_hi,
+                                    const uint32_t* __restrict__ u_lo,
+                                    const float* __restrict__ bmat, float* __restrict__ out,
+                                    int n_steps, int n_paths, float S0, float drift_dt,
+                                    float vol) {
+  extern __shared__ float smem[];
+  float* B = smem;
+  float* z = smem + n_steps * n_steps;
+  for (int q = threadIdx.x; q < n_steps * n_steps; q += blockDim.x) B[q] = bmat[q];
+  __syncthreads();
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_paths) return;
+  const size_t row = static_cast<size_t>(n_paths);
+  const int n_blocks = n_paths / kLanes;
+  const int stride = blockDim.x;
+  for (int s = 0; s < n_steps; ++s) {
+    z[s * stride + threadIdx.x] = sobol_normal(u_hi, u_lo, s, n_blocks, p);
+  }
+  out[p] = S0;
+  for (int t = 0; t < n_steps; ++t) {
+    const float* b = B + t * n_steps;
+    float w = 0.0f;
+    for (int s = 0; s < n_steps; ++s) w = w + b[s] * z[s * stride + threadIdx.x];
+    const float cum = drift_dt * static_cast<float>(t + 1) + vol * w;
+    out[(static_cast<size_t>(t) + 1) * row + p] = S0 * expf(cum);
+  }
+}
+
+}  // namespace
+
+// u_hi (n_steps, n_paths / 512) and u_lo (n_steps, 512) uint32 tables; bmat
+// (n_steps, n_steps) f32 or null (increment mode); out (n_steps+1, n_paths)
+// f32. n_paths a multiple of 512. bridge_threads: the bridge mode's block
+// size (a divisor of 512 whose shared memory, 4 (n_steps^2 + threads
+// n_steps) bytes, fits the block). Returns a cudaError_t.
+extern "C" int amcx_sobol_gbm_paths(const unsigned int* u_hi, const unsigned int* u_lo,
+                                    const float* bmat, float* out, int n_steps, int n_paths,
+                                    float S0, float drift_dt, float vol, int bridge_threads,
+                                    void* stream) {
+  if (n_steps < 1 || n_paths < kLanes || n_paths % kLanes != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bmat == nullptr) {
+    sobol_increment_kernel<<<n_paths / kIncrementThreads, kIncrementThreads, 0, s>>>(
+        u_hi, u_lo, out, n_steps, n_paths, S0, drift_dt, vol);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (bridge_threads < 32 || kLanes % bridge_threads != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = (static_cast<size_t>(n_steps) * n_steps +
+                       static_cast<size_t>(bridge_threads) * n_steps) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sobol_bridge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  sobol_bridge_kernel<<<n_paths / bridge_threads, bridge_threads, smem, s>>>(
+      u_hi, u_lo, bmat, out, n_steps, n_paths, S0, drift_dt, vol);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -31,7 +31,7 @@ import torch
 
 from .exposures import _profile, step_exposures
 from .payoff import barrier_gate, exercise_allow_row, payoff_fn_for
-from .regress import fit_continuation_with_coeffs
+from .regress import fit_continuation_with_coeffs, reject_axis_name
 from .types import MarketParams, ProductSpec, RegressionSpec, SimConfig
 
 __all__ = ["LSMCResult", "backward_induction", "lsmc_option_pricing", "price_option",
@@ -89,12 +89,13 @@ def backward_induction(
     american: bool = True,
     return_surface: bool = True,
     fit_fn: Optional[Callable] = None,
+    axis_name: Optional[str] = None,
+    surface_stats: bool = False,
     return_coeffs: bool = False,
     exercise_from_step: int = 0,
     fit_fn_returns_coeffs: bool = False,
     exercise_steps=None,
     antithetic: bool = False,
-    surface_stats: bool = False,
 ) -> LSMCResult:
     """Generic LSMC backward induction on time-major state, ``(n_steps+1,
     n_paths)`` or ``(n_steps+1, n_paths, n_assets)``, with the
@@ -114,7 +115,9 @@ def backward_induction(
     amcx exports them. ``surface_stats`` fills ``exposures`` with each
     step's EPE, PFE-5 and PFE-95 of the clamped continuation (exact,
     sort-based; the maturity row is zero) without keeping the surface.
+    ``axis_name`` (amcx's sharded path axis) raises (ROADMAP A15).
     """
+    reject_axis_name(axis_name, "backward_induction")
     n_steps = paths_tm.shape[0] - 1
     n_paths = paths_tm.shape[1]
     dtype, device = paths_tm.dtype, paths_tm.device
@@ -189,15 +192,17 @@ def lsmc_option_pricing(
     r,
     spec: RegressionSpec = RegressionSpec(),
     return_surface: bool = True,
+    axis_name: Optional[str] = None,
+    surface_stats: bool = False,
     return_coeffs: bool = False,
     exercise_steps=None,
     antithetic: bool = False,
-    surface_stats: bool = False,
 ) -> LSMCResult:
     """Price a (possibly barrier) put/call from pre-simulated time-major
     paths; ``dt = T / n_steps`` comes from the path grid. ``surface_stats``:
     the per-step EPE/PFE profile in ``exposures`` (see
-    :func:`backward_induction`)."""
+    :func:`backward_induction`). ``axis_name`` raises (ROADMAP A15)."""
+    reject_axis_name(axis_name, "lsmc_option_pricing")
     n_steps = paths_tm.shape[0] - 1
     dt = product.T / n_steps
     spec = resolve_regression_spec(spec, product,
@@ -309,8 +314,8 @@ def price_option(
             1.0 if product.option_type == "call" else -1.0,
             basis=spec.basis, degree=spec.degree, rcond=spec.rcond,
             american=product.is_american, barrier=product.barrier,
-            itm_weights=spec.regress_on == "itm",
-            mean_t=mean_t, inv_std_t=inv_std_t,
+            barrier_type=product.barrier_type, itm_weights=spec.regress_on == "itm",
+            mean_t=mean_t, inv_std_t=inv_std_t, return_stats=True,
             exercise_steps=exercise_steps, return_cf_tau=return_cf_tau,
             return_coeffs=return_coeffs, antithetic=sim.antithetic,
         )

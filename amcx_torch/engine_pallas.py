@@ -19,12 +19,13 @@ On a CUDA tensor the step functions launch their kernels; on a CPU tensor
 they run their plain versions. :func:`backward_induction_fused_reference`
 runs the plain versions on any device (the card's check compares the two).
 amcx's ``n_paths % 4096`` rule is dropped: any ``n_paths`` works.
-``axis_name`` (sharded moments) waits for ROADMAP A15.
+``axis_name`` (sharded moments) raises: it waits for ROADMAP A15.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -38,7 +39,7 @@ from .ops.lsmc_pallas import (
     unpack_moments,
 )
 from .payoff import barrier_gate, exercise_allow_row, intrinsic_value
-from .regress import pinv_solve
+from .regress import pinv_solve, reject_axis_name
 from .types import ProductSpec, RegressionSpec
 
 __all__ = ["precompute_standardization", "backward_induction_fused",
@@ -46,10 +47,12 @@ __all__ = ["precompute_standardization", "backward_induction_fused",
 
 
 def precompute_standardization(paths_tm: torch.Tensor, weights_tm, spec: RegressionSpec,
-                               eps: float = 1e-6):
+                               eps: float = 1e-6, axis_name: Optional[str] = None):
     """Per-step (weighted) mean and ``1/(factor·std)`` over the path axis,
     for every time step at once. Without ``scaling`` or
-    ``internal_standardize`` the frame is the identity (mean 0, 1/std 1)."""
+    ``internal_standardize`` the frame is the identity (mean 0, 1/std 1).
+    ``axis_name`` raises (ROADMAP A15)."""
+    reject_axis_name(axis_name, "precompute_standardization")
     if not (spec.scaling or spec.internal_standardize):
         n1 = paths_tm.shape[0]
         return (torch.zeros(n1, dtype=paths_tm.dtype, device=paths_tm.device),
@@ -78,6 +81,7 @@ def backward_induction_fused(
     barrier_type: str = "down-in",
     american: bool = True,
     return_surface: bool = False,
+    axis_name: Optional[str] = None,
     exercise_steps=None,
     antithetic: bool = False,
 ) -> LSMCResult:
@@ -90,9 +94,11 @@ def backward_induction_fused(
     before the variance, so the stderr is that of the pair means. Returns
     ``LSMCResult(price, stderr, cashflows, exercise_times, continuation)``;
     the surface is ``(n_steps+1, n_paths)`` with a zero maturity row.
+    ``axis_name`` raises (ROADMAP A15).
     """
     return _induction(step_moments, step_apply, paths_tm, r, dt, K, phi, spec, barrier,
-                      barrier_type, american, return_surface, exercise_steps, antithetic)
+                      barrier_type, american, return_surface, axis_name, exercise_steps,
+                      antithetic)
 
 
 def backward_induction_fused_reference(paths_tm: torch.Tensor, *args, **kwargs) -> LSMCResult:
@@ -103,7 +109,8 @@ def backward_induction_fused_reference(paths_tm: torch.Tensor, *args, **kwargs) 
 
 def _induction(moments, apply_, paths_tm, r, dt, K, phi, spec, barrier=None,
                barrier_type="down-in", american=True, return_surface=False,
-               exercise_steps=None, antithetic=False):
+               axis_name=None, exercise_steps=None, antithetic=False):
+    reject_axis_name(axis_name, "backward_induction_fused")
     if paths_tm.ndim != 2 or paths_tm.shape[0] < 2 or paths_tm.dtype != torch.float32:
         raise ValueError(
             f"paths must be time-major (n_steps+1, n_paths) float32, got "
@@ -173,11 +180,13 @@ def lsmc_option_pricing_fused(
     r,
     spec: RegressionSpec = RegressionSpec(),
     return_surface: bool = False,
+    axis_name: Optional[str] = None,
     exercise_steps=None,
     antithetic: bool = False,
 ) -> LSMCResult:
     """`amcx_torch.engine.lsmc_option_pricing`'s signature on the fused
-    step kernels."""
+    step kernels. ``axis_name`` raises (ROADMAP A15)."""
+    reject_axis_name(axis_name, "lsmc_option_pricing_fused")
     n_steps = paths_tm.shape[0] - 1
     spec = resolve_regression_spec(spec, product, for_surface=return_surface)
     return backward_induction_fused(

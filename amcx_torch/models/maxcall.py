@@ -40,7 +40,7 @@ from ..ops.maxcall_pallas import (_payoff_for, ma_inputs, ma_step_apply, ma_step
                                   maxcall_standardization)
 from ..paths import simulate_gbm_multi
 from ..payoff import max_call_payoff
-from ..regress import pinv_solve
+from ..regress import pinv_solve, reject_axis_name
 from ..types import RegressionSpec, SimConfig
 
 __all__ = ["price_max_call", "max_call_fit", "max_call_fit_values", "maxcall_standardization",
@@ -62,15 +62,17 @@ def _standardize_columns(X, weights, eps=1e-6):
     return (X - mean) / torch.clamp_min(torch.sqrt(var), eps)
 
 
-def max_call_fit(X, y, spec: RegressionSpec, weights=None, mode: str = "total"):
+def max_call_fit(X, y, spec: RegressionSpec, weights=None, axis_name=None,
+                 mode: str = "total"):
     """Cross-term continuation fit of ``y`` on the ``(n, n_assets)``
     regressors: ``(clamped fitted values, coeffs)``, the engine's
     ``fit_fn`` with ``fit_fn_returns_coeffs=True``.
 
     ``mode``: ``"total"``/``"separable"`` cross terms of the (standardized)
     asset values, or ``"sorted"``: total-degree terms of the basket's
-    descending order statistics.
+    descending order statistics. ``axis_name`` raises (ROADMAP A15).
     """
+    reject_axis_name(axis_name, "max_call_fit")
     if mode == "sorted":
         X = torch.sort(X, dim=-1, descending=True).values
         mode = "total"
@@ -85,9 +87,10 @@ def max_call_fit(X, y, spec: RegressionSpec, weights=None, mode: str = "total"):
     return torch.clamp_min(torch.sum(A * coeffs, dim=-1), 0.0), coeffs
 
 
-def max_call_fit_values(X, y, spec: RegressionSpec, weights=None, mode: str = "total"):
+def max_call_fit_values(X, y, spec: RegressionSpec, weights=None, axis_name=None,
+                        mode: str = "total"):
     """:func:`max_call_fit`'s fitted values only (engine ``fit_fn`` form)."""
-    return max_call_fit(X, y, spec, weights, mode)[0]
+    return max_call_fit(X, y, spec, weights, axis_name, mode)[0]
 
 
 def _xla_pricing(seed, S0, r, q, sigma, corr, K, T, spec, sim, basis_mode, return_surface,

@@ -11,5 +11,11 @@ first use) with their plain-torch versions.
   apply kernels (``csrc/ma_step.cu``);
 - `amcx_torch.ops.lsmc_ma_mega`: the multi-asset backward induction
   (``csrc/lsmc_ma_mega.cu``);
+- `amcx_torch.ops.lsmc_fusedpath`: the induction that regenerates its own
+  paths (``csrc/lsmc_fusedpath.cu``);
+- `amcx_torch.ops.lsmc_swing`: the swing (multiple-stopping) induction
+  (``csrc/lsmc_swing.cu``);
+- `amcx_torch.ops.sobol_pallas`: scrambled-Sobol GBM pathgen
+  (``csrc/sobol_gbm.cu``);
 - `amcx_torch.ops._build`: the ``nvcc`` build and ``ctypes`` loader.
 """

@@ -258,35 +258,44 @@ def lsmc_price_megakernel(
     degree: int = 4,
     rcond: float = 1e-6,
     american: bool = True,
+    barrier=None,
+    barrier_type: str = "down-in",
     itm_weights: bool = False,
     mean_t: Optional[torch.Tensor] = None,
     inv_std_t: Optional[torch.Tensor] = None,
-    return_coeffs: bool = False,
-    barrier=None,
+    return_stats: bool = False,
+    axis_name: Optional[str] = None,
+    axis_size: int = 1,
     exercise_steps=None,
-    replay_coeffs=None,
     return_cf_tau: bool = False,
+    return_coeffs: bool = False,
     antithetic: bool = False,
+    replay_coeffs=None,
 ):
     """Price a vanilla put (``phi=-1``) or call (``phi=+1``) by LSMC on the
     time-major paths ``(n_steps+1, n_paths)`` f32.
 
-    Runs where ``paths_tm`` lies: on a CUDA tensor the kernels of
-    ``csrc/lsmc_mega.cu`` (or it raises), on a CPU tensor
+    amcx's parameters and return convention, minus ``interpret``: the price
+    as a 0-d tensor, ``(price, stderr)`` with ``return_stats``, or
+    :class:`MegaOutputs` with the per-step coefficients (``return_coeffs``)
+    and the undiscounted cashflow and exercise-time planes
+    (``return_cf_tau``). Runs where ``paths_tm`` lies: on a CUDA tensor the
+    kernels of ``csrc/lsmc_mega.cu`` (or it raises), on a CPU tensor
     :func:`_mega_reference`. ``mean_t``/``inv_std_t``: per-step
-    standardization (computed from the paths when omitted). Returns
-    ``(price, stderr)`` 0-d tensors, or :class:`MegaOutputs` with the
-    per-step coefficients (``return_coeffs``) and the undiscounted cashflow
-    and exercise-time planes (``return_cf_tau``).
-    ``lsmc_price_megakernel.launches`` counts kernel launches.
+    standardization (computed from the paths when omitted). Not ported yet:
+    ``barrier`` (any ``barrier_type``), ``exercise_steps``,
+    ``replay_coeffs``, ``antithetic`` and rate curves (ROADMAP B2 options),
+    and ``axis_name`` (A15). ``lsmc_price_megakernel.launches`` counts
+    kernel launches.
     """
     dev = torch.device(paths_tm.device)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"lsmc_price_megakernel runs on 'cpu' or 'cuda', got {dev}")
     run = _mega_cuda if dev.type == "cuda" else _mega_reference
-    return _price(run, paths_tm, K, r, dt, phi, basis, degree, rcond, american,
-                  itm_weights, mean_t, inv_std_t, return_coeffs, barrier,
-                  exercise_steps, replay_coeffs, return_cf_tau, antithetic)
+    return _price(run, paths_tm, K, r, dt, phi, basis, degree, rcond, american, barrier,
+                  barrier_type, itm_weights, mean_t, inv_std_t, return_stats, axis_name,
+                  axis_size, exercise_steps, return_cf_tau, return_coeffs, antithetic,
+                  replay_coeffs)
 
 
 lsmc_price_megakernel.launches = 0
@@ -299,11 +308,14 @@ def lsmc_price_mega_reference(paths_tm: torch.Tensor, *args, **kwargs):
 
 
 def _price(run, paths_tm, K, r, dt, phi, basis="chebyshev", degree=4, rcond=1e-6,
-           american=True, itm_weights=False, mean_t=None, inv_std_t=None,
-           return_coeffs=False, barrier=None, exercise_steps=None,
-           replay_coeffs=None, return_cf_tau=False, antithetic=False):
+           american=True, barrier=None, barrier_type="down-in", itm_weights=False,
+           mean_t=None, inv_std_t=None, return_stats=False, axis_name=None, axis_size=1,
+           exercise_steps=None, return_cf_tau=False, return_coeffs=False, antithetic=False,
+           replay_coeffs=None):
+    if axis_name is not None:
+        _not_ported("the mega kernel's collective mode (axis_name)", "A15")
     if barrier is not None:
-        _not_ported("the mega kernel's barrier sign-bit mode", "B2 options")
+        _not_ported(f"the mega kernel's {barrier_type} barrier mode", "B2 options")
     if exercise_steps is not None:
         _not_ported("the mega kernel's exercise_steps schedule", "B2 options")
     if replay_coeffs is not None:
@@ -336,7 +348,9 @@ def _price(run, paths_tm, K, r, dt, phi, basis="chebyshev", degree=4, rcond=1e-6
     stderr = torch.sqrt(var / n_paths)
     if return_coeffs or return_cf_tau:
         return MegaOutputs(price, stderr, cf, tau, coeffs if return_coeffs else None)
-    return price, stderr
+    if return_stats:
+        return price, stderr
+    return price
 
 
 # ---------------------------------------------------------------------------

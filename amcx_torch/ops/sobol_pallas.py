@@ -1,0 +1,253 @@
+"""Scrambled-Sobol GBM paths on the card: the CUDA kernel's wrapper and its
+plain version.
+
+Port of `amcx.ops.sobol_pallas` (``_sobol_gbm_kernel`` via
+``sobol_gbm_paths``), under amcx's module name. The host derives the
+scrambled direction numbers once per (seed, n_steps, n_paths) from scipy's
+engine (:func:`_direction_tables`); the kernel (``csrc/sobol_gbm.cu``)
+rebuilds each point as ``u_hi[j, p >> 9] ^ u_lo[j, p & 511]``, maps it to a
+uniform and by Acklam's inverse CDF (:func:`norm_ppf`) to a normal, and
+writes the time-major ``(n_steps+1, n_paths)`` f32 path array, either by a
+running log-sum (increment order) or by the Brownian-bridge matrix (bridge
+order, `amcx_torch.qmc.brownian_bridge_matrix`).
+
+:func:`sobol_gbm_paths_reference` computes the same function in plain torch
+with the kernel's operation order: a loop over steps for the running sum,
+and the bridge product accumulated over s in ascending order. On the card
+the two agree to the bit. Natural point order is a block permutation of
+scipy's Gray-code order: the point sets are equal for power-of-two counts.
+scipy is imported inside the functions that need it, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..types import MarketParams, SimConfig
+
+__all__ = ["sobol_gbm_paths", "sobol_gbm_paths_reference", "simulate_gbm_qmc_device",
+           "norm_ppf", "BRIDGE_MAX_STEPS"]
+
+LANES = 512  # paths per u_hi column: the low 9 bits of the path index
+_LOW_BITS = 9
+_SMEM_BYTES = 232_448  # shared memory a block can have on the H100
+BRIDGE_MAX_STEPS = 225  # B and 32 threads' normals in one block's shared memory
+
+# Acklam's inverse normal CDF coefficients
+_A = (-3.969683028665376e+01, 2.209460984245205e+02, -2.759285104469687e+02,
+      1.383577518672690e+02, -3.066479806614716e+01, 2.506628277459239e+00)
+_B = (-5.447609879822406e+01, 1.615858368580409e+02, -1.556989798598866e+02,
+      6.680131188771972e+01, -1.328068155288572e+01)
+_C = (-7.784894002430293e-03, -3.223964580411365e-01, -2.400758277161838e+00,
+      -2.549732539343734e+00, 4.374664141464968e+00, 2.938163982698783e+00)
+_D = (7.784695709041462e-03, 3.224671290700398e-01, 2.445134137142996e+00,
+      3.754408661907416e+00)
+_P_LOW = 0.02425
+
+
+def norm_ppf(p: torch.Tensor) -> torch.Tensor:
+    """Branchless Acklam Φ⁻¹ of f32 ``p ∈ (0, 1)``, in amcx's f32 operation
+    order (each Python coefficient rounded to f32)."""
+    half = p - 0.5
+    r = half * half
+    num = torch.full_like(p, _A[0])
+    for a in _A[1:]:
+        num = num * r + a
+    den = torch.full_like(p, _B[0])
+    for b in _B[1:]:
+        den = den * r + b
+    den = den * r + 1.0
+    x_c = num * half / den
+    pt = torch.minimum(p, 1.0 - p)
+    qt = torch.sqrt(-2.0 * torch.log(torch.clamp_min(pt, 1e-38)))
+    num = torch.full_like(p, _C[0])
+    for c in _C[1:]:
+        num = num * qt + c
+    den = torch.full_like(p, _D[0])
+    for d in _D[1:]:
+        den = den * qt + d
+    den = den * qt + 1.0
+    x_t = num / den  # the lower-tail form
+    x_t = torch.where(half < 0, x_t, -x_t)
+    select = torch.tensor(0.5 - _P_LOW, dtype=p.dtype, device=p.device)
+    return torch.where(torch.abs(half) <= select, x_c, x_t)
+
+
+def _bits_to_uniform(u: torch.Tensor) -> torch.Tensor:
+    """int32 Sobol integers (30 significant bits) → f32 uniforms in
+    [2⁻²⁴, 1 − 2⁻²⁴]."""
+    mant = torch.bitwise_and(torch.bitwise_right_shift(u, 7), 0x007FFFFF)
+    return torch.bitwise_or(mant, 0x3F800000).view(torch.float32) - (1.0 - 2.0 ** -24)
+
+
+@functools.lru_cache(maxsize=8)
+def _direction_tables(seed: int, n_steps: int, n_paths: int):
+    """The factored XOR tables from scipy's scrambled engine: ``u_hi``
+    ``(n_steps, n_paths/512)`` (the shift folded in) and ``u_lo``
+    ``(n_steps, 512)``, uint32, left-aligned to 30 bits. amcx's tables
+    without the 128-column padding of ``u_hi``. Read-only (cached)."""
+    from scipy.stats import qmc
+
+    if n_paths % LANES or n_paths < LANES:
+        raise ValueError(f"n_paths must be a positive multiple of {LANES}, got {n_paths}")
+    eng = qmc.Sobol(d=n_steps, scramble=True, seed=int(seed))
+    sv = np.asarray(eng._sv, dtype=np.uint32)  # (n_steps, bits)
+    shift = np.asarray(eng._shift, dtype=np.uint32)  # (n_steps,)
+    bits = int(eng.bits)
+    if n_paths > 1 << bits:
+        raise ValueError(f"n_paths exceeds the {bits}-bit Sobol period")
+
+    def xor_table(indices: np.ndarray) -> np.ndarray:
+        acc = np.zeros((n_steps, indices.size), dtype=np.uint32)
+        for j in range(bits):
+            mask = ((indices >> j) & 1).astype(bool)
+            acc[:, mask] ^= sv[:, j:j + 1]
+        return acc
+
+    u_lo = xor_table(np.arange(LANES, dtype=np.uint64))
+    u_hi = xor_table(np.arange(n_paths // LANES, dtype=np.uint64) << _LOW_BITS)
+    u_hi ^= shift[:, None]
+    if bits < 30:  # the uniform conversion reads bits 29..7
+        u_hi <<= 30 - bits
+        u_lo <<= 30 - bits
+    u_hi.flags.writeable = False
+    u_lo.flags.writeable = False
+    return u_hi, u_lo
+
+
+def _params(S0, r, sigma, q, T, n_steps, bridge):
+    """amcx's three kernel scalars as f32 values: S0, the drift per step,
+    and the normal's scale (σ√dt, or σ in bridge mode, where B carries
+    √dt)."""
+    dt = T / n_steps
+    sigma32 = np.float32(sigma)
+    vol = sigma32 if bridge else sigma32 * np.sqrt(np.float32(dt))
+    return (float(np.float32(S0)), float(np.float32((r - q - 0.5 * sigma ** 2) * dt)),
+            float(np.float32(vol)))
+
+
+def _bridge_matrix(n_steps, T):
+    from ..qmc import brownian_bridge_matrix
+
+    return np.ascontiguousarray(brownian_bridge_matrix(n_steps, T / n_steps), np.float32)
+
+
+def _bridge_threads(n_steps: int) -> int:
+    """The bridge kernel's block size: the largest of 128, 64, 32 threads
+    whose shared memory (B and each thread's normals) fits a block."""
+    for threads in (128, 64, 32):
+        if 4 * (n_steps * n_steps + threads * n_steps) <= _SMEM_BYTES:
+            return threads
+    raise ValueError(f"bridge mode takes at most {BRIDGE_MAX_STEPS} steps on the kernel "
+                     f"(B must fit one block's shared memory), got {n_steps}")
+
+
+def _check(n_steps, n_paths, bridge):
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    if n_paths % LANES or n_paths < LANES or n_paths > 2 ** 30:
+        raise ValueError(f"n_paths must be a multiple of {LANES} in [{LANES}, 2^30], "
+                         f"got {n_paths}")
+    if bridge:
+        _bridge_threads(n_steps)
+
+
+def sobol_gbm_paths_reference(seed, S0, r, sigma, q, T, n_steps: int, n_paths: int,
+                              brownian_bridge: bool = False, device="cpu") -> torch.Tensor:
+    """Plain-torch version of the kernel: time-major ``(n_steps+1,
+    n_paths)`` f32 on ``device``."""
+    _check(n_steps, n_paths, brownian_bridge)
+    u_hi, u_lo = _direction_tables(int(seed), n_steps, n_paths)
+    S0, drift_dt, vol = _params(S0, r, sigma, q, T, n_steps, brownian_bridge)
+    hi = torch.from_numpy(u_hi.view(np.int32).copy()).to(device)
+    lo = torch.from_numpy(u_lo.view(np.int32).copy()).to(device)
+    p = torch.arange(n_paths, device=device)
+    z = norm_ppf(_bits_to_uniform(torch.bitwise_xor(hi[:, p >> _LOW_BITS],
+                                                    lo[:, p & (LANES - 1)])))
+    del hi, lo, p
+    out = torch.empty((n_steps + 1, n_paths), dtype=torch.float32, device=device)
+    out[0] = S0
+    if brownian_bridge:
+        B = torch.from_numpy(_bridge_matrix(n_steps, T)).to(device)
+        W = torch.zeros((n_steps, n_paths), dtype=torch.float32, device=device)
+        for s in range(n_steps):  # ascending s, as the kernel sums
+            W = W + B[:, s:s + 1] * z[s]
+        trow = torch.arange(1, n_steps + 1, dtype=torch.float32, device=device)[:, None]
+        out[1:] = S0 * torch.exp(drift_dt * trow + vol * W)
+        return out
+    cum = torch.zeros(n_paths, dtype=torch.float32, device=device)
+    for j in range(n_steps):
+        cum = cum + (drift_dt + vol * z[j])
+        out[j + 1] = S0 * torch.exp(cum)
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _device_tables(seed: int, n_steps: int, n_paths: int, bridge: bool, T: float,
+                   device: torch.device):
+    u_hi, u_lo = _direction_tables(seed, n_steps, n_paths)
+    hi = torch.from_numpy(u_hi.view(np.int32).copy()).to(device)
+    lo = torch.from_numpy(u_lo.view(np.int32).copy()).to(device)
+    B = torch.from_numpy(_bridge_matrix(n_steps, T)).to(device) if bridge else None
+    return hi, lo, B
+
+
+def sobol_gbm_paths(seed, S0, r, sigma, q, T, n_steps: int, n_paths: int,
+                    brownian_bridge: bool = False, device="cuda") -> torch.Tensor:
+    """Time-major ``(n_steps+1, n_paths)`` f32 GBM paths from scrambled-Sobol
+    points on ``device``; amcx's parameters minus ``interpret``, plus
+    ``device``.
+
+    ``n_paths``: a multiple of 512 (the digital-net block), at most 2³⁰;
+    powers of two keep the net balanced. ``brownian_bridge`` orders the
+    Sobol dimensions by the bridge construction (at most
+    :data:`BRIDGE_MAX_STEPS` steps). On a CUDA device this launches the
+    kernel (``csrc/sobol_gbm.cu``) on the current stream, or raises; on the
+    CPU it runs :func:`sobol_gbm_paths_reference`. The tables are built on
+    the host once per (seed, n_steps, n_paths) and cached.
+    ``sobol_gbm_paths.launches`` counts the kernel launches.
+    """
+    device = torch.device(device)
+    if device.type == "cpu":
+        return sobol_gbm_paths_reference(seed, S0, r, sigma, q, T, n_steps, n_paths,
+                                         brownian_bridge, device)
+    if device.type != "cuda":
+        raise ValueError(f"sobol_gbm_paths runs on 'cpu' or 'cuda', got {device}")
+    _check(n_steps, n_paths, brownian_bridge)
+    from . import _build
+
+    hi, lo, B = _device_tables(int(seed), n_steps, n_paths, bool(brownian_bridge), float(T),
+                               device)
+    S0, drift_dt, vol = _params(S0, r, sigma, q, T, n_steps, brownian_bridge)
+    threads = _bridge_threads(n_steps) if brownian_bridge else 0
+    out = torch.empty((n_steps + 1, n_paths), dtype=torch.float32, device=device)
+    Vp, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _build.function("amcx_sobol_gbm_paths", [Vp, Vp, Vp, Vp, I, I, F, F, F, I, Vp])
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(hi.data_ptr(), lo.data_ptr(), None if B is None else B.data_ptr(), out.data_ptr(),
+            n_steps, n_paths, S0, drift_dt, vol, threads, stream)
+    sobol_gbm_paths.launches += 1
+    _build.check(rc, "amcx_sobol_gbm_paths")
+    return out
+
+
+sobol_gbm_paths.launches = 0
+
+
+def simulate_gbm_qmc_device(seed: int, market: MarketParams, T, sim: SimConfig,
+                            brownian_bridge: bool = False, device="cuda") -> torch.Tensor:
+    """`amcx_torch.qmc.simulate_gbm_qmc`'s signature on the kernel: the
+    kernel on a CUDA ``device``, its plain version on the CPU (amcx falls
+    back to host scipy on a CPU backend instead). f32 paths only; scrambled
+    Sobol points have no antithetic mirror, so ``sim.antithetic`` raises."""
+    if sim.dtype != "float32":
+        raise ValueError("the Sobol pathgen emits float32 paths")
+    if sim.antithetic:
+        raise ValueError("scrambled-Sobol paths have no antithetic mirror; "
+                         "use SimConfig(antithetic=False)")
+    return sobol_gbm_paths(seed, market.S0, market.r, market.sigma, market.q, T, sim.n_steps,
+                           sim.n_paths, brownian_bridge=brownian_bridge, device=device)

@@ -197,7 +197,20 @@ def price_out_of_sample(
     return OOSResult(fit, oos)
 
 
-def valuation_interval(*args, **kwargs):
+def valuation_interval(
+    seed,
+    market: MarketParams,
+    product: ProductSpec,
+    spec: RegressionSpec = RegressionSpec(),
+    sim: SimConfig = SimConfig(),
+    engine: str = "mega",
+    n_fit_paths: Optional[int] = None,
+    replay_engine: Optional[str] = None,
+    n_dual_paths: int = 4096,
+    n_inner: int = 32,
+    nested: bool = True,
+    device="cuda",
+):
     """amcx's fit → [out-of-sample lower bound, Andersen-Broadie dual upper
     bound]; its dual bound (`amcx/dual.py`) is not ported yet (ROADMAP A8)."""
     raise NotImplementedError("valuation_interval needs the dual upper bound of amcx/dual.py, "

@@ -45,14 +45,25 @@ def pinv_solve(G: torch.Tensor, b: torch.Tensor, rcond: float = 1e-6) -> torch.T
     return d * (V * (inv_w * Vt_b)[None, :]).sum(dim=1)
 
 
+def reject_axis_name(axis_name: Optional[str], what: str) -> None:
+    """Raise for a sharded-path-axis call: amcx's ``axis_name`` collective
+    mode is kept in the port's signatures but waits for ROADMAP A15."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            f"{what} over a sharded path axis (axis_name) is not ported yet (ROADMAP A15)")
+
+
 def weighted_standardize(
     x: torch.Tensor,
     weights: Optional[torch.Tensor],
     scaling_factor: float = 1.0,
     eps: float = 1e-6,
+    axis_name: Optional[str] = None,
 ) -> torch.Tensor:
     """Affine-standardize ``x`` with (weighted) mean/std:
-    ``(x - mean) / (factor * max(std, eps))``."""
+    ``(x - mean) / (factor * max(std, eps))``. ``axis_name`` raises
+    (ROADMAP A15)."""
+    reject_axis_name(axis_name, "weighted_standardize")
     ones = torch.ones_like(x) if weights is None else weights
     wsum = torch.clamp_min(torch.sum(ones), eps)
     mean = torch.sum(ones * x) / wsum
@@ -102,8 +113,11 @@ def fit_continuation(
     discounted_cashflows: torch.Tensor,
     spec: RegressionSpec,
     weights: Optional[torch.Tensor] = None,
+    axis_name: Optional[str] = None,
 ) -> torch.Tensor:
-    """Continuation-value estimate at one time step, clamped at zero."""
+    """Continuation-value estimate at one time step, clamped at zero.
+    ``axis_name`` raises (ROADMAP A15)."""
+    reject_axis_name(axis_name, "fit_continuation")
     fitted, _ = _fit(s_t, discounted_cashflows, weights, spec)
     return torch.clamp_min(fitted, 0.0)
 
@@ -113,11 +127,14 @@ def fit_continuation_with_coeffs(
     discounted_cashflows: torch.Tensor,
     spec: RegressionSpec,
     weights: Optional[torch.Tensor] = None,
+    axis_name: Optional[str] = None,
     clamp: bool = True,
 ):
     """Like :func:`fit_continuation` but also returns the ``(degree+1,)``
     solved coefficients. ``clamp=False`` skips the zero floor (signed
-    cashflows, where flooring would disable out-of-the-money exercise)."""
+    cashflows, where flooring would disable out-of-the-money exercise).
+    ``axis_name`` raises (ROADMAP A15)."""
+    reject_axis_name(axis_name, "fit_continuation_with_coeffs")
     fitted, coeffs = _fit(s_t, discounted_cashflows, weights, spec)
     if clamp:
         fitted = torch.clamp_min(fitted, 0.0)

@@ -38,7 +38,20 @@ width:
   down-and-in put against the CRR barrier tree, 1M x 1000 steps) and
   ``price_out_of_sample`` fitted on 1M paths and replayed on 16 blocks of
   1M, with the time and device memory of a pricing beside the
-  pathgen + ``lsmc_mega`` pipeline's.
+  pathgen + ``lsmc_mega`` pipeline's;
+- phases 15-16: swing options (multiple stopping): the kernel
+  ``lsmc_swing`` against its plain version in five cases at 1,048,576
+  paths and against ``lsmc_mega`` at one right, then
+  ``amcx_torch.price_swing_option(engine="mega")`` on the Philox pathgen
+  (the published 3-rights put at 1M x 100) against the rights lattice, and
+  ``price_swing_contract(engine="mega")`` (the published volume contract,
+  an 11-rights forward up-swing at 1M x 20) against its composed lattice
+  value;
+- phases 17-18: scrambled-Sobol QMC: the kernel ``sobol_gbm`` against its
+  plain version in increment and bridge order at 1M x 100 and its point set
+  against scipy's, then ``simulate_gbm_qmc_device`` into ``lsmc_mega`` on
+  the flagship put against CRR-2000, and the bridge-order European put
+  against Black-Scholes.
 
 It times the pricings, each kernel, each plain version and, where one
 PyTorch call computes the same function, that call, with CUDA events, and
@@ -74,6 +87,14 @@ BOOK_CRR_TOL = 0.2
 # scripts/make_results.py:253-275 and :310-327)
 OOS_BLOCKS, DEEP_STEPS = 16, 1000
 FP_MEMORY_CAP = 64 * 2 ** 20
+# swing options: amcx's published rights ladder and volume contract
+# (scripts/make_results.py:660-720): S0 = 100, r = 5%, sigma = 25%, T = 1
+SW_R, SW_SIGMA, SW_K, SW_RIGHTS = 0.05, 0.25, 105.0, 3
+SW_CONTRACT = dict(K=100.0, T=1.0, q_take_min=0.5, q_take_max=1.0, Q_min=12.0, Q_max=16.0,
+                   option_type="put")
+SW_CONTRACT_STEPS = 20
+# scrambled-Sobol QMC on the flagship put: the absolute gates of one scramble
+QMC_CRR_TOL, QMC_BS_TOL = 0.02, 0.005
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): HBM3
 # bandwidth, f32 and f64 arithmetic outside the tensor cores
@@ -146,6 +167,277 @@ def _profile(torch, fn, reps):
             "top_us_per_call": {name[:60]: us / reps for name, us in top}}
 
 
+def _swing_phases(torch, dev, amcx_torch):
+    """Phases 15-16: kernel 10 (``lsmc_swing``) against its plain version and
+    kernel 2, then the swing route and the volume contract at full width.
+    Returns the kernel's row numbers and its bound."""
+    from amcx_torch.ops.gbm import gbm_paths
+    from amcx_torch.ops.lsmc_megakernel import lsmc_price_megakernel
+    from amcx_torch.ops.lsmc_swing import (SWING_MAX_RIGHTS, lsmc_price_swing,
+                                           lsmc_price_swing_reference)
+
+    market = amcx_torch.MarketParams(S0, SW_R, SW_SIGMA)
+    steps_c = SW_CONTRACT_STEPS
+    paths_a = gbm_paths(SEED + 50, S0, SW_R, SW_SIGMA, 0.0, T, N_STEPS, N_PATHS, device=dev)
+    frame_a = dict(zip(("mean_t", "inv_std_t"),
+                       amcx_torch.gbm_standardization(market, T, N_STEPS, device=dev)))
+    frame_c = dict(zip(("mean_t", "inv_std_t"),
+                       amcx_torch.gbm_standardization(market, T, steps_c, device=dev)))
+    paths_c = amcx_torch.simulate_gbm(SEED + 51, market, T, amcx_torch.SimConfig(
+        n_paths=N_PATHS, n_steps=steps_c, antithetic=True), dev)
+    paths_d = gbm_paths(SEED + 52, S0, SW_R, SW_SIGMA, 0.0, T, steps_c, N_PATHS, device=dev)
+    curve = torch.tensor([0.03] * (N_STEPS // 2) + [0.08] * (N_STEPS // 2), device=dev)
+    dt_a, dt_c = T / N_STEPS, T / steps_c
+    cases = {
+        "(a) 3 rights, put K=105, ITM, degree 4, 1M x 100":
+            ((paths_a, SW_K, SW_R, dt_a, -1.0, SW_RIGHTS), dict(itm_weights=True, **frame_a)),
+        "(b) 1 right, as (a)":
+            ((paths_a, SW_K, SW_R, dt_a, -1.0, 1), dict(itm_weights=True, **frame_a)),
+        "(c) forward 3 rights, 2 owed, degree 5, antithetic torch paths 1M x 20":
+            ((paths_c, 100.0, SW_R, dt_c, -1.0, 3),
+             dict(degree=5, payoff_kind="forward", n_min=2, antithetic=True, **frame_c)),
+        "(d) forward 11 rights, 3 owed (the contract's up-swing), degree 5, 1M x 20":
+            ((paths_d, 100.0, SW_R, dt_c, -1.0, 11),
+             dict(degree=5, payoff_kind="forward", n_min=3, **frame_c)),
+        "(e) 2 rights under a two-regime rate curve (3% then 8%), as (a)":
+            ((paths_a, SW_K, curve, dt_a, -1.0, 2), dict(itm_weights=True, **frame_a)),
+    }
+    err = 0.0
+    for case, (args, kw) in cases.items():
+        before = lsmc_price_swing.launches
+        ker = lsmc_price_swing(*args, **kw)
+        again = lsmc_price_swing(*args, **kw)
+        ref = lsmc_price_swing_reference(*args, **kw)
+        torch.cuda.synchronize()
+        n_launch = lsmc_price_swing.launches - before
+        diffs = [abs(float(a) - float(b)) for a, b in zip(ker, ref)]
+        same = all(torch.equal(a, b) for a, b in zip(ker, ref))
+        rerun = all(torch.equal(a, b) for a, b in zip(ker, again))
+        line = (f"phase 15 swing kernel {case}: price {float(ker[0]):.6f} stderr "
+                f"{float(ker[1]):.6f} | kernel vs plain max|d| price {diffs[0]:.3e} stderr "
+                f"{diffs[1]:.3e} | equal to plain {same} | bit-identical rerun {rerun} | "
+                f"launches {n_launch}")
+        _require(math.isfinite(float(ker[0])) and float(ker[1]) > 0,
+                 f"swing {case}: finite price, positive stderr")
+        _require(n_launch == 2, f"swing {case}: launches {n_launch}")
+        _require(same, f"swing {case}: kernel equal to its plain version {diffs}")
+        _require(rerun, f"swing {case}: two kernel runs bit-identical")
+        if case.startswith("(b)"):
+            single = lsmc_price_megakernel(paths_a, SW_K, SW_R, dt_a, -1.0, itm_weights=True,
+                                           return_stats=True, **frame_a)
+            torch.cuda.synchronize()
+            k2_same = all(torch.equal(a, b) for a, b in zip(ker, single))
+            line += (f" | kernel 2 {float(single[0]):.6f} stderr {float(single[1]):.6f} "
+                     f"equal {k2_same}")
+            _require(k2_same, "one-right swing equal to kernel 2 on the same paths and frame")
+        print(line, flush=True)
+        err = max(err, *diffs)
+    # the rights cap: at the cap the kernel equals its plain version; above
+    # it the wrapper raises
+    cap_paths = paths_d[:9, :65_536].contiguous()
+    cap_kw = dict(degree=10, payoff_kind="forward", n_min=3)
+    cap_ker = lsmc_price_swing(cap_paths, 100.0, SW_R, dt_c, -1.0, SWING_MAX_RIGHTS, **cap_kw)
+    cap_ref = lsmc_price_swing_reference(cap_paths, 100.0, SW_R, dt_c, -1.0, SWING_MAX_RIGHTS,
+                                         **cap_kw)
+    torch.cuda.synchronize()
+    cap_same = all(torch.equal(a, b) for a, b in zip(cap_ker, cap_ref))
+    try:
+        lsmc_price_swing(cap_paths, 100.0, SW_R, dt_c, -1.0, SWING_MAX_RIGHTS + 1)
+        cap_raises = False
+    except ValueError:
+        cap_raises = True
+    print(f"phase 15 rights cap {SWING_MAX_RIGHTS} (degree 10, 65536 x 8): price "
+          f"{float(cap_ker[0]):.5f} equal to plain {cap_same} | {SWING_MAX_RIGHTS + 1} rights "
+          f"raises {cap_raises}", flush=True)
+    _require(cap_same and cap_raises, "the swing kernel at its rights cap")
+    args_a, kw_a = cases["(a) 3 rights, put K=105, ITM, degree 4, 1M x 100"]
+    ms = _time_ms(torch, lambda: lsmc_price_swing(*args_a, **kw_a), 20, 3)
+    plain_ms = _time_ms(torch, lambda: lsmc_price_swing_reference(*args_a, **kw_a), 3, 1)
+    print(f"phase 15 kernel 10 on (a): {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+    del paths_c, cap_paths
+
+    # ---- phase 16: the swing route at full width -------------------------
+    product = amcx_torch.ProductSpec(K=SW_K, T=T, option_type="put", exercise="american")
+    spec = amcx_torch.RegressionSpec(degree=4)
+    sim = amcx_torch.SimConfig(n_paths=N_PATHS, n_steps=N_STEPS, backend="philox")
+
+    def pricing(seed=SEED + 60):
+        return amcx_torch.price_swing_option(seed, market, product, SW_RIGHTS, spec, sim,
+                                             engine="mega", device=dev)
+
+    lattice = amcx_torch.crr_swing_price(S0, SW_K, T, SW_R, SW_SIGMA, SW_RIGHTS,
+                                         n_steps=N_STEPS, n_sub=20)
+    torch.cuda.synchronize()
+    gbm_paths.launches = lsmc_price_swing.launches = 0
+    res = pricing()
+    torch.cuda.synchronize()
+    launches = {"gbm_paths": gbm_paths.launches, "lsmc_swing": lsmc_price_swing.launches}
+    price, stderr = float(res.price), float(res.stderr)
+    _require(all(n > 0 for n in launches.values()), f"swing route launched {launches}")
+    _require(abs(price - lattice) <= 4 * stderr + 0.02,
+             f"swing |price - lattice| = {abs(price - lattice):.5f} <= 4*{stderr:.5f} + 0.02")
+    seeds = iter(range(SEED + 61, SEED + 1000))
+    route_ms = _time_ms(torch, lambda: pricing(next(seeds)).price, 20, 3)
+    prof = _profile(torch, lambda: pricing(), 3)
+    print(f"phase 16 swing route {N_PATHS}x{N_STEPS}, {SW_RIGHTS} rights (put K={SW_K}): price "
+          f"{price:.5f} stderr {stderr:.5f} rights lattice {lattice:.5f} |err| "
+          f"{abs(price - lattice):.5f} | launches {launches} | {route_ms:.3f} ms/pricing "
+          f"(median of 20) | profile {prof or 'no device activity recorded'}", flush=True)
+
+    c_sim = amcx_torch.SimConfig(n_paths=N_PATHS, n_steps=steps_c, backend="philox")
+    gbm_paths.launches = lsmc_price_swing.launches = 0
+    contract = amcx_torch.price_swing_contract(SEED + 70, market, spec=amcx_torch.RegressionSpec(
+        degree=5), sim=c_sim, engine="mega", device=dev, **SW_CONTRACT)
+    torch.cuda.synchronize()
+    c_launches = {"gbm_paths": gbm_paths.launches, "lsmc_swing": lsmc_price_swing.launches}
+    up_lattice = amcx_torch.crr_swing_price(S0, 100.0, T, SW_R, SW_SIGMA, contract.m_max,
+                                            n_steps=steps_c, n_sub=25, option_type="put",
+                                            payoff_kind="forward", n_min=contract.m_min)
+    dq = SW_CONTRACT["q_take_max"] - SW_CONTRACT["q_take_min"]
+    composed = SW_CONTRACT["q_take_min"] * contract.strip_value + dq * up_lattice
+    c_err = abs(contract.price - composed)
+    _require((contract.m_min, contract.m_max) == (3, 11), f"contract m {contract}")
+    _require(all(n > 0 for n in c_launches.values()), f"contract route launched {c_launches}")
+    _require(c_err <= 3.5 * contract.stderr + 0.02,
+             f"contract |price - composed lattice| = {c_err:.5f} <= 3.5*{contract.stderr:.5f}"
+             f" + 0.02")
+    print(f"phase 16 JRT contract (take in [0.5, 1], total in [12, 16], {N_PATHS}x{steps_c}): "
+          f"price {contract.price:.5f} stderr {contract.stderr:.5f} = 0.5 strip "
+          f"{contract.strip_value:.5f} + 0.5 up-swing {contract.upswing_value:.5f} (m in "
+          f"[{contract.m_min}, {contract.m_max}]) | composed lattice {composed:.5f} |err| "
+          f"{c_err:.5f} | launches {c_launches}", flush=True)
+
+    # kernel 10 on (a): reads the paths once; per path-step the P = 30 pair
+    # products (f32) and their f64 sums, R fitted continuations of 2k - 1
+    # operations and the cascade's 4 operations per right
+    k, P = 5, 15 + 5 * SW_RIGHTS
+    bound = _bound((N_STEPS + 1) * N_PATHS * 4 + 4 * (N_STEPS + 1) * 4,
+                   f32_ops=N_STEPS * N_PATHS * (P + SW_RIGHTS * (2 * k - 1) + 4 * SW_RIGHTS),
+                   f64_ops=N_STEPS * N_PATHS * P)
+    return dict(launches=launches["lsmc_swing"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound=bound)
+
+
+def _qmc_phases(torch, dev, amcx_torch):
+    """Phases 17-18: kernel 11 (``sobol_gbm``) against its plain version and
+    scipy's point set, then the QMC route into kernel 2 on the flagship put.
+    Returns the kernel's row numbers (increment order) and its bound."""
+    import numpy as np
+    from scipy.stats import norm, qmc
+
+    from amcx_torch.ops.lsmc_megakernel import lsmc_price_megakernel
+    from amcx_torch.ops.sobol_pallas import (_bits_to_uniform, _direction_tables,
+                                             sobol_gbm_paths, sobol_gbm_paths_reference)
+
+    seed = 2026
+    args = (seed, S0, R, SIGMA, 0.0, T, N_STEPS, N_PATHS)
+    err, ms, plain_ms = 0.0, {}, {}
+    for bridge in (False, True):
+        mode = "bridge" if bridge else "increment"
+        before = sobol_gbm_paths.launches
+        ker = sobol_gbm_paths(*args, brownian_bridge=bridge, device=dev)
+        again = sobol_gbm_paths(*args, brownian_bridge=bridge, device=dev)
+        ref = sobol_gbm_paths_reference(*args, brownian_bridge=bridge, device=dev)
+        torch.cuda.synchronize()
+        n_launch = sobol_gbm_paths.launches - before
+        d = float(torch.max(torch.abs(ker - ref)))
+        same, rerun = torch.equal(ker, ref), torch.equal(ker, again)
+        _require(tuple(ker.shape) == (N_STEPS + 1, N_PATHS) and bool(torch.isfinite(ker).all()),
+                 f"sobol {mode}: shape and finite")
+        _require(n_launch == 2, f"sobol {mode}: launches {n_launch}")
+        _require(same, f"sobol {mode}: kernel equal to its plain version (max|dS| {d:.3e})")
+        _require(rerun, f"sobol {mode}: two kernel runs bit-identical")
+        err = max(err, d)
+        if not bridge:
+            # the first 4096 points of scipy's scrambled engine (Gray-code
+            # order k, natural index k ^ (k >> 1)): the tables hold the same
+            # 30-bit integers, the f32 uniforms their leading 23 bits, and
+            # the kernel's increments invert to them
+            u_hi, u_lo = _direction_tables(seed, N_STEPS, N_PATHS)
+            kk = np.arange(4096)
+            nat = kk ^ (kk >> 1)
+            pts = u_hi[:, nat >> 9] ^ u_lo[:, nat & 511]
+            ref_u = qmc.Sobol(d=N_STEPS, scramble=True, seed=seed).random(4096).T
+            ints_equal = bool(np.array_equal(pts * 2.0 ** -30, ref_u))
+            u32 = _bits_to_uniform(torch.from_numpy(pts.view(np.int32))).numpy()
+            trunc = float(np.abs(u32.astype(np.float64) - ref_u).max())
+            S = ker[:, torch.from_numpy(nat).to(dev)].double().cpu().numpy()
+            dt = T / N_STEPS
+            z_hat = ((np.log(S[1:]) - np.log(S[:-1]) - np.float32((R - 0.5 * SIGMA ** 2) * dt))
+                     / float(np.float32(SIGMA) * np.sqrt(np.float32(dt))))
+            u_err = float(np.abs(norm.cdf(z_hat) - ref_u).max())
+            print(f"phase 17 Sobol point set vs scipy Sobol(d={N_STEPS}, scramble=True, "
+                  f"seed={seed}), first 4096 points: integers equal {ints_equal} | f32 uniform "
+                  f"max|d| {trunc:.3e} (2^-24 = {2.0 ** -24:.3e}) | kernel increments "
+                  f"inverted max|d| {u_err:.3e}", flush=True)
+            _require(ints_equal and trunc <= 2.0 ** -24 and u_err <= 1e-4,
+                     "Sobol point set equal to scipy's to f32 truncation")
+        ms[mode] = _time_ms(torch, lambda b=bridge: sobol_gbm_paths(
+            *args, brownian_bridge=b, device=dev), 20, 3)
+        plain_ms[mode] = _time_ms(torch, lambda b=bridge: sobol_gbm_paths_reference(
+            *args, brownian_bridge=b, device=dev), 3, 1)
+        print(f"phase 17 Sobol kernel {mode} order {N_PATHS}x{N_STEPS}: kernel vs plain max|dS| "
+              f"{d:.3e} | equal to plain {same} | bit-identical rerun {rerun} | launches "
+              f"{n_launch} | {ms[mode]:.3f} ms, plain {plain_ms[mode]:.3f} ms", flush=True)
+        del ker, again, ref
+
+    # ---- phase 18: the QMC route at full width ---------------------------
+    market = amcx_torch.MarketParams(S0, R, SIGMA)
+    sim = amcx_torch.SimConfig(n_paths=N_PATHS, n_steps=N_STEPS)
+    mean_t, inv_std_t = amcx_torch.gbm_standardization(market, T, N_STEPS, device=dev)
+    crr = amcx_torch.crr_price(S0, STRIKE, T, R, SIGMA, 2000, option_type="put", american=True)
+    bs = amcx_torch.bs_price(S0, STRIKE, T, R, SIGMA, option_type="put")
+
+    def route(qseed, bridge):
+        paths = amcx_torch.simulate_gbm_qmc_device(qseed, market, T, sim,
+                                                   brownian_bridge=bridge, device=dev)
+        out = lsmc_price_megakernel(paths, STRIKE, R, T / N_STEPS, -1.0, itm_weights=True,
+                                    mean_t=mean_t, inv_std_t=inv_std_t, return_stats=True)
+        return paths, out
+
+    torch.cuda.synchronize()
+    sobol_gbm_paths.launches = lsmc_price_megakernel.launches = 0
+    runs = {bridge: route(seed + 1, bridge) for bridge in (False, True)}
+    torch.cuda.synchronize()
+    launches = {"sobol_gbm": sobol_gbm_paths.launches, "lsmc_mega": lsmc_price_megakernel.launches}
+    _require(all(n > 0 for n in launches.values()), f"QMC route launched {launches}")
+    for bridge, (paths, (price, stderr)) in runs.items():
+        mode = "bridge" if bridge else "increment"
+        euro = math.exp(-R * T) * float(torch.clamp_min(STRIKE - paths[-1].double(), 0.0).mean())
+        p_err = abs(float(price) - crr)
+        _require(p_err <= QMC_CRR_TOL, f"QMC {mode} |price - CRR-2000| {p_err:.5f} <= "
+                                       f"{QMC_CRR_TOL}")
+        if bridge:
+            _require(abs(euro - bs) <= QMC_BS_TOL,
+                     f"QMC bridge European |err| {abs(euro - bs):.5f} <= {QMC_BS_TOL}")
+        seeds = iter(range(seed + 10 + 100 * bridge, seed + 1000))  # no cached tables
+        route_ms = _time_ms(torch, lambda b=bridge: route(next(seeds), b)[1][0], 5, 1)
+        t0 = time.perf_counter()
+        _direction_tables.__wrapped__(seed + 999, N_STEPS, N_PATHS)
+        tables_ms = (time.perf_counter() - t0) * 1e3
+        print(f"phase 18 QMC route {mode} order {N_PATHS}x{N_STEPS} American put: price "
+              f"{float(price):.5f} (MC stderr formula {float(stderr):.5f}) CRR-2000 {crr:.5f} "
+              f"|err| {p_err:.5f} | European {euro:.5f} Black-Scholes {bs:.5f} |err| "
+              f"{abs(euro - bs):.5f} | launches (both orders) {launches} | route {route_ms:.3f} "
+              f"ms (median of 5, a new seed each: the host's direction tables, "
+              f"{tables_ms:.1f} ms on their own, included)", flush=True)
+    del runs
+
+    # kernel 11 in increment order: writes the (T+1, n) paths and reads the
+    # two tables; per path-step ~62 f32 operations (Acklam's two rational
+    # forms, log, sqrt, the uniform, the running sum, exp, the S0 product);
+    # the bridge order adds 2 n_steps per path-step
+    table_bytes = N_STEPS * (N_PATHS // 512) * 4 + N_STEPS * 512 * 4
+    bound = _bound((N_STEPS + 1) * N_PATHS * 4 + table_bytes, f32_ops=62 * N_STEPS * N_PATHS)
+    bridge_bound = _bound((N_STEPS + 1) * N_PATHS * 4 + table_bytes + N_STEPS ** 2 * 4,
+                          f32_ops=(62 + 2 * N_STEPS) * N_STEPS * N_PATHS)
+    print(f"phase 17 bounds: increment {bound[0]:.4f} ms ({bound[1]}), bridge "
+          f"{bridge_bound[0]:.4f} ms ({bridge_bound[1]}) | kernel ms {ms} plain ms {plain_ms}",
+          flush=True)
+    return dict(launches=launches["sobol_gbm"], max_abs_err=err, ms=ms["increment"],
+                plain_ms=plain_ms["increment"], bound=bound)
+
+
 def main():
     import torch
 
@@ -172,6 +464,12 @@ def main():
     from amcx_torch.ops.maxcall_pallas import (ma_step_apply, ma_step_apply_reference,
                                                ma_step_moments, ma_step_moments_reference)
 
+    try:
+        import scipy
+    except ImportError as exc:
+        raise SystemExit("chip_smoke: scipy is missing; the Sobol direction tables and the "
+                         "host QMC route need scipy.stats.qmc") from exc
+
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -185,8 +483,9 @@ def main():
     _build.libraries()
     build_s = time.perf_counter() - t0
     print(f"phase 1 env: python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
-          f"count {torch.cuda.device_count()} | {smi} | kernels built in "
+          f"scipy {scipy.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} | {smi} | "
+          f"kernels built in "
           f"{build_s:.1f} s ({'compiled' if _build.build_info['built'] else 'cached'})",
           flush=True)
 
@@ -765,7 +1064,7 @@ def main():
     d_xla = float(torch.max(torch.abs(book.prices - xla_book.prices)))
     _require(d_xla <= 3e-3, f"book: max |mega - xla| = {d_xla:.2e} <= 3e-3")
     single = torch.stack([lsmc_price_megakernel(paths12, float(K), R, dt, -1.0, itm_weights=False,
-                                                **frame)[0] for K in ladder])
+                                                **frame) for K in ladder])
     n_bit = int((single == book.prices).sum())
     d_single = float(torch.max(torch.abs(single - book.prices)))
     _require(d_single <= 1e-4, f"book vs kernel 2 per strike: max |d| {d_single:.2e} <= 1e-4")
@@ -966,6 +1265,9 @@ def main():
         SEED, *fp_args, **fkw, device=dev), 2, 1)
     print(f"phase 14 kernel 6 alone {ms_fp:.3f} ms, plain {ms_fp_plain:.3f} ms", flush=True)
 
+    sw = _swing_phases(torch, dev, amcx_torch)
+    qmc = _qmc_phases(torch, dev, amcx_torch)
+
     # ---- bounds: bytes each kernel must move and its arithmetic ----------
     P4, k4 = 20, 5  # step kernels and mega induction: Chebyshev degree 4
     P_book = 15 + k4 * BOOK_N  # the book's shared Gram head + 16 rhs rows
@@ -1013,6 +1315,8 @@ def main():
         "lsmc_book": _bound((N_STEPS + 1) * row + 4 * (N_STEPS + 1) * 4,
                             f32_ops=N_STEPS * N_PATHS * (P_book + BOOK_N * (2 * k4 - 1)),
                             f64_ops=N_STEPS * N_PATHS * P_book),
+        "lsmc_swing": sw["bound"],
+        "sobol_gbm": qmc["bound"],
     }
 
     print(smi)
@@ -1055,6 +1359,14 @@ def main():
          "replaces": "amcx/ops/lsmc_fusedpath.py:79",
          "launches": fp_launches["lsmc_price_fusedpath"], "max_abs_err": fp_err, "ms": ms_fp,
          "plain_ms": ms_fp_plain, "library_ms": None},
+        {"name": "lsmc_swing", "route": "cuda", "source": "amcx_torch/csrc/lsmc_swing.cu",
+         "replaces": "amcx/ops/lsmc_swing.py:49", "launches": sw["launches"],
+         "max_abs_err": sw["max_abs_err"], "ms": sw["ms"], "plain_ms": sw["plain_ms"],
+         "library_ms": None},
+        {"name": "sobol_gbm", "route": "cuda", "source": "amcx_torch/csrc/sobol_gbm.cu",
+         "replaces": "amcx/ops/sobol_pallas.py:92", "launches": qmc["launches"],
+         "max_abs_err": qmc["max_abs_err"], "ms": qmc["ms"], "plain_ms": qmc["plain_ms"],
+         "library_ms": None},
     ]]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -150,7 +150,8 @@ def test_plain_book_equals_plain_mega_per_strike(paths):
                                                  inv_std_t=inv_std_t)
     for s, K in enumerate(strikes):
         price, stderr = tmega.lsmc_price_megakernel(P, K, R, DT, -1.0, itm_weights=False,
-                                                    mean_t=mean_t, inv_std_t=inv_std_t)
+                                                    mean_t=mean_t, inv_std_t=inv_std_t,
+                                                    return_stats=True)
         assert torch.equal(prices[s], price) and torch.equal(stderrs[s], stderr), K
 
 

@@ -241,9 +241,12 @@ def test_port_imports_without_jax():
         "amcx_torch.interop, amcx_torch.engine_pallas, amcx_torch.greeks, "
         "amcx_torch.models, amcx_torch.models.maxcall, amcx_torch.ops.maxcall_pallas, "
         "amcx_torch.ops.lsmc_ma_mega, amcx_torch.kernel_profile, amcx_torch.book, "
-        "amcx_torch.exposures, amcx_torch.ops.lsmc_fusedpath, amcx_torch.policy\n"
+        "amcx_torch.exposures, amcx_torch.ops.lsmc_fusedpath, amcx_torch.policy, "
+        "amcx_torch.swing, amcx_torch.qmc, amcx_torch.ops.lsmc_swing, "
+        "amcx_torch.ops.sobol_pallas\n"
         "from amcx_torch.ops._build import build_info\n"
         "assert build_info['paths'] is None\n"
+        "assert 'scipy' not in sys.modules\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules "
         "if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -253,3 +256,102 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# Every public function the port has ported keeps amcx's parameter names in
+# amcx's order, so a positional or keyword call means the same in both
+# packages. The port's conventions: amcx's ``interpret`` is dropped (no
+# Pallas), a jax ``key`` becomes an integer ``seed`` (a ``generator`` for
+# brownian_normals), and port-only parameters (``device``, a frame) come
+# after all of amcx's. The per-step kernel wrappers are exempt: amcx's take
+# the TPU's packed scalar vector and (rows, 512) planes, the port's take its
+# stats rows, the step index and flat (n_paths,) rows.
+SIGNATURE_MODULES = ["basis", "payoff", "regress", "paths", "engine", "engine_pallas",
+                     "greeks", "oracle", "exposures", "book", "policy", "models.maxcall",
+                     "swing", "qmc", "ops.lsmc_megakernel", "ops.lsmc_fusedpath",
+                     "ops.lsmc_ma_mega", "ops.lsmc_swing", "ops.sobol_pallas",
+                     "ops.lsmc_pallas", "ops.maxcall_pallas"]
+SIGNATURE_EXEMPT = {"ops.lsmc_pallas": {"step_moments", "step_apply"},
+                    "ops.maxcall_pallas": {"ma_step_moments", "ma_step_apply"}}
+RANDOMNESS = {"key": ("seed", "generator")}
+
+
+@pytest.mark.parametrize("module", SIGNATURE_MODULES)
+def test_ported_signatures_match_amcx(module):
+    import importlib
+    import inspect
+
+    tmod = importlib.import_module(f"amcx_torch.{module}")
+    jmod = importlib.import_module(f"amcx.{module}")
+    checked = 0
+    for name in tmod.__all__:
+        tf, jf = getattr(tmod, name), getattr(jmod, name, None)
+        if (not inspect.isfunction(tf) or jf is None or not callable(jf)
+                or name in SIGNATURE_EXEMPT.get(module, ())):
+            continue
+        want = [p for p in inspect.signature(jf).parameters if p != "interpret"]
+        got = list(inspect.signature(tf).parameters)
+        assert len(got) >= len(want), (module, name, want, got)
+        for w, g in zip(want, got):
+            assert g == w or g in RANDOMNESS.get(w, ()), (module, name, want, got)
+        checked += 1
+    assert checked > 0, module
+
+
+def test_mega_wrapper_keeps_amcx_return_convention():
+    paths = at.simulate_gbm(0, at.MarketParams(100.0, 0.01, 0.2), 1.0,
+                            at.SimConfig(n_paths=512, n_steps=10, backend="philox"), "cpu")
+    from amcx_torch.ops import lsmc_megakernel as tmega
+
+    price = tmega.lsmc_price_megakernel(paths, 100.0, 0.01, 0.1, -1.0)
+    assert isinstance(price, torch.Tensor) and price.shape == ()
+    stats = tmega.lsmc_price_megakernel(paths, 100.0, 0.01, 0.1, -1.0, return_stats=True)
+    assert torch.equal(stats[0], price) and stats[1].shape == ()
+    out = tmega.lsmc_price_megakernel(paths, 100.0, 0.01, 0.1, -1.0, return_coeffs=True)
+    assert isinstance(out, tmega.MegaOutputs) and torch.equal(out.price, price)
+    assert torch.equal(tmega.lsmc_price_mega_reference(paths, 100.0, 0.01, 0.1, -1.0), price)
+    with pytest.raises(NotImplementedError, match="A15"):
+        tmega.lsmc_price_megakernel(paths, 100.0, 0.01, 0.1, -1.0, axis_name="paths",
+                                    axis_size=2)
+    for kind in ("down-in", "up-out"):
+        with pytest.raises(NotImplementedError, match="B2"):
+            tmega.lsmc_price_megakernel(paths, 100.0, 0.01, 0.1, -1.0, barrier=90.0,
+                                        barrier_type=kind)
+
+
+def _axis_name_calls():
+    x = torch.linspace(80.0, 120.0, 64)
+    y = torch.linspace(0.0, 5.0, 64)
+    paths = torch.linspace(90.0, 110.0, 64 * 3).reshape(3, 64)
+    spec = at.RegressionSpec(degree=2)
+    prod = at.ProductSpec(K=100.0, T=1.0, exercise="american")
+    from amcx_torch.models import maxcall as tmaxcall
+
+    return {
+        "weighted_standardize": lambda: at.weighted_standardize(x, None, 1.0, 1e-6, "paths"),
+        "fit_continuation": lambda: at.fit_continuation(x, y, spec, None, "paths"),
+        "fit_continuation_with_coeffs": lambda: at.fit_continuation_with_coeffs(
+            x, y, spec, None, "paths"),
+        "backward_induction": lambda: at.backward_induction(
+            paths, torch.ones_like(paths, dtype=torch.bool), 0.01, 0.5,
+            lambda S: torch.clamp_min(100.0 - S, 0.0), spec, axis_name="paths"),
+        "lsmc_option_pricing": lambda: at.lsmc_option_pricing(paths, prod, 0.01, spec, False,
+                                                              "paths"),
+        "precompute_standardization": lambda: at.precompute_standardization(
+            paths, None, spec, 1e-6, "paths"),
+        "backward_induction_fused": lambda: at.backward_induction_fused(
+            paths, 0.01, 0.5, 100.0, -1.0, spec, axis_name="paths"),
+        "lsmc_option_pricing_fused": lambda: at.lsmc_option_pricing_fused(
+            paths, prod, 0.01, spec, False, "paths"),
+        "max_call_fit": lambda: tmaxcall.max_call_fit(paths.T[:, :2], y, spec, None, "paths"),
+        "max_call_fit_values": lambda: tmaxcall.max_call_fit_values(
+            paths.T[:, :2], y, spec, None, "paths"),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_axis_name_calls()))
+def test_axis_name_raises_a15(name):
+    # amcx's sharded-path-axis keyword, in amcx's position: the port keeps
+    # it and raises until the multi-GPU work lands
+    with pytest.raises(NotImplementedError, match="A15"):
+        _axis_name_calls()[name]()

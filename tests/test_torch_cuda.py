@@ -20,7 +20,9 @@ from amcx_torch.ops import lsmc_ma_mega as tmamega
 from amcx_torch.ops import lsmc_fusedpath as tfp
 from amcx_torch.ops import lsmc_megakernel as tmega
 from amcx_torch.ops import lsmc_pallas as tstep
+from amcx_torch.ops import lsmc_swing as tsw
 from amcx_torch.ops import maxcall_pallas as tma
+from amcx_torch.ops import sobol_pallas as tsp
 
 pytestmark = pytest.mark.cuda
 
@@ -163,7 +165,7 @@ def test_induction_kernel_cf_tau_planes_match_plain(cuda_device):
     ker = tmega.lsmc_price_megakernel(paths, K, R, 1.0 / T, -1.0, **kw)
     ref = tmega.lsmc_price_mega_reference(paths, K, R, 1.0 / T, -1.0, **kw)
     plain = tmega.lsmc_price_megakernel(paths, K, R, 1.0 / T, -1.0, itm_weights=True,
-                                        mean_t=mean_t, inv_std_t=inv_std_t)
+                                        mean_t=mean_t, inv_std_t=inv_std_t, return_stats=True)
     torch.cuda.synchronize()
     assert ker.coeffs is None and ker.cashflows.shape == ker.exercise_times.shape == (n,)
     assert torch.equal(ker.price, plain[0])  # the planes leave V's arithmetic alone
@@ -419,3 +421,78 @@ def test_fusedpath_wrapper_rejects_bad_inputs(cuda_device):
         tfp.lsmc_price_fusedpath(1, *FP_ARGS, 1028, -1.0, antithetic=True, device=cuda_device)
     with pytest.raises(ValueError, match="divisible by 4"):
         tfp.lsmc_price_fusedpath(1, *FP_ARGS, 1026, -1.0, device=cuda_device)
+
+
+# kernel 10: the swing induction (3 rights, the published put K = 105, r = 5%,
+# sigma = 25%) on 131,072 paths x 50 steps
+SW_MARKET = at.MarketParams(100.0, 0.05, 0.25)
+SW_CASES = {
+    "3-rights-itm": (41, 3, dict(itm_weights=True), False),
+    "forward-owed-2-antithetic": (42, 3, dict(payoff_kind="forward", n_min=2, degree=5), True),
+    "rate-curve-2-rights": (43, 2, dict(itm_weights=True), False),
+}
+
+
+def _swing_paths(device, seed, n, T, antithetic):
+    sim = at.SimConfig(n_paths=n, n_steps=T, antithetic=antithetic)
+    return at.simulate_gbm(torch.Generator(device=device).manual_seed(seed), SW_MARKET, 1.0,
+                           sim, device)
+
+
+@pytest.mark.parametrize("case", sorted(SW_CASES))
+def test_swing_kernel_matches_plain(cuda_device, case):
+    seed, n_rights, kw, antithetic = SW_CASES[case]
+    T = 50
+    paths = _swing_paths(cuda_device, seed, 131_072, T, antithetic)
+    mean_t, inv_std_t = at.gbm_standardization(SW_MARKET, 1.0, T, device=cuda_device)
+    r = (torch.tensor([0.03] * (T // 2) + [0.08] * (T // 2), device=cuda_device)
+         if case.startswith("rate-curve") else 0.05)
+    K = 100.0 if kw.get("payoff_kind") == "forward" else 105.0
+    args = (paths, K, r, 1.0 / T, -1.0, n_rights)
+    kw = dict(kw, mean_t=mean_t, inv_std_t=inv_std_t, antithetic=antithetic)
+    before = tsw.lsmc_price_swing.launches
+    ker = tsw.lsmc_price_swing(*args, **kw)
+    again = tsw.lsmc_price_swing(*args, **kw)
+    ref = tsw.lsmc_price_swing_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert tsw.lsmc_price_swing.launches == before + 2
+    assert math.isfinite(float(ker[0])) and float(ker[1]) > 0
+    for a, b, c in zip(ker, again, ref):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_swing_kernel_one_right_equals_kernel_2(cuda_device):
+    T = 100
+    paths = _swing_paths(cuda_device, 44, 131_072, T, False)
+    mean_t, inv_std_t = at.gbm_standardization(SW_MARKET, 1.0, T, device=cuda_device)
+    kw = dict(itm_weights=True, mean_t=mean_t, inv_std_t=inv_std_t)
+    swing = tsw.lsmc_price_swing(paths, 105.0, 0.05, 1.0 / T, -1.0, 1, **kw)
+    single = tmega.lsmc_price_megakernel(paths, 105.0, 0.05, 1.0 / T, -1.0, return_stats=True,
+                                         **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(swing[0], single[0]) and torch.equal(swing[1], single[1])
+
+
+def test_swing_kernel_rights_cap(cuda_device):
+    cap = tsw.SWING_MAX_RIGHTS
+    paths = _swing_paths(cuda_device, 45, 65_536, 8, False)
+    with pytest.raises(ValueError, match=f"cap of {cap}"):
+        tsw.lsmc_price_swing(paths, 100.0, 0.05, 0.125, -1.0, cap + 1)
+    kw = dict(degree=10, payoff_kind="forward", n_min=3)
+    ker = tsw.lsmc_price_swing(paths, 100.0, 0.05, 0.125, -1.0, cap, **kw)
+    ref = tsw.lsmc_price_swing_reference(paths, 100.0, 0.05, 0.125, -1.0, cap, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ker[0], ref[0]) and torch.equal(ker[1], ref[1])
+
+
+# kernel 11: scrambled-Sobol paths, both orders, at 262,144 paths x 100 steps
+@pytest.mark.parametrize("bridge", [False, True])
+def test_sobol_kernel_matches_plain(cuda_device, bridge):
+    args = (9, 100.0, 0.01, 0.2, 0.0, 1.0, 100, 262_144)
+    before = tsp.sobol_gbm_paths.launches
+    ker = tsp.sobol_gbm_paths(*args, brownian_bridge=bridge, device=cuda_device)
+    ref = tsp.sobol_gbm_paths_reference(*args, brownian_bridge=bridge, device=cuda_device)
+    torch.cuda.synchronize()
+    assert tsp.sobol_gbm_paths.launches == before + 1
+    assert ker.shape == (101, 262_144) and bool(torch.isfinite(ker).all())
+    assert torch.equal(ker, ref)
