@@ -100,14 +100,16 @@ __device__ __forceinline__ void block_reduce_store(double (&acc)[P], double* __r
   }
 }
 
-// Fixed-order sum of the (n_blocks, P) partial rows, by one block, rounded
-// once to f32 into out[0..P): warp w owns sums p = w, w + kWarps, ...; lane
-// l adds blocks l, l + 32, ... in order, then the lanes fold by shuffles.
+// Fixed-order sum of the (n_blocks, P) partial rows, rounded once to f32
+// into out[0..P): warp w of the grid's W warps owns sums p = w, w + W, ...;
+// lane l adds blocks l, l + 32, ... in order, then the lanes fold by
+// shuffles. Any grid adds the same values in the same order.
 __device__ __forceinline__ void sum_partials(const double* __restrict__ partials, int n_blocks,
                                              int P, float* out) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int p = warp; p < P; p += kWarps) {
+  const int warps = blockDim.x >> 5;
+  const int warp = blockIdx.x * warps + (threadIdx.x >> 5);
+  for (int p = warp; p < P; p += gridDim.x * warps) {
     double v = 0.0;
     for (int b = lane; b < n_blocks; b += 32) v += partials[static_cast<size_t>(b) * P + p];
 #pragma unroll
@@ -116,8 +118,10 @@ __device__ __forceinline__ void sum_partials(const double* __restrict__ partials
   }
 }
 
-// One block: sum_partials into out[0..P) (the fused engines' moment vectors,
-// the inductions' final two sums).
+// sum_partials into out[0..P) (the fused engines' moment vectors, the
+// inductions' final two sums), one warp a sum: one block, or ceil(P /
+// kWarps) blocks for one wave of warps. Either grid adds the same values
+// in the same order.
 __global__ void __launch_bounds__(kThreads)
 sum_partials_kernel(const double* __restrict__ partials, int n_blocks, int P,
                     float* __restrict__ out) {
@@ -273,9 +277,10 @@ solve_kernel(const double* __restrict__ partials, int n_blocks, int k_rt, float 
 // k x k Gram head and n_rhs right-hand sides of k moments each (P = k(k+1)/2
 // + k n_rhs, n_rhs <= kMaxRhs) in a fixed order (rounded once to f32), factor
 // the Gram on thread 0, then thread j back-solves right-hand side j into
-// coeffs[j * K ..] (the strike book's options, the swing's rights).
-template <int K, int kMaxRhs>
-__global__ void __launch_bounds__(kThreads)
+// coeffs[j * K ..] (the strike book's options, the swing's rights). kBlock
+// threads: the book's wide sums take 1024, so each warp adds few rows.
+template <int K, int kMaxRhs, int kBlock = kThreads>
+__global__ void __launch_bounds__(kBlock)
 multi_rhs_solve_kernel(const double* __restrict__ partials, int n_blocks, int n_rhs,
                        float rcond, float* __restrict__ coeffs) {
   constexpr int kPairs = Layout<K>::kPairs;
@@ -288,7 +293,7 @@ multi_rhs_solve_kernel(const double* __restrict__ partials, int n_blocks, int n_
   float* d = L + K * K;
   if (threadIdx.x == 0) factor_equilibrated_ridge<K>(packed, K, rcond, Gnr, L, d);
   __syncthreads();
-  for (int j = threadIdx.x; j < n_rhs; j += kThreads) {
+  for (int j = threadIdx.x; j < n_rhs; j += kBlock) {
     float work[solve_work_floats(K)];
     solve_factored<K>(L, d, Gnr, packed + kPairs + j * K, K, coeffs + j * K, work);
   }

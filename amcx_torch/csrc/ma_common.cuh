@@ -1,7 +1,8 @@
 // Device code shared by the multi-asset kernels (ma_step.cu: kernels 8/9,
 // lsmc_ma_mega.cu: kernel 7): the product/basis description, the payoff
 // kinds, the sorted and standardized features, the cross-term columns, and
-// the moments of one block's paths.
+// kernel 7's moments of one block's paths (kernel 8 has its own,
+// register-blocked, in ma_step.cu).
 //
 // Layout: the asset planes of step t are a contiguous (A, n_paths) f32
 // slice of the time-major asset-major (n_steps+1, A, n_paths) paths, so a
@@ -17,12 +18,13 @@
 // uni[a][alpha[c][a]], multiplied left to right (1 for alpha = 0). The
 // multi-index table comes from the host (amcx_torch.basis._multi_index_set).
 //
-// Moments: a block stages a tile of kThreads paths in shared memory - the m
-// columns, the ITM-weighted columns and the weighted target w y, with a row
-// stride of kThreads + 1 floats so that threads reading different columns
-// of one path hit different banks - then thread p < P (and p + kThreads,
-// ...) adds packed sum p over the tile's paths in path order in f64: pairs
-// (i <= j) sum f32(cw_i * c_j), the rhs sums f32(c_i * w y). The block
+// Kernel 7's moments: a block stages a tile of kThreads paths in shared
+// memory - the m columns, the ITM-weighted columns and the weighted target
+// w y, with a row stride of kThreads + 1 floats so that threads reading
+// different columns of one path hit different banks - then thread p < P
+// (and p + kThreads, ...) adds packed sum p over the tile's paths in path
+// order in f64: pairs (i <= j) sum f32(cw_i * c_j), the rhs sums
+// f32(c_i * w y). The block
 // writes one (P,) f64 partial row, and a one-block kernel sums the rows in
 // a fixed order (sum_partials) and rounds once to f32. No float atomics, so
 // runs are bit-identical, and the plain torch versions (f64 sums of the

@@ -1,17 +1,33 @@
-"""Device time of the univariate induction kernel (kernel 2) by phase.
+"""Device time of one kernel route by phase, and a hash of its result bits.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python3 -m amcx_torch.kernel_profile [--reps 20] [--label NAME]
+    python3 -m amcx_torch.kernel_profile [--route put|book|ma-step] [--reps 20] [--label NAME]
 
-It prices the flagship put (1,048,576 Philox paths x 100 steps, S0 = K =
-100, r = 1%, sigma = 20%, T = 1, Chebyshev degree 4, ITM fit) with
-``lsmc_price_megakernel`` on fixed paths and prints one JSON line: the
-median ms per induction by CUDA events, the device microseconds per
-induction of each kernel by name (``torch.profiler``), and a SHA-256 of the
-price, stderr and coefficient bits, so two checkouts run one after the
-other on the same card can be compared phase by phase and bit for bit. It
-uses only entry points that every version of the port has had.
+Routes, each on fixed inputs made from fixed seeds:
+
+- ``put`` (the default, kernel 2): the flagship put (1,048,576 Philox
+  paths x 100 steps, S0 = K = 100, r = 1%, sigma = 20%, T = 1, Chebyshev
+  degree 4, ITM fit) through ``lsmc_price_megakernel``; the hash covers
+  the price, stderr and coefficient bits.
+- ``book`` (kernel 3): book-16-1M (16 American puts K = 80..120, S0 = 95,
+  r = 1%, sigma = 20%, T = 1, 1,048,576 Philox paths x 100 steps,
+  all-paths degree 4, the closed-form frame) through
+  ``lsmc_book_megakernel``; the hash covers the prices, stderrs and the
+  cf/tau planes of one run with ``return_cf_tau``, the timing runs without.
+- ``ma-step`` (kernel 8): one backward step (t = 5) of the 5-asset
+  Bermudan max-call (1,048,576 paths, 9 dates, S0 = K = 100, r = 5%,
+  q = 10%, sigma = 20%, T = 3, sorted degree-2 basis: m = 21, P = 252)
+  through ``ma_step_moments``, all-paths and ITM-weighted; the hash covers
+  both packed moment vectors. It also prints the wrapper's host time per
+  call (enqueue, no sync) and the CUDA-event time minus the device time.
+
+Each prints one JSON line: the median ms per call by CUDA events, the
+device microseconds per call of each kernel by name (``torch.profiler``)
+and a SHA-256 of the result bits, so two checkouts run one after the other
+on the same card can be compared phase by phase and bit for bit. It uses
+only entry points that every version of the port since the route's kernel
+landed has had.
 """
 
 from __future__ import annotations
@@ -20,24 +36,13 @@ import argparse
 import hashlib
 import json
 import statistics
+import time
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--label", default="")
-    args = ap.parse_args(argv)
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_profile: needs a CUDA card")
-    import amcx_torch
+def _put(torch, amcx_torch, dev):
     from amcx_torch.ops.gbm import gbm_paths
     from amcx_torch.ops.lsmc_megakernel import lsmc_price_megakernel
 
-    dev = torch.device("cuda", 0)
     n_paths, n_steps, S0, r, sigma, K, T = 1_048_576, 100, 100.0, 0.01, 0.2, 100.0, 1.0
     paths = gbm_paths(20261016, S0, r, sigma, 0.0, T, n_steps, n_paths, device=dev)
     mean_t, inv_std_t = amcx_torch.gbm_standardization(amcx_torch.MarketParams(S0, r, sigma), T,
@@ -48,9 +53,71 @@ def main(argv=None):
         return lsmc_price_megakernel(paths, K, r, T / n_steps, -1.0, return_coeffs=True, **kw)
 
     res = run()
+    return run, (res.price, res.stderr, res.coeffs), {"price": res.price}
+
+
+def _book(torch, amcx_torch, dev):
+    from amcx_torch.ops.gbm import gbm_paths
+    from amcx_torch.ops.lsmc_megakernel import lsmc_book_megakernel
+
+    n_paths, n_steps, S0, r, sigma, T = 1_048_576, 100, 95.0, 0.01, 0.2, 1.0
+    paths = gbm_paths(20261017, S0, r, sigma, 0.0, T, n_steps, n_paths, device=dev)
+    mean_t, inv_std_t = amcx_torch.gbm_standardization(amcx_torch.MarketParams(S0, r, sigma), T,
+                                                       n_steps, device=dev)
+    ladder = torch.linspace(80.0, 120.0, 16)
+    kw = dict(mean_t=mean_t, inv_std_t=inv_std_t)
+
+    def run(**extra):
+        return lsmc_book_megakernel(paths, ladder, r, T / n_steps, -1.0, **kw, **extra)
+
+    res = run(return_cf_tau=True)
+    return run, tuple(res), {"price": res[0][8]}
+
+
+def _ma_step(torch, amcx_torch, dev):
+    from amcx_torch.ops import maxcall_pallas as ma
+
+    n_paths, n_dates, S0, K, r, q, sigma, T, t = 1_048_576, 9, 100.0, 100.0, 0.05, 0.1, 0.2, \
+        3.0, 5
+    sim = amcx_torch.SimConfig(n_paths=n_paths, n_steps=n_dates)
+    paths = amcx_torch.simulate_gbm_multi(20261018, [S0] * 5, r, sigma, T, sim, q=q, device=dev)
+    planes, stats = ma.ma_inputs(paths, r, T / n_dates, sorted_basis=True, exercise_from_step=1)
+    del paths
+    rdt = float(torch.tensor(r) * torch.tensor(T / n_dates))
+    cf = ma._payoff_for(list(planes[n_dates]), K, "maxcall")
+    tau = torch.full((n_paths,), float(n_dates), device=dev)
+    kw = dict(rdt=rdt, K=K, basis="chebyshev", degree=2, mode="total", sorted_basis=True)
+    step = planes[t]
+
+    def run(itm=False):
+        return ma.ma_step_moments(stats, t, step, cf, tau, itm_weights=itm, **kw)
+
+    outs = (run(), run(itm=True))
+    return run, outs, {"price": outs[0][0]}
+
+
+ROUTES = {"put": _put, "book": _book, "ma-step": _ma_step}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--route", choices=sorted(ROUTES), default="put")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_profile: needs a CUDA card")
+    import amcx_torch
+
+    dev = torch.device("cuda", 0)
+    run, outs, extra = ROUTES[args.route](torch, amcx_torch, dev)
     torch.cuda.synchronize()
     digest = hashlib.sha256()
-    for x in (res.price, res.stderr, res.coeffs):
+    for x in outs:
         digest.update(x.detach().cpu().contiguous().numpy().tobytes())
     for _ in range(3):
         run()
@@ -62,6 +129,12 @@ def main(argv=None):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.reps):
+        run()
+    host_us = (time.perf_counter() - t0) / args.reps * 1e6
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.reps):
             run()
@@ -72,12 +145,18 @@ def main(argv=None):
             name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
             name = name.split("(")[0][:60]
             per_name[name] = per_name.get(name, 0.0) + e.time_range.end - e.time_range.start
-    print(json.dumps({
+    line = {
         "label": args.label, "device": torch.cuda.get_device_name(0),
-        "price": float(res.price), "bits_sha256": digest.hexdigest(),
+        "price": float(extra["price"]), "bits_sha256": digest.hexdigest(),
         "ms_median": statistics.median(times), "ms_min": min(times),
         "device_us_per_induction": {k: v / args.reps for k, v in
-                                    sorted(per_name.items(), key=lambda kv: -kv[1])}}))
+                                    sorted(per_name.items(), key=lambda kv: -kv[1])}}
+    if args.route != "put":
+        device_us = sum(per_name.values()) / args.reps
+        line.update(route=args.route, device_us_per_call=device_us,
+                    host_enqueue_us_per_call=host_us,
+                    wall_minus_device_us=statistics.median(times) * 1e3 - device_us)
+    print(json.dumps(line))
 
 
 if __name__ == "__main__":

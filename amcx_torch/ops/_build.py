@@ -30,7 +30,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "libraries", "function", "check", "build_info"]
+__all__ = ["NVCC_FLAGS", "libraries", "function", "check", "build_info", "sm_count"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -108,6 +108,15 @@ def function(name: str, argtypes):
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device: the persistent grids
+    (kernels 3 and 8) size their blocks by it."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(rc: int, name: str) -> None:

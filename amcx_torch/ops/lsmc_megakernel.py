@@ -43,7 +43,6 @@ MAX_DEGREE = 10
 _THREADS = 256  # csrc/lsmc_mega.cu kThreads
 _MAX_BLOCKS = 1024
 BOOK_MAX_STRIKES = 64  # csrc/lsmc_book.cu kMaxStrikes
-_BOOK_MAX_BLOCKS = 512  # the solve kernel sums n_blocks x P partials on one block
 
 
 class MegaOutputs(NamedTuple):
@@ -447,7 +446,7 @@ def _book_cuda(paths, knock, stats, cfg, cf_tau):
     n_steps, n_paths = paths.shape[0] - 1, paths.shape[1]
     n_s, k = len(cfg["strikes"]), cfg["degree"] + 1
     dev = paths.device
-    n_blocks = max(1, min(_BOOK_MAX_BLOCKS, -(-n_paths // _THREADS)))
+    n_blocks = book_blocks(n_paths, _build.sm_count(dev))
     V = torch.empty((n_s, n_paths), dtype=torch.float32, device=dev)
     cf = tau = None
     if cf_tau:
@@ -456,18 +455,31 @@ def _book_cuda(paths, knock, stats, cfg, cf_tau):
     partials = torch.empty(n_blocks * max(P, 2 * n_s), dtype=torch.float64, device=dev)
     coeffs = torch.empty(n_s * k, dtype=torch.float32, device=dev)
     sums = torch.empty((n_s, 2), dtype=torch.float32, device=dev)
-    Vp, I = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("amcx_lsmc_book", [Vp] * 9 + [I, I, I, I, ctypes.POINTER(BookParams),
-                                                       Vp])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(paths.data_ptr(), None if knock is None else knock.data_ptr(), stats.data_ptr(),
-            V.data_ptr(), None if cf is None else cf.data_ptr(),
-            None if tau is None else tau.data_ptr(), partials.data_ptr(), coeffs.data_ptr(),
-            sums.data_ptr(), n_steps, n_paths, n_blocks, cfg["degree"],
-            ctypes.byref(cfg["params"]), stream)
+    rc = _book_fn()(paths.data_ptr(), None if knock is None else knock.data_ptr(),
+                    stats.data_ptr(), V.data_ptr(), None if cf is None else cf.data_ptr(),
+                    None if tau is None else tau.data_ptr(), partials.data_ptr(),
+                    coeffs.data_ptr(), sums.data_ptr(), n_steps, n_paths, n_blocks,
+                    cfg["degree"], ctypes.byref(cfg["params"]), stream)
     lsmc_book_megakernel.launches += 1
     _build.check(rc, "amcx_lsmc_book")
     return sums[:, 0], sums[:, 1], cf, tau
+
+
+def book_blocks(n_paths: int, n_sm: int) -> int:
+    """Blocks (partial rows) of kernel 3's persistent grid: two per SM (a
+    block is at most 320 threads), fewer when the paths fill fewer 256-path
+    chunk pairs; the one-block solve sums this many rows per step."""
+    return max(1, min(2 * n_sm, -(-n_paths // _THREADS)))
+
+
+@functools.lru_cache(maxsize=None)
+def _book_fn():
+    from . import _build
+
+    Vp, I = ctypes.c_void_p, ctypes.c_int
+    return _build.function("amcx_lsmc_book", [Vp] * 9 + [I, I, I, I, ctypes.POINTER(BookParams),
+                                                         Vp])
 
 
 def lsmc_book_megakernel(

@@ -52,6 +52,7 @@ MAX_COLS = 32
 MAX_DEGREE = 4
 _THREADS = 256
 _MAX_BLOCKS = 1024
+_MAX_TASK_WARPS = 21  # csrc/ma_step.cu kMaxTaskWarps
 
 PAYOFF_KINDS = {"maxcall": 0, "first": 1, "second": 2, "spread": 3, "spreadk": 4,
                 "basket": 5, "geobasket": 6}
@@ -327,20 +328,46 @@ def ma_step_moments(stats, t: int, planes, cf, tau, *, rdt: float, K: float, phi
     n_assets = planes.shape[0]
     params = ma_params(n_assets, basis, degree, mode, sorted_basis, payoff_kind, float(K),
                        float(phi), _tuple(weights))
-    n_steps, n_paths, n_blocks = _check_cuda(stats, t, planes, (cf, tau), n_assets)
+    n_steps, n_paths, _ = _check_cuda(stats, t, planes, (cf, tau), n_assets)
     P = ma_pack_dim(params.n_cols)
-    partials = torch.empty(n_blocks * P, dtype=torch.float64, device=stats.device)
-    packed = torch.empty(P, dtype=torch.float32, device=stats.device)
-    V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _build.function("amcx_ma_step_moments",
-                         [V, V, V, V, V, V, I, I, I, I, F, I, I, ctypes.POINTER(MaParams), V])
-    stream = torch.cuda.current_stream(stats.device).cuda_stream
-    rc = fn(planes.data_ptr(), cf.data_ptr(), tau.data_ptr(), stats.data_ptr(),
-            partials.data_ptr(), packed.data_ptr(), t, n_steps, n_paths, n_blocks, rdt,
-            int(itm_weights), int(direct_y), ctypes.byref(params), stream)
+    n_blocks = ma_moments_blocks(n_paths, params.n_cols, _build.sm_count(stats.device))
+    # one allocation: the (n_blocks, P) f64 partial rows, then the (P,) f32
+    # result in the tail
+    scratch = torch.empty(n_blocks * P + (P + 1) // 2, dtype=torch.float64,
+                          device=stats.device)
+    packed = scratch[n_blocks * P:].view(torch.float32)[:P]
+    rc = _moments_fn()(planes.data_ptr(), cf.data_ptr(), tau.data_ptr(), stats.data_ptr(),
+                       scratch.data_ptr(), packed.data_ptr(), t, n_steps, n_paths, n_blocks, rdt,
+                       int(itm_weights), int(direct_y), ctypes.byref(params),
+                       torch.cuda.current_stream(stats.device).cuda_stream)
     ma_step_moments.launches += 1
     _build.check(rc, "amcx_ma_step_moments")
     return packed
+
+
+def _moments_warps(m: int) -> int:
+    """Warps of a kernel-8 block for m columns: one per 4 x 4 block of the
+    rows c_0..c_{m-1} against the columns c_0..c_{m-1}, y w (upper blocks),
+    at most 21 (``moments_plan`` of ``csrc/ma_step.cu``)."""
+    n_rb, n_cb = (m + 3) // 4, (m + 4) // 4
+    return min(_MAX_TASK_WARPS, sum(min(J + 1, n_rb) for J in range(n_cb)))
+
+
+def ma_moments_blocks(n_paths: int, m: int, n_sm: int) -> int:
+    """Blocks (partial rows) of kernel 8's persistent grid: as many per SM as
+    fill 24 warps (one block of 21 warps at m = 21, in ~179 KB of shared
+    memory), fewer when the paths fill fewer tiles (32 paths a warp)."""
+    warps = _moments_warps(m)
+    return max(1, min(n_sm * max(1, 24 // warps), -(-n_paths // (32 * warps))))
+
+
+@functools.lru_cache(maxsize=None)
+def _moments_fn():
+    from . import _build
+
+    V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.function("amcx_ma_step_moments",
+                           [V, V, V, V, V, V, I, I, I, I, F, I, I, ctypes.POINTER(MaParams), V])
 
 
 ma_step_moments.launches = 0

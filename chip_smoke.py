@@ -56,7 +56,10 @@ width:
 It times the pricings, each kernel, each plain version and, where one
 PyTorch call computes the same function, that call, with CUDA events, and
 computes each kernel's bound: the larger of the bytes it must move over the
-card's memory rate and its arithmetic over the card's peak rates. Any
+card's memory rate and its arithmetic over the card's peak rates. For
+kernels 8 and 3 (phases 8, 11, 12) it also prints the device time by
+kernel (``torch.profiler``) beside their design floors: the bytes they
+must move and their f32 -> f64 conversions at 16 a clock a SM. Any
 failed phase raises (non-zero exit). Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 
@@ -101,6 +104,10 @@ QMC_CRR_TOL, QMC_BS_TOL = 0.02, 0.005
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
+# f32 <-> f64 conversions: 16 a clock a SM (CUDA C++ Programming Guide,
+# arithmetic throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz
+# boost clock; kernels 3 and 8 convert every f32 product before its f64 add
+F64_CONVERSIONS_PER_S = 16 * 132 * 1.98e9
 
 
 def _bound(n_bytes, f32_ops=0.0, f64_ops=0.0):
@@ -842,12 +849,20 @@ def main():
     del cols5
     ms_ma_moments_lib = _time_ms(torch, lambda: torch.mm(design5.T, design5), 50, 5)
     del design5, cf_k, tau_k, cf_p, tau_p
+    prof8 = _profile(torch, lambda: ma_step_moments(stats5, t_ma, planes5[t_ma], cf5, tau5,
+                                                    rdt=mc_rdt, **makw), 20)
+    # the design's floors: the 28 MB it reads, and one f32 -> f64 conversion
+    # of each of the 252 products a path
+    floor8 = {"bytes_us": 7 * N_PATHS * 4 / HBM_BYTES_PER_S * 1e6,
+              "conversions_us": N_PATHS * packed5.shape[0] / F64_CONVERSIONS_PER_S * 1e6}
     print(f"phase 8 one step t={t_ma} of the 5-asset max-call at {N_PATHS} paths (m = {m5}, "
           f"P = 252): moments kernel vs plain max|d| {ma_moments_err:.3e}, apply kernel vs plain "
           f"max|d| {ma_apply_err:.3e} ({n_ex5} paths exercised) | moments kernel "
           f"{ms_ma_moments:.4f} ms plain {ms_ma_moments_plain:.4f} ms library A^T A "
           f"{ms_ma_moments_lib:.4f} ms | apply kernel {ms_ma_apply:.4f} ms plain "
           f"{ms_ma_apply_plain:.4f} ms", flush=True)
+    print(f"phase 8 kernel 8 device time per call: {prof8 or 'no device activity recorded'} | "
+          f"design floors (us): {floor8}", flush=True)
 
     before = (ma_step_moments.launches, ma_step_apply.launches)
     ker = backward_induction_fused_maxcall(paths5, STRIKE, MC_R, mc_dt, mc_spec)
@@ -1027,6 +1042,10 @@ def main():
         _require(same_ref, f"book {case}: kernel equal to its plain version {diffs}")
         _require(same_rerun, f"book {case}: two kernel runs bit-identical")
         book_err = max(book_err, *diffs)
+        prof11 = _profile(torch, lambda: lsmc_book_megakernel(*args, **kw), 1)
+        print(f"phase 11 book kernel {case}: device us per step by kernel "
+              f"{prof11 and {k: v / N_STEPS for k, v in prof11['top_us_per_call'].items()}}",
+              flush=True)
         del ker, again, ref
     del anti_paths
 
@@ -1105,6 +1124,16 @@ def main():
           f"ms | kernel 2 for one strike {ms_single:.3f} ms", flush=True)
     prof = _profile(torch, lambda: book_pricing(), 3)
     print(f"phase 12 profile book pricing: {prof or 'no device activity recorded'}", flush=True)
+    prof3 = _profile(torch, lambda: lsmc_book_megakernel(paths12, ladder, R, dt, -1.0, **frame),
+                     3)
+    per_step = prof3 and {name: us / N_STEPS for name, us in prof3["top_us_per_call"].items()}
+    # the design's floors per step: the 16 V planes and S_t read once
+    # (68 MB), and one f32 -> f64 conversion of each of the P_book products
+    floor3 = {"v_bytes_us": (BOOK_N + 1) * N_PATHS * 4 / HBM_BYTES_PER_S * 1e6,
+              "conversions_us": N_PATHS * (15 + 5 * BOOK_N) / F64_CONVERSIONS_PER_S * 1e6}
+    print(f"phase 12 kernel 3 device time per step by kernel (us): "
+          f"{per_step or 'no device activity recorded'} | design floors per step (us): {floor3}",
+          flush=True)
     del paths12, book_paths, book
 
     # ---- phase 13: kernel 6 (zero-path-memory induction) vs its plain ---

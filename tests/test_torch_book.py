@@ -366,3 +366,11 @@ def test_book_rejects_what_it_does_not_take(paths):
         tmega.lsmc_book_megakernel(P, np.linspace(80.0, 120.0, 65), R, DT, -1.0)
     with pytest.raises(ValueError, match="even"):
         tmega.lsmc_book_megakernel(P[:, :-1], [100.0], R, DT, -1.0, antithetic=True)
+
+
+def test_book_grid_sizing():
+    # kernel 3's persistent grid: two blocks a SM, fewer for few paths; the
+    # one-block solve sums one partial row per block
+    assert tmega.book_blocks(1 << 20, 132) == 264
+    assert tmega.book_blocks(1_001, 132) == 4
+    assert tmega.book_blocks(1, 132) == 1

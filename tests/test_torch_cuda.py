@@ -252,6 +252,44 @@ def test_ma_step_kernels_match_plain(cuda_device, n, itm):
             assert torch.equal(a, b)
 
 
+# kernel 8's register-blocked layout at the shapes that exercise its edges:
+# m = 21 (one task group), m = 25 and 28 (padded edge blocks, two task
+# groups over gridDim.y), m = 29 (the largest m any basis reaches under
+# MAX_COLS = 32), at a path count below one tile and at a ragged one
+MA_MOMENTS_CASES = {
+    # (n_assets, degree, mode, itm_weights, direct_y)
+    "5-assets-m21-itm": (5, 2, "total", True, False),
+    "6-assets-m28-direct-y": (6, 2, "total", False, True),
+    "7-assets-m29-itm-direct-y": (7, 4, "separable", True, True),
+    "8-assets-m25-all": (8, 3, "separable", False, False),
+}
+
+
+@pytest.mark.parametrize("n", [100, 131_071])
+@pytest.mark.parametrize("case", sorted(MA_MOMENTS_CASES))
+def test_ma_step_moments_shapes_match_plain(cuda_device, case, n):
+    # f32 products summed in f64 and rounded once, in any fixed order:
+    # identical bits to the plain version, and a rerun identical
+    n_assets, degree, mode, itm, direct_y = MA_MOMENTS_CASES[case]
+    paths = _basket_paths(cuda_device, n, n_assets, 31)
+    mean_t, inv_std_t = tma.maxcall_standardization(paths, "sorted")
+    stats = tma.ma_stats(mean_t, inv_std_t, MC["r"], 1.0 / 3.0, torch.ones(10, device=cuda_device))
+    planes = paths.permute(0, 2, 1).contiguous()
+    cf = tma._payoff_for(list(planes[9]), 100.0, "maxcall")
+    tau = torch.full((n,), 9.0, device=cuda_device)
+    kw = dict(rdt=RDT_MC, K=100.0, basis="chebyshev", degree=degree, mode=mode,
+              sorted_basis=True, itm_weights=itm, direct_y=direct_y)
+    before = tma.ma_step_moments.launches
+    packed = tma.ma_step_moments(stats, 4, planes[4], cf, tau, **kw)
+    again = tma.ma_step_moments(stats, 4, planes[4], cf, tau, **kw)
+    ref = tma.ma_step_moments_reference(stats, 4, planes[4], cf, tau, **kw)
+    torch.cuda.synchronize()
+    m = tma.ma_params(n_assets, "chebyshev", degree, mode, True, "maxcall", 100.0, 1.0).n_cols
+    assert tma.ma_step_moments.launches == before + 2
+    assert packed.shape == (tma.ma_pack_dim(m),) and bool(torch.isfinite(packed).all())
+    assert torch.equal(packed, ref) and torch.equal(packed, again)
+
+
 MA_MEGA_CARD_CASES = {
     # (n_assets, payoff_kind, keywords)
     "maxcall-cf-tau": (5, "maxcall", dict(sorted_basis=True, return_cf_tau=True)),
@@ -330,6 +368,44 @@ def test_book_kernel_matches_plain(cuda_device, case):
     # identical prices, stderrs and cf/tau planes, and a rerun identical
     strikes, phi, kw, antithetic = BOOK_CARD_CASES[case]
     paths = _book_paths(cuda_device, 131_072, 9, antithetic)
+    mean_t, inv_std_t = at.gbm_standardization(BOOK_MARKET, 1.0, 100, device=cuda_device)
+    args = (paths, strikes, 0.01, 0.01, phi)
+    kw = dict(kw, mean_t=mean_t, inv_std_t=inv_std_t)
+    before = tmega.lsmc_book_megakernel.launches
+    ker = tmega.lsmc_book_megakernel(*args, **kw)
+    again = tmega.lsmc_book_megakernel(*args, **kw)
+    ref = tmega.lsmc_book_mega_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert tmega.lsmc_book_megakernel.launches == before + 2
+    assert bool(torch.isfinite(ker[0]).all()) and bool((ker[1] > 0).all())
+    for out in (again, ref):
+        for a, b in zip(ker, out):
+            assert torch.equal(a, b)
+
+
+# kernel 3's one-pass step at the shapes that exercise its edges: degree 10 x
+# 64 strikes (2 options a role, 4 Gram roles, 36 roles in 5 groups), odd
+# path counts (scalar loads and stores, a ragged last chunk), and a
+# European book whose short maturities run the apply-only pass
+BOOK_SHAPE_CASES = {
+    # (n_paths, strikes, phi, keywords)
+    "degree10-64-strikes": (65_536, torch.linspace(70.0, 130.0, 64), -1.0,
+                            dict(degree=10, return_cf_tau=True)),
+    "odd-paths-down-in-cf-tau": (131_071, torch.linspace(80.0, 120.0, 16), -1.0,
+                                 dict(barrier=80.0, return_cf_tau=True)),
+    "odd-paths-put-call-mixed": (1_001, torch.linspace(85.0, 115.0, 6),
+                                 torch.tensor([-1.0, 1.0] * 3),
+                                 dict(maturity_steps=(10, 100, 40, 100, 70, 100))),
+    "european-short-maturities": (131_072, torch.linspace(115.0, 85.0, 5), -1.0,
+                                  dict(american=False, maturity_steps=(1, 2, 10, 50, 100),
+                                       return_cf_tau=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOOK_SHAPE_CASES))
+def test_book_kernel_shapes_match_plain(cuda_device, case):
+    n, strikes, phi, kw = BOOK_SHAPE_CASES[case]
+    paths = _book_paths(cuda_device, n, 13, False)
     mean_t, inv_std_t = at.gbm_standardization(BOOK_MARKET, 1.0, 100, device=cuda_device)
     args = (paths, strikes, 0.01, 0.01, phi)
     kw = dict(kw, mean_t=mean_t, inv_std_t=inv_std_t)

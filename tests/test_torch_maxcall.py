@@ -485,3 +485,17 @@ def test_unported_ma_mega_options_raise(paths2):
         tmamega.lsmc_price_ma_mega(S, K, R, DT, payoff_kind="rainbow")
     with pytest.raises(ValueError, match="two planes"):
         tma.ma_params(1, "chebyshev", 2, "total", False, "spread", K, 1.0)
+
+
+@pytest.mark.parametrize("m", [1, 6, 21, 25, 29, 32])
+def test_ma_moments_grid_sizing(m):
+    # kernel 8's warps: one per 4 x 4 block of the rows c_0..c_{m-1} against
+    # the columns c_0..c_{m-1}, y w that holds a packed sum (a Gram pair
+    # i <= j or a rhs entry at column m), at most 21; its persistent grid
+    # fills 24 warps a SM and never exceeds the path tiles
+    blocks = {(i // 4, j // 4) for i in range(m) for j in range(i, m + 1)}
+    warps = min(21, len(blocks))
+    assert tma._moments_warps(m) == warps
+    assert tma.ma_moments_blocks(1 << 20, m, 132) == 132 * max(1, 24 // warps)
+    assert tma.ma_moments_blocks(100, m, 132) == -(-100 // (32 * warps))
+    assert tma.ma_moments_blocks(1, m, 132) == 1
