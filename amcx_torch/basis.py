@@ -38,14 +38,21 @@ def _rec_chebyshev(x, prev, prev2, n):
     return 2.0 * x * prev - prev2
 
 
+def _divided(num, n):
+    # by a 0-d tensor on num's device: torch's CUDA division by a Python
+    # scalar multiplies by its rounded reciprocal, which differs from the
+    # division (amcx's, the CPU's and the kernels') in ~1/3 of the values
+    return num / torch.full((), n, dtype=num.dtype, device=num.device)
+
+
 def _rec_legendre(x, prev, prev2, n):
     # n P_n = (2n-1) x P_{n-1} - (n-1) P_{n-2}
-    return ((2.0 * n - 1.0) * x * prev - (n - 1.0) * prev2) / n
+    return _divided((2.0 * n - 1.0) * x * prev - (n - 1.0) * prev2, n)
 
 
 def _rec_laguerre(x, prev, prev2, n):
     # n L_n = (2n-1-x) L_{n-1} - (n-1) L_{n-2}
-    return ((2.0 * n - 1.0 - x) * prev - (n - 1.0) * prev2) / n
+    return _divided((2.0 * n - 1.0 - x) * prev - (n - 1.0) * prev2, n)
 
 
 def _rec_hermite(x, prev, prev2, n):

@@ -48,8 +48,9 @@
 // dependency, so a C host loop drives maturity + n_steps x (moments, one-
 // block solve, apply) + 2 launches on one stream with no syncs, as
 // lsmc_mega.cu does. The design, and what the first one (PR 4) lacked:
-// - Moments with every thread busy and no shared tile (book_moments_kernel;
-//   PR 4 gave each of the 95 moments one of 256 threads and read two shared
+// - Moments with every thread busy and no shared tile (roles_moments_kernel
+//   of lsmc_roles.cuh, shared with the swing's kernel 10; the first design
+//   gave each of the 95 moments one of 256 threads and read two shared
 //   values a product). A warp is one role over 128-path chunks, 4
 //   consecutive paths a lane: a Gram role recomputes the basis from S_t and
 //   sums the 15 pairs; an option role sums the 4 x k rhs block of its 4
@@ -57,9 +58,9 @@
 //   arguments, so only real products are emitted. Products equal the plain
 //   version's: B_a B_b (a <= b) and B_a (c_t V_s).
 // - Each warp streams its chunks through a two-stage ring in shared memory
-//   (cp.async, 16 bytes a lane and row where n_paths % 4 == 0, zero-filled
-//   past the end): chunk c + stride's S_t and V rows are in flight while
-//   chunk c is summed.
+//   (cp.async, 16 bytes a lane and row where every row is 16-byte aligned,
+//   masked past the end): chunk c + stride's S_t and V rows are in flight
+//   while chunk c is summed.
 // - A persistent grid of 2 blocks a SM (the wrapper's n_blocks; more than 8
 //   roles split over gridDim.y), so the one-block solve sums ~264 partial
 //   rows, not 512, with 1024 threads (one sum a warp instead of 12).
@@ -79,9 +80,8 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <utility>
 
-#include "lsmc_common.cuh"
+#include "lsmc_roles.cuh"
 
 namespace amcx {
 
@@ -126,261 +126,6 @@ book_maturity_kernel(const float* __restrict__ S, const uint8_t* __restrict__ kn
         tau[at] = static_cast<float>(p.mats[j]);
       }
     }
-  }
-}
-
-// The roles of the moments at degree K - 1: a Gram role sums pairs B_a B_b
-// (all pairs when K <= 7, else kGramRows rows of them); an option role sums
-// B_a (c_t V_s) for kOpr options. A warp is one role over chunks of 128
-// paths (4 consecutive paths a lane); a block holds up to kRolesMax roles x
-// wpr warps of each (the same chunks), gridDim.y splits the roles into
-// groups.
-template <int K>
-struct BookPlan {
-  static constexpr int kPairs = Layout<K>::kPairs;
-  static constexpr int kOpr = K <= 7 ? 4 : 2;            // options per role
-  static constexpr int kGramRows = K <= 7 ? K : 3;       // Gram rows per role
-  static constexpr int kGramRoles = (K + kGramRows - 1) / kGramRows;
-  static constexpr int kGramAcc = K <= 7 ? kPairs : kGramRows * K;
-  static constexpr int kAcc = kOpr * K > kGramAcc ? kOpr * K : kGramAcc;
-  int n_roles, roles_per_block, wpr, n_groups;
-  __host__ __device__ explicit BookPlan(int n_strikes) {
-    n_roles = kGramRoles + (n_strikes + kOpr - 1) / kOpr;
-    roles_per_block = n_roles < kRolesMax ? n_roles : kRolesMax;
-    wpr = kBookWarps / roles_per_block;
-    n_groups = (n_roles + roles_per_block - 1) / roles_per_block;
-  }
-  __host__ __device__ int threads() const { return 32 * roles_per_block * wpr; }
-  static constexpr int kRolesMax = 8;
-  static constexpr int kBookWarps = 10;  // at most 10 warps (320 threads) a block
-};
-
-constexpr int kChunk = 128;  // paths per warp and chunk (4 a lane)
-constexpr int kSolveThreads = 1024;  // the one-block solve: ~3 sums a warp at P = 95
-
-// Row and column of packed Gram pair q (the inverse of pair_index).
-__host__ __device__ constexpr int pair_row(int K, int q) {
-  int a = 0;
-  while (q >= K - a) {
-    q -= K - a;
-    ++a;
-  }
-  return a;
-}
-__host__ __device__ constexpr int pair_col(int K, int q) {
-  const int a = pair_row(K, q);
-  return q - pair_index(K, a, a) + a;
-}
-
-// The products of one path, one per slot E (a template argument, so the
-// loops vanish at compile time): the Gram pairs B_a B_b (K <= 7: every
-// pair; above, kGramRows rows from row a0), or an option role's B_a y_o
-// into slot o K + a. Each is rounded to f32 and added in f64.
-template <int K, int kAcc, int... E>
-__device__ __forceinline__ void gram_products(const float (&B)[K], int a0, double (&acc)[kAcc],
-                                              std::integer_sequence<int, E...>) {
-  if constexpr (K <= 7) {
-    ((acc[E] += static_cast<double>(B[pair_row(K, E)] * B[pair_col(K, E)])), ...);
-  } else {
-    constexpr int kRows = BookPlan<K>::kGramRows;
-    float Ba[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      Ba[r] = B[0];
-#pragma unroll
-      for (int a = 1; a < K; ++a) Ba[r] = a == a0 + r ? B[a] : Ba[r];
-    }
-    ((E % K >= a0 + E / K ? void(acc[E] += static_cast<double>(Ba[E / K] * B[E % K]))
-                          : void()),
-     ...);
-  }
-}
-
-template <int K, int kOpr, int kAcc, int... E>
-__device__ __forceinline__ void rhs_products(const float (&B)[K], const float (&y)[kOpr],
-                                             double (&acc)[kAcc],
-                                             std::integer_sequence<int, E...>) {
-  ((acc[E] += static_cast<double>(B[E % K] * y[E / K])), ...);
-}
-
-// Asynchronous copies into shared memory (cp.async): 16 bytes (the row's
-// 4 paths of a lane, 16-byte aligned) or 4; a copy that is not valid
-// writes zeros and reads nothing.
-__device__ __forceinline__ void copy16_async(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void copy4_async(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void copies_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// wait until at most one group (the chunk ahead) is still in flight
-__device__ __forceinline__ void copies_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// A warp's two-stage ring of chunks in shared memory: per stage the rows
-// S_t and the role's kOpr V rows, 128 paths each (a lane's 4 paths at 4
-// lane).
-template <int K>
-__host__ __device__ constexpr int ring_rows() {
-  return 1 + BookPlan<K>::kOpr;
-}
-template <int K>
-__host__ __device__ constexpr size_t ring_bytes_per_warp() {
-  return 2 * ring_rows<K>() * kChunk * sizeof(float);
-}
-
-template <int K>
-__global__ void __launch_bounds__(320, 2)
-book_moments_kernel(const float* __restrict__ S, const float* __restrict__ V,
-                    const float* __restrict__ stats, double* __restrict__ partials, int t,
-                    int n_steps, int n_paths, const __grid_constant__ BookParams p) {
-  using Plan = BookPlan<K>;
-  constexpr int kOpr = Plan::kOpr;
-  constexpr int kAcc = Plan::kAcc;
-  constexpr int kRows = ring_rows<K>();
-  __shared__ double red[Plan::kBookWarps][kAcc];
-  extern __shared__ __align__(16) float ring_all[];  // ring_bytes_per_warp<K>() a warp
-  const Plan plan(p.n_strikes);
-  const int ns = p.n_strikes;
-  const int T1 = n_steps + 1;
-  const size_t row_n = static_cast<size_t>(n_paths);
-  const bool vec = (n_paths & 3) == 0;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int local = warp % plan.roles_per_block;
-  const int sub = warp / plan.roles_per_block;
-  const int role = blockIdx.y * plan.roles_per_block + local;
-  const bool gram = role < Plan::kGramRoles;
-  const int opt0 = (role - Plan::kGramRoles) * kOpr;
-  const bool active = role < plan.n_roles;
-  const float mean = stats[t];
-  const float inv_std = stats[T1 + t];
-  const float c_t = stats[2 * T1 + t];
-
-  double acc[kAcc];
-#pragma unroll
-  for (int e = 0; e < kAcc; ++e) acc[e] = 0.0;
-
-  // each warp streams its chunks through its two-stage ring: the copies of
-  // chunk c + stride are in flight while chunk c is summed
-  const int stride = gridDim.x * plan.wpr;
-  const int n_chunks = (n_paths + kChunk - 1) / kChunk;
-  float* ring = ring_all + warp * 2 * kRows * kChunk;
-  auto issue = [&](int c, int st) {
-    if (c < n_chunks) {
-      const int i0 = c * kChunk + 4 * lane;
-      float* dst = ring + st * kRows * kChunk + 4 * lane;
-      auto row = [&](int r, const float* src) {
-        if (vec) {
-          copy16_async(dst + r * kChunk, i0 < n_paths ? src + i0 : src, i0 < n_paths);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool ok = i0 + e < n_paths;
-            copy4_async(dst + r * kChunk + e, ok ? src + i0 + e : src, ok);
-          }
-        }
-      };
-      row(0, S);
-      if (!gram) {
-#pragma unroll
-        for (int o = 0; o < kOpr; ++o) {
-          if (opt0 + o < ns) row(1 + o, V + (opt0 + o) * row_n);
-        }
-      }
-    }
-    copies_commit();  // an empty group past the last chunk keeps the count
-  };
-  int st = 0;
-  int c = blockIdx.x * plan.wpr + sub;
-  if (active) issue(c, 0);
-  for (; active && c < n_chunks; c += stride) {
-    issue(c + stride, st ^ 1);
-    copies_wait_all_but_one();  // this lane's copies of chunk c have landed
-    const float* here = ring + st * kRows * kChunk + 4 * lane;
-    st ^= 1;
-    const int n_here = min(4, n_paths - (c * kChunk + 4 * lane));
-    auto read4 = [&](int r, float (&x)[4]) {
-      const float4 q4 = *reinterpret_cast<const float4*>(here + r * kChunk);
-      x[0] = q4.x;
-      x[1] = q4.y;
-      x[2] = q4.z;
-      x[3] = q4.w;
-    };
-    float s[4];
-    read4(0, s);
-    if (gram) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (e >= n_here) break;
-        float B[K];
-        basis_cols<K>((s[e] - mean) * inv_std, p.basis, B);
-        gram_products<K>(B, role * Plan::kGramRows, acc,
-                         std::make_integer_sequence<int, Plan::kGramAcc>{});
-      }
-      continue;
-    }
-    float v[kOpr][4];
-#pragma unroll
-    for (int o = 0; o < kOpr; ++o) {
-      if (opt0 + o < ns) {
-        read4(1 + o, v[o]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[o][e] = 0.0f;
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (e >= n_here) break;
-      float B[K];
-      basis_cols<K>((s[e] - mean) * inv_std, p.basis, B);
-      float y[kOpr];
-#pragma unroll
-      for (int o = 0; o < kOpr; ++o) y[o] = c_t * v[o][e];
-      rhs_products<K, kOpr>(B, y, acc, std::make_integer_sequence<int, kOpr * K>{});
-    }
-  }
-  // fixed-order reduction: lanes by shuffles, then the wpr warps of a role
-#pragma unroll
-  for (int e = 0; e < kAcc; ++e) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc[e] += __shfl_down_sync(0xffffffffu, acc[e], off);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int e = 0; e < kAcc; ++e) red[warp][e] = acc[e];
-  }
-  __syncthreads();
-  const int P = Plan::kPairs + K * ns;
-  double* row = partials + static_cast<size_t>(blockIdx.x) * P;
-  for (int q = threadIdx.x; q < plan.roles_per_block * kAcc; q += blockDim.x) {
-    const int r_local = q / kAcc;
-    const int e = q % kAcc;
-    const int r = blockIdx.y * plan.roles_per_block + r_local;
-    if (r >= plan.n_roles) continue;
-    int dst = -1;
-    if (r < Plan::kGramRoles) {
-      if constexpr (K <= 7) {
-        if (e < Plan::kPairs) dst = e;
-      } else {
-        const int a = r * Plan::kGramRows + e / K;
-        const int b = e % K;
-        if (e < Plan::kGramAcc && a < K && b >= a) dst = pair_index(K, a, b);
-      }
-    } else if (e < kOpr * K) {
-      const int j = (r - Plan::kGramRoles) * kOpr + e / K;
-      if (j < ns) dst = Plan::kPairs + j * K + e % K;
-    }
-    if (dst < 0) continue;
-    double total = red[r_local][e];
-    for (int w = 1; w < plan.wpr; ++w) total += red[w * plan.roles_per_block + r_local][e];
-    row[dst] = total;
   }
 }
 
@@ -466,11 +211,12 @@ cudaError_t run_book(const float* paths, const uint8_t* knock, const float* stat
                      float* cf, float* tau, double* partials, float* coeffs, float* sums,
                      int n_steps, int n_paths, int n_blocks, const BookParams& p,
                      cudaStream_t stream) {
-  const BookPlan<K> plan(p.n_strikes);
+  const RolePlan<K> plan(p.n_strikes);
   const dim3 grid(n_blocks, plan.n_groups);
   const int threads = plan.threads();
   const size_t ring = ring_bytes_per_warp<K>() * (threads / 32);
-  cudaError_t err = allow_smem(book_moments_kernel<K>, ring);
+  const RoleArgs roles{p.n_strikes, p.basis, 0, rows_aligned16(n_paths, paths, V), 0.0f, 0.0f};
+  cudaError_t err = allow_smem(roles_moments_kernel<K, false>, ring);
   if (err != cudaSuccess) return err;
   const int apply_blocks = min((n_paths + kThreads - 1) / kThreads, 1024);
   bool short_dated = false;
@@ -485,8 +231,8 @@ cudaError_t run_book(const float* paths, const uint8_t* knock, const float* stat
     const uint8_t* knock_t = knock == nullptr ? nullptr : knock + static_cast<size_t>(t) * n_paths;
     // European: no exercise decision needs the regression
     if (p.american) {
-      book_moments_kernel<K><<<grid, threads, ring, stream>>>(S_t, V, stats, partials, t, n_steps,
-                                                              n_paths, p);
+      roles_moments_kernel<K, false><<<grid, threads, ring, stream>>>(S_t, V, stats, partials, t,
+                                                                      n_steps, n_paths, roles);
       AMCX_LAUNCH_CHECK();
       multi_rhs_solve_kernel<K, kMaxStrikes, kSolveThreads><<<1, kSolveThreads, 0, stream>>>(
           partials, n_blocks, p.n_strikes, p.rcond, coeffs);

@@ -1,11 +1,12 @@
 // Device helpers shared by the LSMC kernels (lsmc_mega.cu, lsmc_step.cu,
 // lsmc_book.cu, lsmc_swing.cu, and through ma_common.cuh ma_step.cu and
-// lsmc_ma_mega.cu): the packed moment layout, the basis recurrences, the
-// fixed-order f64 block and cross-block reductions that make the moments
-// independent of the grid (and the one-block kernel that sums the partial
-// rows), and the one-thread equilibrated ridge-Cholesky solve - a factor
-// step and a refined solve per right-hand side - with its one-block
-// kernels (one right-hand side, or one shared factor and many).
+// lsmc_ma_mega.cu): the packed moment layout, the basis recurrences, a
+// four-path row load, the fixed-order f64 block and cross-block reductions
+// that make the moments independent of the grid (and the one-block kernel
+// that sums the partial rows), and the one-thread equilibrated
+// ridge-Cholesky solve - a factor step and a refined solve per right-hand
+// side - with its one-block kernels (one right-hand side, or one shared
+// factor and many).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -100,6 +101,22 @@ __device__ __forceinline__ void block_reduce_store(double (&acc)[P], double* __r
   }
 }
 
+// Paths i0 .. i0 + 3 of a row into x: one 16-byte load where vec (the row
+// 16-byte aligned) and all four exist, else one load a path, 0 past n_here.
+__device__ __forceinline__ void load_row4(const float* __restrict__ row, int i0, int n_here,
+                                          bool vec, float (&x)[4]) {
+  if (vec && n_here == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(row + i0);
+    x[0] = q.x;
+    x[1] = q.y;
+    x[2] = q.z;
+    x[3] = q.w;
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) x[e] = e < n_here ? row[i0 + e] : 0.0f;
+}
+
 // Fixed-order sum of the (n_blocks, P) partial rows, rounded once to f32
 // into out[0..P): warp w of the grid's W warps owns sums p = w, w + W, ...;
 // lane l adds blocks l, l + 32, ... in order, then the lanes fold by
@@ -112,6 +129,24 @@ __device__ __forceinline__ void sum_partials(const double* __restrict__ partials
   for (int p = warp; p < P; p += gridDim.x * warps) {
     double v = 0.0;
     for (int b = lane; b < n_blocks; b += 32) v += partials[static_cast<size_t>(b) * P + p];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) out[p] = static_cast<float>(v);
+  }
+}
+
+// sum_partials' order on the warps of ONE block, for rows that blocks of
+// the running grid wrote (each fenced by __threadfence before taking a
+// ticket): read through L2 (ld.global.cg), never a stale L1 line.
+__device__ __forceinline__ void sum_partials_coherent(const double* partials, int n_blocks,
+                                                      int P, float* out) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  for (int p = threadIdx.x >> 5; p < P; p += warps) {
+    double v = 0.0;
+    for (int b = lane; b < n_blocks; b += 32) {
+      v += __ldcg(partials + static_cast<size_t>(b) * P + p);
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) out[p] = static_cast<float>(v);

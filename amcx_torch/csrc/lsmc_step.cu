@@ -26,15 +26,28 @@
 // mostly stay in the 50 MB L2 between the two passes. The per-step Gram is
 // a grid-wide dependency and the solve runs on the host's stream between
 // the passes, so launches and the solve's small torch ops bound the step,
-// not DRAM. Design: as csrc/lsmc_mega.cu (shared helpers in
-// lsmc_common.cuh) - grid-stride loops, P f64 sums in registers, a
-// fixed-order block reduction into per-block partial rows, then a one-block
-// fixed-order sum that writes the packed (P,) f32 vector; no float atomics,
-// so two runs give identical bits, and with -fmad=false the kernel and its
-// plain version (ops/lsmc_pallas.py) agree to the bit on the card. The
-// per-step scalars (mean_t, inv_std_t, use_w_t, allow_t) come from a device
-// array, so the host loop never reads a value back. The TPU's (rows, 512)
-// layout and its n_paths % 4096 rule are dropped.
+// not DRAM. Inside the moments the floor is the P = 20 f32 products a path,
+// each widened to f64 (16 a clock a SM: ~5 us at 1M paths).
+// Moments design (the first one took a 1024-block grid of one path a
+// thread and a second one-block launch for the 1024 partial rows, 21 us a
+// call):
+// one launch on a persistent grid (the wrapper's n_blocks, 2 a SM); a
+// thread takes 4 consecutive paths at a time with 16-byte loads of S_t, cf
+// and tau and a 4-byte load of the knocked bytes where those rows are so
+// aligned (one load a path otherwise; the tail past n_paths is masked); P
+// f64 sums in registers; a fixed-order block reduction (warp shuffles,
+// then warps in order) into a per-block partial row; then the block that
+// takes the last ticket (an integer counter, the rows fenced before it)
+// sums the rows in a fixed order into the packed (P,) f32 vector and the
+// counter wraps back to 0 for the next call. Loading the next group a loop
+// ahead measured no faster: the sums run at ~6 conversions a clock a SM,
+// as in the other moments kernels (PERF.md). No float atomics, so two runs
+// give identical bits, and with -fmad=false the kernel and its plain
+// version (ops/lsmc_pallas.py) agree to the bit on the card. The apply
+// keeps the first design (one thread a path, grid-stride). The per-step
+// scalars (mean_t, inv_std_t, use_w_t, allow_t) come from a device array,
+// so the host loop never reads a value back. The TPU's (rows, 512) layout
+// and its n_paths % 4096 rule are dropped.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -47,15 +60,19 @@ namespace {
 using namespace amcx;
 
 // stats: four (n_steps+1) f32 rows [mean_t, inv_std_t, use_w_t, allow_t].
+// scratch: the ticket (the first 8 bytes, 0 between calls), then the
+// gridDim.x partial rows of P f64.
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 step_moments_kernel(const float* __restrict__ S, const float* __restrict__ cf,
                     const float* __restrict__ tau, const uint8_t* __restrict__ knocked,
-                    const float* __restrict__ stats, double* __restrict__ partials, int t,
-                    int n_steps, int n_paths, float rdt, float strike, float phi, int basis,
-                    int itm_weights) {
+                    const float* __restrict__ stats, double* scratch, float* __restrict__ packed,
+                    int t, int n_steps, int n_paths, float rdt, float strike, float phi,
+                    int basis, int itm_weights, int vec) {
   constexpr int P = Layout<K>::kMoments;
   constexpr int kPairs = Layout<K>::kPairs;
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
+  double* partials = scratch + 1;
   const int T1 = n_steps + 1;
   const float mean = stats[t];
   const float inv_std = stats[T1 + t];
@@ -64,30 +81,60 @@ step_moments_kernel(const float* __restrict__ S, const float* __restrict__ cf,
   double acc[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) acc[p] = 0.0;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_paths; i += gridDim.x * kThreads) {
-    const float s = S[i];
-    const float y = cf[i] * expf(-rdt * (tau[i] - tf));
-    const float xhat = (s - mean) * inv_std;
-    // w is 0 or 1, so multiplying by it is exact: the all-paths fit (w = 1)
-    // rounds as the plain version's unweighted products
-    float w = 1.0f;
-    if (use_w) {
-      w = fmaxf(phi * (s - strike), 0.0f) > 0.0f ? 1.0f : 0.0f;
-      if (knocked != nullptr && knocked[i] == 0) w = 0.0f;
+  const int n_groups = (n_paths + 3) / 4;
+  for (int g = blockIdx.x * kThreads + threadIdx.x; g < n_groups; g += gridDim.x * kThreads) {
+    const int i0 = 4 * g;
+    const int n_here = min(4, n_paths - i0);
+    float s4[4], cf4[4], tau4[4];
+    load_row4(S, i0, n_here, vec, s4);
+    load_row4(cf, i0, n_here, vec, cf4);
+    load_row4(tau, i0, n_here, vec, tau4);
+    bool open[4] = {true, true, true, true};
+    if (use_w && knocked != nullptr) {
+      if (vec && n_here == 4) {
+        const uchar4 q = *reinterpret_cast<const uchar4*>(knocked + i0);
+        open[0] = q.x != 0;
+        open[1] = q.y != 0;
+        open[2] = q.z != 0;
+        open[3] = q.w != 0;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) open[e] = e >= n_here || knocked[i0 + e] != 0;
+      }
     }
-    float cols[K];
-    basis_cols<K>(xhat, basis, cols);
-    const float yw = y * w;
 #pragma unroll
-    for (int a = 0; a < K; ++a) {
-      const float ca = cols[a] * w;
+    for (int e = 0; e < 4; ++e) {
+      if (e >= n_here) break;
+      const float s = s4[e];
+      const float y = cf4[e] * expf(-rdt * (tau4[e] - tf));
+      const float xhat = (s - mean) * inv_std;
+      // w is 0 or 1, so multiplying by it is exact: the all-paths fit (w =
+      // 1) rounds as the plain version's unweighted products
+      float w = 1.0f;
+      if (use_w) w = fmaxf(phi * (s - strike), 0.0f) > 0.0f && open[e] ? 1.0f : 0.0f;
+      float cols[K];
+      basis_cols<K>(xhat, basis, cols);
+      const float yw = y * w;
 #pragma unroll
-      for (int b = a; b < K; ++b) acc[pair_index(K, a, b)] += static_cast<double>(ca * cols[b]);
+      for (int a = 0; a < K; ++a) {
+        const float ca = cols[a] * w;
+#pragma unroll
+        for (int b = a; b < K; ++b) acc[pair_index(K, a, b)] += static_cast<double>(ca * cols[b]);
+      }
+#pragma unroll
+      for (int a = 0; a < K; ++a) acc[kPairs + a] += static_cast<double>(cols[a] * yw);
     }
-#pragma unroll
-    for (int a = 0; a < K; ++a) acc[kPairs + a] += static_cast<double>(cols[a] * yw);
   }
   block_reduce_store<P>(acc, partials + static_cast<size_t>(blockIdx.x) * P);
+  // the block that takes the last ticket sums every row; the ticket wraps to 0
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  sum_partials_coherent(partials, gridDim.x, P, packed);
 }
 
 template <int K>
@@ -129,15 +176,17 @@ step_apply_kernel(const float* __restrict__ S, float* __restrict__ cf, float* __
 
 template <int K>
 cudaError_t run_moments(const float* S, const float* cf, const float* tau, const uint8_t* knocked,
-                        const float* stats, double* partials, float* packed, int t, int n_steps,
+                        const float* stats, double* scratch, float* packed, int t, int n_steps,
                         int n_paths, int n_blocks, float rdt, float strike, float phi, int basis,
                         int itm_weights, cudaStream_t stream) {
+  auto aligned = [](const void* p, uintptr_t bytes) {
+    return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+  };
+  const int vec = aligned(S, 16) && aligned(cf, 16) && aligned(tau, 16) &&
+                  (knocked == nullptr || aligned(knocked, 4));
   step_moments_kernel<K><<<n_blocks, kThreads, 0, stream>>>(
-      S, cf, tau, knocked, stats, partials, t, n_steps, n_paths, rdt, strike, phi, basis,
-      itm_weights);
-  AMCX_LAUNCH_CHECK();
-  sum_partials_kernel<<<1, kThreads, 0, stream>>>(partials, n_blocks, Layout<K>::kMoments,
-                                                  packed);
+      S, cf, tau, knocked, stats, scratch, packed, t, n_steps, n_paths, rdt, strike, phi, basis,
+      itm_weights, vec);
   return cudaGetLastError();
 }
 
@@ -177,11 +226,13 @@ bool bad_args(int t, int n_steps, int n_paths, int n_blocks, int basis) {
   }
 
 // Row t of the paths, cf, tau (n_paths) f32; knocked (n_paths) bytes or
-// null; stats 4 (n_steps+1) f32 rows; partials (n_blocks, P) f64 scratch;
-// packed (P) f32 out. Returns a cudaError_t.
+// null; stats 4 (n_steps+1) f32 rows; scratch 1 + n_blocks P f64 whose
+// first 8 bytes are zero before the first call (each call leaves them
+// zero), used by one stream at a time; packed (P) f32 out. Returns a
+// cudaError_t.
 extern "C" int amcx_step_moments(const float* S, const float* cf, const float* tau,
                                  const unsigned char* knocked, const float* stats,
-                                 double* partials, float* packed, int t, int n_steps, int n_paths,
+                                 double* scratch, float* packed, int t, int n_steps, int n_paths,
                                  int n_blocks, float rdt, float strike, float phi, int basis,
                                  int degree, int itm_weights, void* stream) {
   if (bad_args(t, n_steps, n_paths, n_blocks, basis)) {
@@ -190,7 +241,7 @@ extern "C" int amcx_step_moments(const float* S, const float* cf, const float* t
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define AMCX_MOMENTS_CASE(KK)                                                              \
   case KK:                                                                                 \
-    return static_cast<int>(run_moments<KK>(S, cf, tau, knocked, stats, partials, packed, t, \
+    return static_cast<int>(run_moments<KK>(S, cf, tau, knocked, stats, scratch, packed, t,  \
                                             n_steps, n_paths, n_blocks, rdt, strike, phi,  \
                                             basis, itm_weights, s));
   AMCX_DEGREE_SWITCH(AMCX_MOMENTS_CASE)

@@ -37,35 +37,45 @@
 // B per path per read, about 3.4 GB per pricing from device memory (the
 // planes are 4 MB each, so much of the second read hits the 50 MB L2); and
 // the P = 30 f32 products and f64 sums of the moments plus R fitted
-// continuations of 2k - 1 operations per path-step. The Gram is a
-// grid-wide dependency per step, so a C host loop drives maturity +
-// n_steps x (moments, one-block solve, apply) + 2 launches on one stream
-// with no syncs, as lsmc_book.cu does. The moments follow lsmc_book.cu: a
-// block stages the k columns, the weight and the R weighted targets of
-// kThreads paths in shared memory (row stride kThreads + 1) and a warp adds
-// each moment over the tile, folding its lanes by shuffles into the
-// block's f64 sum in shared memory (one thread per moment over the whole
-// tile, as in lsmc_book.cu, kept 30 of 256 threads busy at P = 30 and
-// cost ~86 us per step at 1M paths); one f64 partial row per block, summed
-// in a fixed order by multi_rhs_solve_kernel. No float atomics: two runs give identical bits,
-// and with -fmad=false the plain version (ops/lsmc_swing.py,
-// _swing_reference) gives the same bits; at R = 1 the products, sums,
-// solve and select are those of lsmc_mega.cu, so the price equals kernel
-// 2's on the same paths and frame. The apply keeps
-// one thread per path walking k = R .. 1 in registers (two planes and two
-// continuations live at a time) and writes V^k only where it exercises.
-// The obligations come from integers, never from floats.
+// continuations of 2k - 1 operations per path-step. Each of the P products
+// is rounded to f32 and widened to f64 (the result is defined so): at 16
+// conversions a clock a SM that floors the moments at ~7.5 us a step. The
+// Gram is a grid-wide dependency per step, so a C host loop drives
+// maturity + n_steps x (moments, one-block solve, apply) + 2 launches on
+// one stream with no syncs, as lsmc_book.cu does. The design (the first
+// one staged a shared tile of kThreads paths and summed each moment with
+// one warp, 32 us a step):
+// - Moments: roles_moments_kernel of lsmc_roles.cuh, kernel 3's warp
+//   roles: a Gram role recomputes the basis and the ITM weight from S_t
+//   and sums (B_a w) B_b; a rights role sums B_a ((c_t V^j) w) for up to 4
+//   rights (2 above degree 6); the forward kind and all-paths fits run with
+//   w = 1. Each warp streams 128-path chunks through a two-stage cp.async
+//   ring; a persistent grid of 2 blocks a SM (the wrapper's n_blocks;
+//   gridDim.y splits the roles when R is large) writes ~264 partial rows.
+// - Solve: multi_rhs_solve_kernel at kSolveThreads sums those rows in a
+//   fixed order, thread 0 factors the Gram, thread j back-solves right j.
+// - Apply: one thread a 4-path group walks k = R .. 1 with the cascade in
+//   registers (two planes and two continuations a path live at a time),
+//   with 16-byte loads of S_t and of each plane where the rows are 16-byte
+//   aligned; V^{k-2}'s load starts before right k's store of V^k, so it is
+//   in flight while right k's hit is decided (loading two rights ahead
+//   measured slower). V^k is written only where the path exercises.
+// No float atomics: two runs give identical bits, and with -fmad=false the
+// plain version (ops/lsmc_swing.py, _swing_reference) gives the same bits;
+// at R = 1 the products, sums, solve and select are those of lsmc_mega.cu,
+// so the price equals kernel 2's on the same paths and frame. The
+// obligations come from integers, never from floats.
 //
-// The rights cap, kMaxRights = 128, is set by the moments kernel's shared
-// memory: (k + 1 + 128) x 257 floats and P = 1474 f64 sums are 152 KB at
-// degree 10, within the 227 KB a block can have. amcx's TPU kernel held all planes in 64 MB of VMEM
+// The rights cap, kMaxRights = 128, sizes the static shared arrays of the
+// solve (the packed moments, P = 1474 at degree 10) and of the apply (the
+// R x k coefficients). amcx's TPU kernel held all planes in 64 MB of VMEM
 // and stopped at 12 rights; here the planes are in device memory (4 MB
 // each at 1M paths).
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#include "lsmc_common.cuh"
+#include "lsmc_roles.cuh"
 
 namespace {
 
@@ -104,89 +114,6 @@ swing_maturity_kernel(const float* __restrict__ S, float* __restrict__ V, const 
   }
 }
 
-// The packed moments of this block's paths (grid-stride over tiles of
-// kThreads paths) into partials[blockIdx.x * P ..]. Dynamic shared memory
-// holds the block's P f64 sums, then (K + 1 + n_rights) rows of
-// kTileStride floats: the columns, the weight, the weighted targets. Warp w
-// owns moments w, w + kWarps, ...: per tile its 32 lanes add paths l, l +
-// 32, ... of the moment's two rows (no bank conflicts), fold by shuffles
-// and lane 0 adds the tile's sum to the block's, so even a few dozen
-// moments keep every warp busy.
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-swing_moments_kernel(const float* __restrict__ S, const float* __restrict__ V,
-                     const float* __restrict__ stats, double* __restrict__ partials, int t,
-                     const SwingArgs a) {
-  extern __shared__ double block_sums[];
-  constexpr int kPairs = Layout<K>::kPairs;
-  const int R = a.n_rights;
-  const int P = kPairs + K * R;
-  float* tile = reinterpret_cast<float*>(block_sums + P);
-  const int T1 = a.n_steps + 1;
-  const float mean = stats[t];
-  const float inv_std = stats[T1 + t];
-  const float c_t = stats[2 * T1 + t];
-  const bool weighted = a.itm_weights && !a.forward;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  for (int q = tid; q < P; q += kThreads) block_sums[q] = 0.0;
-  const float* wrow = tile + K * kTileStride;
-  for (int base = blockIdx.x * kThreads; base < a.n_paths; base += gridDim.x * kThreads) {
-    const int count = min(kThreads, a.n_paths - base);
-    if (tid < count) {
-      const int i = base + tid;
-      const float s = S[i];
-      float cols[K];
-      basis_cols<K>((s - mean) * inv_std, a.basis, cols);
-      const float w = (!weighted || a.phi * (s - a.strike) > 0.0f) ? 1.0f : 0.0f;
-#pragma unroll
-      for (int c = 0; c < K; ++c) tile[c * kTileStride + tid] = cols[c];
-      tile[K * kTileStride + tid] = w;
-      for (int j = 0; j < R; ++j) {
-        tile[(K + 1 + j) * kTileStride + tid] =
-            (c_t * V[static_cast<size_t>(j) * a.n_paths + i]) * w;
-      }
-    }
-    __syncthreads();
-    for (int q = warp; q < P; q += kWarps) {
-      // moment q: (row ia * weight) * row ib for a Gram pair (ia <= ib <
-      // K), or row ia * target row ib for the rhs of right (q - kPairs) / K
-      // on column (q - kPairs) % K (ib = K + 1 + right)
-      int ia, ib;
-      if (q < kPairs) {
-        ia = 0;
-        int rest = q;
-        while (rest >= K - ia) {
-          rest -= K - ia;
-          ++ia;
-        }
-        ib = ia + rest;
-      } else {
-        ia = (q - kPairs) % K;
-        ib = K + 1 + (q - kPairs) / K;
-      }
-      const float* x = tile + ia * kTileStride;
-      const float* y = tile + ib * kTileStride;
-      double sum = 0.0;
-      if (ib < K) {
-        for (int p = lane; p < count; p += 32) {
-          sum += static_cast<double>((x[p] * wrow[p]) * y[p]);
-        }
-      } else {
-        for (int p = lane; p < count; p += 32) sum += static_cast<double>(x[p] * y[p]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, off);
-      if (lane == 0) block_sums[q] += sum;
-    }
-    __syncthreads();
-  }
-  for (int q = tid; q < P; q += kThreads) {
-    partials[static_cast<size_t>(blockIdx.x) * P + q] = block_sums[q];
-  }
-}
-
 // C^{j+1} of right j from its coefficients coef[j * K ..].
 template <int K>
 __device__ __forceinline__ float continuation(const float (&cols)[K], const float* coef,
@@ -199,11 +126,15 @@ __device__ __forceinline__ float continuation(const float (&cols)[K], const floa
   return fitted > 0.0f ? fitted : (fitted != fitted ? fitted : 0.0f);
 }
 
+// One thread a group of 4 paths (i0 = 4 g): the R continuations and the
+// cascade k = R .. 1 in registers. Right k reads V^{k-1} and writes V^k;
+// the load of V^{k-2}, which right k-1 reads, starts before right k's
+// store.
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 swing_apply_kernel(const float* __restrict__ S, float* __restrict__ V,
                    const float* __restrict__ stats, const float* __restrict__ coeffs, int t,
-                   const SwingArgs a) {
+                   const SwingArgs a, int vec) {
   __shared__ float coef[K * kMaxRights];
   const int R = a.n_rights;
   for (int q = threadIdx.x; q < K * R; q += kThreads) coef[q] = coeffs[q];
@@ -214,22 +145,40 @@ swing_apply_kernel(const float* __restrict__ S, float* __restrict__ V,
   const float inv_c_t = stats[3 * T1 + t];
   const int dates_left = a.n_steps - t + 1;
   const size_t plane = static_cast<size_t>(a.n_paths);
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < a.n_paths; i += gridDim.x * kThreads) {
-    const float s = S[i];
-    float cols[K];
-    basis_cols<K>((s - mean) * inv_std, a.basis, cols);
-    const float ex = take(a, s);
-    const bool itm = ex > 0.0f;
-    float c_hi = continuation<K>(cols, coef + (R - 1) * K, a.forward);
+  const int n_groups = (a.n_paths + 3) / 4;
+  for (int g = blockIdx.x * kThreads + threadIdx.x; g < n_groups; g += gridDim.x * kThreads) {
+    const int i0 = 4 * g;
+    const int n_here = min(4, a.n_paths - i0);
+    float s[4];
+    load_row4(S, i0, n_here, vec, s);
+    float cols[4][K];
+    float ex[4], c_hi[4], v_next[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      basis_cols<K>((s[e] - mean) * inv_std, a.basis, cols[e]);
+      ex[e] = take(a, s[e]);
+      c_hi[e] = continuation<K>(cols[e], coef + (R - 1) * K, a.forward);
+      v_next[e] = 0.0f;
+    }
+    if (R >= 2) load_row4(V + (R - 2) * plane, i0, n_here, vec, v_next);
     for (int k = R; k >= 1; --k) {
-      const float c_lo = k >= 2 ? continuation<K>(cols, coef + (k - 2) * K, a.forward) : 0.0f;
-      const float v_lo = k >= 2 ? V[(k - 2) * plane + i] : 0.0f;
-      bool hit = ex + c_lo > c_hi;
-      if (!a.forward) hit = itm && hit;
+      float v_lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v_lo[e] = k >= 2 ? v_next[e] : 0.0f;
+      if (k >= 3) load_row4(V + (k - 3) * plane, i0, n_here, vec, v_next);
       const int o = owed(a, k);
-      if (o > 0 && dates_left <= o) hit = true;
-      if (hit) V[(k - 1) * plane + i] = ex * inv_c_t + v_lo;
-      c_hi = c_lo;
+      const bool forced = o > 0 && dates_left <= o;
+      float* Vk = V + (k - 1) * plane + i0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float c_lo = k >= 2 ? continuation<K>(cols[e], coef + (k - 2) * K, a.forward)
+                                  : 0.0f;
+        bool hit = ex[e] + c_lo > c_hi[e];
+        if (!a.forward) hit = ex[e] > 0.0f && hit;
+        if (forced) hit = true;
+        if (hit && e < n_here) Vk[e] = ex[e] * inv_c_t + v_lo[e];
+        c_hi[e] = c_lo;
+      }
     }
   }
 }
@@ -260,22 +209,27 @@ cudaError_t run_swing(const float* paths, const float* stats, float* V, double* 
                       float* coeffs, float* sums, int n_blocks, float rcond, int antithetic,
                       const SwingArgs& a, cudaStream_t stream) {
   const size_t row = static_cast<size_t>(a.n_paths);
-  const size_t P = Layout<K>::kPairs + K * a.n_rights;
-  const size_t smem = P * sizeof(double) +
-                      static_cast<size_t>(K + 1 + a.n_rights) * kTileStride * sizeof(float);
-  cudaError_t err = allow_smem(swing_moments_kernel<K>, smem);
+  const RolePlan<K> plan(a.n_rights);
+  const dim3 grid(n_blocks, plan.n_groups);
+  const int threads = plan.threads();
+  const size_t ring = ring_bytes_per_warp<K>() * (threads / 32);
+  const int vec = rows_aligned16(a.n_paths, paths, V);
+  const RoleArgs roles{a.n_rights, a.basis, a.itm_weights && !a.forward, vec, a.strike, a.phi};
+  cudaError_t err = allow_smem(roles_moments_kernel<K, true>, ring);
   if (err != cudaSuccess) return err;
-  swing_maturity_kernel<<<n_blocks, kThreads, 0, stream>>>(paths + a.n_steps * row, V, a);
+  const int apply_blocks = min((a.n_paths + 4 * kThreads - 1) / (4 * kThreads), 1024);
+  swing_maturity_kernel<<<apply_blocks, kThreads, 0, stream>>>(paths + a.n_steps * row, V, a);
   AMCX_LAUNCH_CHECK();
   for (int t = a.n_steps - 1; t >= 0; --t) {
     const float* S_t = paths + t * row;
-    swing_moments_kernel<K><<<n_blocks, kThreads, smem, stream>>>(S_t, V, stats, partials, t,
-                                                                   a);
+    roles_moments_kernel<K, true><<<grid, threads, ring, stream>>>(S_t, V, stats, partials, t,
+                                                                  a.n_steps, a.n_paths, roles);
     AMCX_LAUNCH_CHECK();
-    multi_rhs_solve_kernel<K, kMaxRights><<<1, kThreads, 0, stream>>>(partials, n_blocks,
-                                                                      a.n_rights, rcond, coeffs);
+    multi_rhs_solve_kernel<K, kMaxRights, kSolveThreads><<<1, kSolveThreads, 0, stream>>>(
+        partials, n_blocks, a.n_rights, rcond, coeffs);
     AMCX_LAUNCH_CHECK();
-    swing_apply_kernel<K><<<n_blocks, kThreads, 0, stream>>>(S_t, V, stats, coeffs, t, a);
+    swing_apply_kernel<K><<<apply_blocks, kThreads, 0, stream>>>(S_t, V, stats, coeffs, t, a,
+                                                                 vec);
     AMCX_LAUNCH_CHECK();
   }
   swing_final_kernel<<<n_blocks, kThreads, 0, stream>>>(V + (a.n_rights - 1) * row, stats,

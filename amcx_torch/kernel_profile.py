@@ -2,7 +2,8 @@
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python3 -m amcx_torch.kernel_profile [--route put|book|ma-step] [--reps 20] [--label NAME]
+    python3 -m amcx_torch.kernel_profile [--route put|book|ma-step|swing|step] [--reps 20]
+        [--label NAME]
 
 Routes, each on fixed inputs made from fixed seeds:
 
@@ -19,8 +20,21 @@ Routes, each on fixed inputs made from fixed seeds:
   Bermudan max-call (1,048,576 paths, 9 dates, S0 = K = 100, r = 5%,
   q = 10%, sigma = 20%, T = 3, sorted degree-2 basis: m = 21, P = 252)
   through ``ma_step_moments``, all-paths and ITM-weighted; the hash covers
-  both packed moment vectors. It also prints the wrapper's host time per
-  call (enqueue, no sync) and the CUDA-event time minus the device time.
+  both packed moment vectors.
+- ``swing`` (kernel 10): swing-3-1M (a 3-rights put, K = 105, S0 = 100,
+  r = 5%, sigma = 25%, T = 1, 1,048,576 Philox paths x 100 steps,
+  Chebyshev degree 4, ITM fit, the closed-form frame) through
+  ``lsmc_price_swing``; the hash covers the price and stderr bits.
+- ``step`` (kernels 4 and 5): one backward step (t = 50) of the flagship
+  put at 1,048,576 paths from the maturity carry: ``step_moments`` ITM and
+  all-paths, then one ``step_apply`` with a surface row on coefficients
+  solved once on the CPU; the hash covers both packed vectors and the
+  cf, tau and surface rows of one apply on fresh copies of the carry. It
+  also prints the ITM moments' device time at degrees 0, 2, 4 and 10.
+
+The routes other than ``put`` also print the wrappers' host time per run
+(enqueue, no sync) and the CUDA-event time minus the device time; a
+``step`` run is three wrapper calls (two moments, one apply).
 
 Each prints one JSON line: the median ms per call by CUDA events, the
 device microseconds per call of each kernel by name (``torch.profiler``)
@@ -96,7 +110,79 @@ def _ma_step(torch, amcx_torch, dev):
     return run, outs, {"price": outs[0][0]}
 
 
-ROUTES = {"put": _put, "book": _book, "ma-step": _ma_step}
+def _swing(torch, amcx_torch, dev):
+    from amcx_torch.ops.gbm import gbm_paths
+    from amcx_torch.ops.lsmc_swing import lsmc_price_swing
+
+    n_paths, n_steps, S0, r, sigma, K, T = 1_048_576, 100, 100.0, 0.05, 0.25, 105.0, 1.0
+    paths = gbm_paths(20261066, S0, r, sigma, 0.0, T, n_steps, n_paths, device=dev)
+    mean_t, inv_std_t = amcx_torch.gbm_standardization(amcx_torch.MarketParams(S0, r, sigma), T,
+                                                       n_steps, device=dev)
+
+    def run():
+        return lsmc_price_swing(paths, K, r, T / n_steps, -1.0, 3, itm_weights=True,
+                                mean_t=mean_t, inv_std_t=inv_std_t)
+
+    outs = run()
+    return run, outs, {"price": outs[0]}
+
+
+def _step(torch, amcx_torch, dev):
+    from amcx_torch.ops.gbm import gbm_paths
+    from amcx_torch.ops.lsmc_pallas import step_apply, step_moments, step_stats, unpack_moments
+
+    n_paths, n_steps, S0, r, sigma, K, T, t = 1_048_576, 100, 100.0, 0.01, 0.2, 100.0, 1.0, 50
+    paths = gbm_paths(20261016, S0, r, sigma, 0.0, T, n_steps, n_paths, device=dev)
+    mean_t, inv_std_t = amcx_torch.gbm_standardization(amcx_torch.MarketParams(S0, r, sigma), T,
+                                                       n_steps, device=dev)
+    ones = torch.ones(n_steps + 1, device=dev)
+    stats = step_stats(mean_t, inv_std_t, ones, ones)
+    S_t = paths[t].clone()
+    cf0 = torch.clamp_min(K - paths[-1], 0.0)
+    tau0 = torch.full((n_paths,), float(n_steps), device=dev)
+    del paths
+    mkw = dict(rdt=float(torch.tensor(r * T / n_steps)), K=K, phi=-1.0, basis="chebyshev",
+               degree=4)
+    akw = dict(K=K, phi=-1.0, basis="chebyshev", degree=4)
+    packed_itm = step_moments(stats, t, S_t, cf0, tau0, itm_weights=True, **mkw)
+    packed_all = step_moments(stats, t, S_t, cf0, tau0, **mkw)
+    # solved on the CPU, so the coefficients (and the apply's bits) do not
+    # depend on the card's eigh
+    coeffs = amcx_torch.pinv_solve(*unpack_moments(packed_itm.cpu(), 5)).to(dev)
+    cf, tau, surface = cf0.clone(), tau0.clone(), torch.empty_like(cf0)
+    step_apply(stats, t, coeffs, S_t, cf, tau, surface=surface, **akw)
+    outs = (packed_itm, packed_all, cf, tau, surface)
+    cf_run, tau_run, row_run = cf0.clone(), tau0.clone(), torch.empty_like(cf0)
+
+    def run():
+        # the carry converges after the first call: each timed apply
+        # rewrites the same exercised paths
+        step_moments(stats, t, S_t, cf0, tau0, itm_weights=True, **mkw)
+        step_moments(stats, t, S_t, cf0, tau0, **mkw)
+        step_apply(stats, t, coeffs, S_t, cf_run, tau_run, surface=row_run, **akw)
+
+    def by_degree(profile_us):
+        # the ITM moments alone at degrees 0, 2, 4 and 10 (P = 2, 9, 20, 77)
+        return {deg: profile_us(lambda: step_moments(stats, t, S_t, cf0, tau0, itm_weights=True,
+                                                      **dict(mkw, degree=deg)))
+                for deg in (0, 2, 4, 10)}
+
+    return run, outs, {"price": packed_itm[0], "by_degree": by_degree}
+
+
+ROUTES = {"put": _put, "book": _book, "ma-step": _ma_step, "swing": _swing, "step": _step}
+
+
+def _device_us(torch, profile, activity, fn, reps):
+    """Device microseconds per call of ``fn`` under torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[activity.CPU, activity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps
 
 
 def main(argv=None):
@@ -151,6 +237,9 @@ def main(argv=None):
         "ms_median": statistics.median(times), "ms_min": min(times),
         "device_us_per_induction": {k: v / args.reps for k, v in
                                     sorted(per_name.items(), key=lambda kv: -kv[1])}}
+    if "by_degree" in extra:
+        line["moments_device_us_by_degree"] = extra["by_degree"](
+            lambda fn: _device_us(torch, profile, ProfilerActivity, fn, args.reps))
     if args.route != "put":
         device_us = sum(per_name.values()) / args.reps
         line.update(route=args.route, device_us_per_call=device_us,

@@ -467,9 +467,11 @@ def _book_cuda(paths, knock, stats, cfg, cf_tau):
 
 
 def book_blocks(n_paths: int, n_sm: int) -> int:
-    """Blocks (partial rows) of kernel 3's persistent grid: two per SM (a
-    block is at most 320 threads), fewer when the paths fill fewer 256-path
-    chunk pairs; the one-block solve sums this many rows per step."""
+    """Blocks (partial rows) of the warp-roles moments' persistent grid
+    (``csrc/lsmc_roles.cuh``: kernel 3, and kernel 10 in ``lsmc_swing``):
+    two per SM (a block is at most 320 threads), fewer when the paths fill
+    fewer 256-path chunk pairs; the one-block solve sums this many rows per
+    step."""
     return max(1, min(2 * n_sm, -(-n_paths // _THREADS)))
 
 

@@ -40,7 +40,7 @@ __all__ = ["pack_dim", "unpack_moments", "step_stats", "step_moments",
            "step_moments_reference", "step_apply", "step_apply_reference"]
 
 _THREADS = 256  # csrc/lsmc_common.cuh kThreads
-_MAX_BLOCKS = 1024
+_MAX_BLOCKS = 1024  # the apply's grid
 
 
 def pack_dim(k: int) -> int:
@@ -148,6 +148,45 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def step_blocks(n_paths: int, n_sm: int) -> int:
+    """Blocks (partial rows) of the moments kernel's persistent grid: two
+    per SM, fewer when the paths fill fewer blocks of 4 paths a thread."""
+    return max(1, min(2 * n_sm, -(-n_paths // (4 * _THREADS))))
+
+
+# (device index, stream) -> the moments kernel's f64 scratch: the ticket
+# (zeroed once here, left zero by every call), then the partial rows. Kept
+# per stream, so two streams never share a ticket or a row.
+_SCRATCH = {}
+
+
+def _moments_scratch(dev: torch.device, stream: int, n_sm: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        rows = 2 * n_sm * pack_dim(MAX_DEGREE + 1)  # step_blocks' most rows at the largest P
+        buf = torch.zeros(1 + rows, dtype=torch.float64, device=dev)
+        _SCRATCH[key] = buf
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _moments_fn():
+    from . import _build
+
+    V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.function("amcx_step_moments",
+                           [V, V, V, V, V, V, V, I, I, I, I, F, F, F, I, I, I, V])
+
+
+@functools.lru_cache(maxsize=None)
+def _apply_fn():
+    from . import _build
+
+    V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.function("amcx_step_apply", [V, V, V, V, V, V, V, I, I, I, I, F, F, I, I, I, V])
+
+
 def step_moments(stats, t: int, S, cf, tau, knocked=None, *, rdt: float, K: float, phi: float,
                  basis: str = "chebyshev", degree: int = 4,
                  itm_weights: bool = False) -> torch.Tensor:
@@ -169,17 +208,17 @@ def step_moments(stats, t: int, S, cf, tau, knocked=None, *, rdt: float, K: floa
     from . import _build
 
     basis = basis.strip().lower()
-    n_steps, n_paths, n_blocks = _check_cuda(stats, t, basis, degree, (S, cf, tau), knocked)
-    P = pack_dim(degree + 1)
-    partials = torch.empty(n_blocks * P, dtype=torch.float64, device=stats.device)
-    packed = torch.empty(P, dtype=torch.float32, device=stats.device)
-    V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _build.function("amcx_step_moments",
-                         [V, V, V, V, V, V, V, I, I, I, I, F, F, F, I, I, I, V])
-    stream = torch.cuda.current_stream(stats.device).cuda_stream
-    rc = fn(S.data_ptr(), cf.data_ptr(), tau.data_ptr(), _ptr(knocked), stats.data_ptr(),
-            partials.data_ptr(), packed.data_ptr(), t, n_steps, n_paths, n_blocks, rdt,
-            float(K), float(phi), BASIS_IDS[basis], degree, int(itm_weights), stream)
+    n_steps, n_paths, _ = _check_cuda(stats, t, basis, degree, (S, cf, tau), knocked)
+    dev = stats.device
+    n_sm = _build.sm_count(dev)
+    n_blocks = step_blocks(n_paths, n_sm)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _moments_scratch(dev, stream, n_sm)
+    packed = torch.empty(pack_dim(degree + 1), dtype=torch.float32, device=dev)
+    rc = _moments_fn()(S.data_ptr(), cf.data_ptr(), tau.data_ptr(), _ptr(knocked),
+                       stats.data_ptr(), scratch.data_ptr(), packed.data_ptr(), t, n_steps,
+                       n_paths, n_blocks, rdt, float(K), float(phi), BASIS_IDS[basis], degree,
+                       int(itm_weights), stream)
     step_moments.launches += 1
     _build.check(rc, "amcx_step_moments")
     return packed
@@ -217,12 +256,11 @@ def step_apply(stats, t: int, coeffs, S, cf, tau, knocked=None, *, K: float, phi
     if coeffs.device != stats.device or coeffs.dtype != torch.float32 \
             or coeffs.shape != (degree + 1,) or not coeffs.is_contiguous():
         raise ValueError(f"coeffs must be contiguous ({degree + 1},) float32 on {stats.device}")
-    V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _build.function("amcx_step_apply", [V, V, V, V, V, V, V, I, I, I, I, F, F, I, I, I, V])
     stream = torch.cuda.current_stream(stats.device).cuda_stream
-    rc = fn(S.data_ptr(), cf.data_ptr(), tau.data_ptr(), _ptr(knocked), stats.data_ptr(),
-            coeffs.data_ptr(), _ptr(surface), t, n_steps, n_paths, n_blocks, float(K),
-            float(phi), BASIS_IDS[basis], degree, int(select), stream)
+    rc = _apply_fn()(S.data_ptr(), cf.data_ptr(), tau.data_ptr(), _ptr(knocked),
+                     stats.data_ptr(), coeffs.data_ptr(), _ptr(surface), t, n_steps, n_paths,
+                     n_blocks, float(K), float(phi), BASIS_IDS[basis], degree, int(select),
+                     stream)
     step_apply.launches += 1
     _build.check(rc, "amcx_step_apply")
     return (cf, tau) if surface is None else (cf, tau, surface)

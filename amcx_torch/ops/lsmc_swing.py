@@ -8,8 +8,9 @@ matrix and the weights, so a step sums one Gram and R right-hand-side rows
 (P = k(k+1)/2 + R·k moments), factors the Gram once and back-solves R
 times, then runs the exercise cascade in DESCENDING k, so ``V[k-1]`` is
 read before its own update. ``amcx_torch/csrc/lsmc_swing.cu`` drives
-moments → solve → apply kernels per step from a host loop, as kernel 3
-does (see the note at the top of that file).
+moments → solve → apply kernels per step from a host loop, with kernel 3's
+warp-role moments (``csrc/lsmc_roles.cuh``) on the same persistent grid
+(see the note at the top of that file).
 
 :func:`_swing_reference` is the plain-torch transcription: the value planes
 in time-T units, the explicit-pair moments summed in f64 and rounded once,
@@ -28,6 +29,7 @@ its VMEM budget).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -35,13 +37,12 @@ import torch
 
 from ..basis import BASIS_IDS, basis_cols
 from .lsmc_megakernel import (MAX_DEGREE, _data_standardization, _factor_equilibrated_ridge,
-                              _pairs, _solve_factored, _sum_once_rounded, mega_stats)
+                              _pairs, _solve_factored, _sum_once_rounded, book_blocks,
+                              mega_stats)
 
 __all__ = ["lsmc_price_swing", "lsmc_price_swing_reference", "SWING_MAX_RIGHTS"]
 
 SWING_MAX_RIGHTS = 128  # csrc/lsmc_swing.cu kMaxRights
-_THREADS = 256  # csrc/lsmc_common.cuh kThreads
-_MAX_BLOCKS = 512  # the solve kernel sums n_blocks x P partials on one block
 
 
 def _obligations(n_rights: int, n_min: int, kk: int) -> int:
@@ -119,23 +120,29 @@ def _swing_cuda(paths, stats, cfg):
     n_steps, n_paths = paths.shape[0] - 1, paths.shape[1]
     R, k = cfg["n_rights"], cfg["degree"] + 1
     dev = paths.device
-    n_blocks = max(1, min(_MAX_BLOCKS, -(-n_paths // _THREADS)))
+    n_blocks = book_blocks(n_paths, _build.sm_count(dev))  # kernel 3's grid: the same roles
     V = torch.empty((R, n_paths), dtype=torch.float32, device=dev)
     P = k * (k + 1) // 2 + R * k
     partials = torch.empty(n_blocks * max(P, 2), dtype=torch.float64, device=dev)
     coeffs = torch.empty(R * k, dtype=torch.float32, device=dev)
     sums = torch.empty(2, dtype=torch.float32, device=dev)
-    Vp, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _build.function("amcx_lsmc_swing", [Vp] * 6 + [I] * 10 + [F, F, F, Vp])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(paths.data_ptr(), stats.data_ptr(), V.data_ptr(), partials.data_ptr(),
-            coeffs.data_ptr(), sums.data_ptr(), n_steps, n_paths, n_blocks, R, cfg["n_min"],
-            cfg["degree"], BASIS_IDS[cfg["basis"]], int(cfg["itm_weights"]),
-            int(cfg["forward"]), int(cfg["antithetic"]), cfg["K"], cfg["phi"], cfg["rcond"],
-            stream)
+    rc = _swing_fn()(paths.data_ptr(), stats.data_ptr(), V.data_ptr(), partials.data_ptr(),
+                     coeffs.data_ptr(), sums.data_ptr(), n_steps, n_paths, n_blocks, R,
+                     cfg["n_min"], cfg["degree"], BASIS_IDS[cfg["basis"]],
+                     int(cfg["itm_weights"]), int(cfg["forward"]), int(cfg["antithetic"]),
+                     cfg["K"], cfg["phi"], cfg["rcond"], stream)
     lsmc_price_swing.launches += 1
     _build.check(rc, "amcx_lsmc_swing")
     return sums
+
+
+@functools.lru_cache(maxsize=None)
+def _swing_fn():
+    from . import _build
+
+    Vp, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.function("amcx_lsmc_swing", [Vp] * 6 + [I] * 10 + [F, F, F, Vp])
 
 
 def swing_stats(mean_t, inv_std_t, r, dt, n_steps: int, device) -> torch.Tensor:

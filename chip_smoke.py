@@ -57,10 +57,10 @@ It times the pricings, each kernel, each plain version and, where one
 PyTorch call computes the same function, that call, with CUDA events, and
 computes each kernel's bound: the larger of the bytes it must move over the
 card's memory rate and its arithmetic over the card's peak rates. For
-kernels 8 and 3 (phases 8, 11, 12) it also prints the device time by
-kernel (``torch.profiler``) beside their design floors: the bytes they
-must move and their f32 -> f64 conversions at 16 a clock a SM. Any
-failed phase raises (non-zero exit). Without a CUDA device, or outside a
+kernels 4, 5, 8, 3 and 10 (phases 5, 8, 11, 12, 15) it also prints the
+device time by kernel (``torch.profiler``) beside their design floors: the
+bytes they must move and their f32 -> f64 conversions at 16 a clock a SM.
+Any failed phase raises (non-zero exit). Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 
 Output: one line per phase, then the card's name and power limit, then one
@@ -261,6 +261,15 @@ def _swing_phases(torch, dev, amcx_torch):
     ms = _time_ms(torch, lambda: lsmc_price_swing(*args_a, **kw_a), 20, 3)
     plain_ms = _time_ms(torch, lambda: lsmc_price_swing_reference(*args_a, **kw_a), 3, 1)
     print(f"phase 15 kernel 10 on (a): {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+    prof10 = _profile(torch, lambda: lsmc_price_swing(*args_a, **kw_a), 3)
+    per_step = prof10 and {name: us / N_STEPS for name, us in prof10["top_us_per_call"].items()}
+    # the moments' floors per step: S_t and the SW_RIGHTS planes read once,
+    # and one f32 -> f64 conversion of each of the P = 15 + 5 R products
+    floor10 = {"bytes_us": (SW_RIGHTS + 1) * N_PATHS * 4 / HBM_BYTES_PER_S * 1e6,
+               "conversions_us": N_PATHS * (15 + 5 * SW_RIGHTS) / F64_CONVERSIONS_PER_S * 1e6}
+    print(f"phase 15 kernel 10 on (a), device time per step by kernel (us): "
+          f"{per_step or 'no device activity recorded'} | moments' design floors per step "
+          f"(us): {floor10}", flush=True)
     del paths_c, cap_paths
 
     # ---- phase 16: the swing route at full width -------------------------
@@ -686,6 +695,17 @@ def main():
           f"{ms_moments:.4f} ms plain {ms_moments_plain:.4f} ms library A_w^T A "
           f"{ms_moments_lib:.4f} ms | apply kernel {ms_apply:.4f} ms plain {ms_apply_plain:.4f} "
           f"ms ({n_ex_step} paths written)", flush=True)
+    # device time per call of each kernel (one launch a call), beside the
+    # moments' design floor: one f32 -> f64 conversion of each of the P4
+    # products a path
+    prof4 = _profile(torch, lambda: step_moments(stats, t_mid, S_t, cf0, tau0, **mkw), 50)
+    prof5 = _profile(torch, lambda: step_apply(stats, t_mid, coeffs, S_t, cf_k, tau_k,
+                                               surface=row_k, **akw), 50)
+    floor4_us = N_PATHS * 20 / F64_CONVERSIONS_PER_S * 1e6
+    print(f"phase 5 device time per call: kernel 4 (moments) "
+          f"{prof4 or 'no device activity recorded'} | kernel 5 (apply) "
+          f"{prof5 or 'no device activity recorded'} | kernel 4 design floor (conversions) "
+          f"{floor4_us:.2f} us", flush=True)
     del cf_k, tau_k, row_k, cf_p, tau_p, row_p
 
     # ---- phase 6: kernel 2's cf/tau planes vs its plain version ----------

@@ -209,6 +209,86 @@ MC = dict(K=100.0, T=3.0, r=0.05, sigma=0.2, q=0.1)
 RDT_MC = float(torch.tensor(0.05 / 3.0))  # r * dt, an f32 value
 
 
+def _offset_row(x, offset):
+    """``x`` copied into a fresh buffer at element ``offset``: a contiguous
+    row whose base pointer is not 16-byte aligned for an offset not a
+    multiple of 16 bytes."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    row = buf[offset:]
+    row.copy_(x)
+    return row
+
+
+# kernel 4 (and kernel 5 on the same rows) at path counts that leave a
+# masked tail, every degree class and basis, with and without the knocked
+# row, on 16-byte aligned rows and on rows offset by one element
+@pytest.mark.parametrize("n", [100, 131_071])
+@pytest.mark.parametrize("degree", [0, 4, 10])
+@pytest.mark.parametrize("basis", ["power", "chebyshev", "legendre", "laguerre", "hermite"])
+def test_step_kernels_shapes_match_plain(cuda_device, basis, degree, n):
+    T, t = 20, 7
+    paths = tgbm.gbm_paths(17, S0, R, SIGMA, 0.0, 1.0, T, n, device=cuda_device)
+    mean_t, inv_std_t = at.gbm_standardization(at.MarketParams(S0, R, SIGMA), 1.0, T,
+                                               device=cuda_device)
+    use_w = torch.ones(T + 1, device=cuda_device)
+    stats = tstep.step_stats(mean_t, inv_std_t, use_w, use_w)
+    S_t = paths[t].contiguous()
+    cf = torch.clamp_min(K - paths[-1], 0.0)
+    tau = torch.full((n,), float(T), device=cuda_device)
+    tau[::3] = float(t + 2)
+    knocked = paths[: t + 1].min(dim=0).values < 95.0
+    coeffs = torch.linspace(0.5, -0.2, degree + 1, device=cuda_device)
+    mkw = dict(rdt=0.0005, K=K, phi=-1.0, basis=basis, degree=degree)
+    akw = dict(K=K, phi=-1.0, basis=basis, degree=degree)
+    for offset in (0, 1):
+        rows = [_offset_row(x, offset) for x in (S_t, cf, tau)]
+        kn_row = _offset_row(knocked, offset)
+        assert offset == 0 or rows[0].data_ptr() % 16 != 0
+        for kn in (None, kn_row):
+            for itm in (False, True):
+                before = tstep.step_moments.launches
+                ker = tstep.step_moments(stats, t, *rows, kn, itm_weights=itm, **mkw)
+                again = tstep.step_moments(stats, t, *rows, kn, itm_weights=itm, **mkw)
+                ref = tstep.step_moments_reference(stats, t, *rows, kn, itm_weights=itm, **mkw)
+                torch.cuda.synchronize()
+                assert tstep.step_moments.launches == before + 2
+                assert ker.shape == (tstep.pack_dim(degree + 1),)
+                assert torch.equal(ker, again) and torch.equal(ker, ref)
+            out_k = [x.clone() for x in rows[1:]] + [torch.empty_like(rows[0])]
+            out_p = [x.clone() for x in rows[1:]] + [torch.empty_like(rows[0])]
+            tstep.step_apply(stats, t, coeffs, rows[0], out_k[0], out_k[1], kn,
+                             surface=out_k[2], **akw)
+            tstep.step_apply_reference(stats, t, coeffs, rows[0], out_p[0], out_p[1], kn,
+                                       surface=out_p[2], **akw)
+            torch.cuda.synchronize()
+            for a, b in zip(out_k, out_p):
+                assert torch.equal(a, b)
+
+
+def test_step_moments_on_two_streams(cuda_device):
+    # the kernel's ticket and partial rows are kept per stream: calls on a
+    # side stream and on the default stream, unsynchronized between them,
+    # each equal the plain version
+    n, T, t = 131_072, 20, 9
+    paths = tgbm.gbm_paths(19, S0, R, SIGMA, 0.0, 1.0, T, n, device=cuda_device)
+    ones = torch.ones(T + 1, device=cuda_device)
+    stats = tstep.step_stats(paths.mean(dim=1), 1.0 / paths.std(dim=1).clamp_min(1e-6), ones,
+                             ones)
+    cf = torch.clamp_min(K - paths[-1], 0.0)
+    tau = torch.full((n,), float(T), device=cuda_device)
+    kw = dict(rdt=0.0005, K=K, phi=-1.0, itm_weights=True)
+    ref = tstep.step_moments_reference(stats, t, paths[t], cf, tau, **kw)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    outs = []
+    with torch.cuda.stream(side):
+        outs += [tstep.step_moments(stats, t, paths[t], cf, tau, **kw) for _ in range(4)]
+    outs += [tstep.step_moments(stats, t, paths[t], cf, tau, **kw) for _ in range(4)]
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out, ref)
+
+
 def _basket_paths(device, n, n_assets, seed, antithetic=False):
     sim = at.SimConfig(n_paths=n, n_steps=9, antithetic=antithetic)
     return at.simulate_gbm_multi(seed, [100.0] * n_assets, MC["r"], MC["sigma"], MC["T"], sim,
@@ -421,6 +501,26 @@ def test_book_kernel_shapes_match_plain(cuda_device, case):
             assert torch.equal(a, b)
 
 
+def test_book_kernel_unaligned_paths(cuda_device):
+    # paths whose base is offset by one element: the moments' copies take
+    # 4 bytes a path (16-byte copies need an aligned row), with the same bits
+    n, T = 65_536, 100
+    paths = _book_paths(cuda_device, n, 14, False)
+    flat = torch.empty(paths.numel() + 1, device=cuda_device)
+    shifted = flat[1:].view(T + 1, n)
+    shifted.copy_(paths)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    mean_t, inv_std_t = at.gbm_standardization(BOOK_MARKET, 1.0, T, device=cuda_device)
+    args = (torch.linspace(80.0, 120.0, 16), 0.01, 0.01, -1.0)
+    kw = dict(mean_t=mean_t, inv_std_t=inv_std_t, return_cf_tau=True)
+    ker = tmega.lsmc_book_megakernel(shifted, *args, **kw)
+    aligned = tmega.lsmc_book_megakernel(paths, *args, **kw)
+    ref = tmega.lsmc_book_mega_reference(shifted, *args, **kw)
+    torch.cuda.synchronize()
+    for a, b, c in zip(ker, aligned, ref):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
 def test_book_kernel_strike_cap(cuda_device):
     paths = _book_paths(cuda_device, 1024, 3, False)
     with pytest.raises(ValueError, match="1[.][.]64"):
@@ -559,6 +659,52 @@ def test_swing_kernel_rights_cap(cuda_device):
     ref = tsw.lsmc_price_swing_reference(paths, 100.0, 0.05, 0.125, -1.0, cap, **kw)
     torch.cuda.synchronize()
     assert torch.equal(ker[0], ref[0]) and torch.equal(ker[1], ref[1])
+
+
+# kernel 10 at path counts that leave a masked tail (antithetic pairs where
+# the count is even), 1 to 128 rights, both payoff kinds: the option kind
+# with ITM weights at degree 4, the forward kind with owed takes at degree 8
+# (K = 9: the Gram split over rows of roles)
+@pytest.mark.parametrize("n", [100, 131_071])
+@pytest.mark.parametrize("n_rights", [1, 3, 11, 128])
+@pytest.mark.parametrize("kind", ["option", "forward"])
+def test_swing_kernel_shapes_match_plain(cuda_device, kind, n_rights, n):
+    T = 12
+    antithetic = n % 2 == 0
+    paths = _swing_paths(cuda_device, 46, n, T, antithetic)
+    mean_t, inv_std_t = at.gbm_standardization(SW_MARKET, 1.0, T, device=cuda_device)
+    if kind == "option":
+        K, kw = 105.0, dict(itm_weights=True)
+    else:
+        K, kw = 100.0, dict(payoff_kind="forward", n_min=min(n_rights, 3), degree=8)
+    args = (paths, K, 0.05, 1.0 / T, -1.0, n_rights)
+    kw = dict(kw, mean_t=mean_t, inv_std_t=inv_std_t, antithetic=antithetic)
+    ker = tsw.lsmc_price_swing(*args, **kw)
+    again = tsw.lsmc_price_swing(*args, **kw)
+    ref = tsw.lsmc_price_swing_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert math.isfinite(float(ker[0]))
+    for a, b, c in zip(ker, again, ref):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_swing_kernel_unaligned_paths(cuda_device):
+    # paths whose base is offset by one element: every row is read by the
+    # 4-byte copies and loads, with the same bits
+    n, T = 131_072, 20
+    paths = _swing_paths(cuda_device, 47, n, T, False)
+    flat = torch.empty(paths.numel() + 1, device=cuda_device)
+    shifted = flat[1:].view(T + 1, n)
+    shifted.copy_(paths)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    mean_t, inv_std_t = at.gbm_standardization(SW_MARKET, 1.0, T, device=cuda_device)
+    kw = dict(itm_weights=True, mean_t=mean_t, inv_std_t=inv_std_t)
+    ker = tsw.lsmc_price_swing(shifted, 105.0, 0.05, 1.0 / T, -1.0, 3, **kw)
+    aligned = tsw.lsmc_price_swing(paths, 105.0, 0.05, 1.0 / T, -1.0, 3, **kw)
+    ref = tsw.lsmc_price_swing_reference(shifted, 105.0, 0.05, 1.0 / T, -1.0, 3, **kw)
+    torch.cuda.synchronize()
+    for a, b, c in zip(ker, aligned, ref):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 # kernel 11: scrambled-Sobol paths, both orders, at 262,144 paths x 100 steps

@@ -150,6 +150,14 @@ def test_pack_dim_and_unpack_moments_roundtrip():
     np.testing.assert_array_equal(b2.numpy(), np.asarray(bj))
 
 
+def test_step_grid_sizing():
+    # kernel 4's persistent grid: two blocks a SM, fewer when the paths (4 a
+    # thread) fill fewer; its last block sums one partial row per block
+    assert tstep.step_blocks(1 << 20, 132) == 264
+    assert tstep.step_blocks(131_071, 132) == 128
+    assert tstep.step_blocks(100, 132) == 1
+
+
 @pytest.mark.parametrize("scaling,internal", [(False, True), (True, True), (False, False)])
 def test_precompute_standardization_matches_amcx(paths_8k, scaling, internal):
     # f32 sums over 8192 paths in two orders: rtol 1e-5
