@@ -1,13 +1,13 @@
 // Longstaff-Schwartz backward induction that regenerates its own paths: no
-// (T+1, n) path array exists anywhere. One pricing per call of
-// amcx_lsmc_fusedpath.
+// (T+1, n) path array exists anywhere. One cooperative launch per pricing
+// (amcx_lsmc_fusedpath).
 //
 // Replaces: amcx/ops/lsmc_fusedpath.py::_fusedpath_kernel (via
 // lsmc_price_fusedpath / _run_fusedpath).
 //
 // State per path: the bridge value W, the value carry V (time-T units, as in
-// lsmc_mega.cu), the spot stage S_t of the current step and, with a barrier,
-// the first-crossing step tau_B; four (or five) f32 planes of n_paths.
+// lsmc_mega.cu), the spot S of the two latest steps and, with a barrier, the
+// first-crossing step tau_B.
 //   maturity: vanilla W_T = sqrt(dt T) xi(T). Barrier: each thread walks its
 //            quad of paths forward, W_s = W_{s-1} + sqrt(dt) xi(s) for
 //            s = 1..T, and records tau_B = the first s with S_s across the
@@ -18,37 +18,65 @@
 //     regen + moments: W_t = t/(t+1) W_{t+1} + sqrt(dt t/(t+1)) xi(t)
 //            (exactly 0 at t = 0), or with a barrier the backward difference
 //            W_t = W_{t+1} - sqrt(dt) xi(t+1) of the walk's own increments;
-//            S_t = S0 exp(drift_dt t + sigma W_t) into the stage plane; the
-//            P = k(k+1)/2 + k explicit-pair moments of lsmc_mega.cu, with
-//            fit weights ITM and the knock gate (the all-paths fit is not
-//            gated), summed in f64 into one partial row per block;
-//     solve:  solve_kernel<K> of lsmc_common.cuh (fixed-order sum of the
-//            rows, equilibrated ridge Cholesky, two refinements);
-//     apply:  on the staged S_t: cont = max(fit, 0), ex = max(phi (S - K), 0),
-//            exercise where ex > cont, the date is allowed (Bermudan row)
-//            and the knock gate is open: V <- ex / c_t, cf <- ex, tau <- t.
+//            S_t = S0 exp(drift_dt t + sigma W_t); the P = k(k+1)/2 + k
+//            explicit-pair moments of lsmc_mega.cu, with fit weights ITM and
+//            the knock gate (the all-paths fit is not gated), summed in f64
+//            into one partial row per block;
+//     solve:  the fixed-order sum of the rows (sum_partials' order) and the
+//            equilibrated ridge Cholesky with two refinements of
+//            lsmc_common.cuh;
+//     apply:  on S_t: cont = max(fit, 0), ex = max(phi (S - K), 0), exercise
+//            where ex > cont, the date is allowed (Bermudan row) and the
+//            knock gate is open: V <- ex / c_t, cf <- ex, tau <- t.
 //   final:   sum c_0 V and sum (c_0 V)^2, or with antithetic pairs the sum
 //            of the squared pair means 0.5 (v_p + v_{p+n/2}).
-// Replay (frozen coefficients): the regen kernel only regenerates, the solve
-// is skipped, and the apply reads the given rows.
+// Replay (frozen coefficients): no moments and no solve; the apply reads the
+// given rows.
 //
 // The normals xi(t) of paths 4q .. 4q+3 are one Philox4x32-10 call with key
 // (seed mod 2^32, seed >> 32) and counter (t, q, 1, 0), through
 // philox_normals4_cos_sin; with antithetic, quad q of the second half draws
-// the negated normals of quad q - n/8. A thread owns a quad of paths, so the
-// planes move as float4.
+// the negated normals of quad q - n/8.
 //
 // Bound on the H100: arithmetic. The work moves no path bytes (only the
 // result planes and the stats rows are needed), while per path-step it
 // draws a quarter of a Philox call and half a Box-Muller pair, runs the
 // bridge and the exp, and forms the P f32 products and f64 sums of the
-// moments. This simple design keeps the step loop on the host, as
-// lsmc_mega.cu does (the per-step Gram is a grid-wide dependency: maturity +
-// T x (regen + moments, one-block solve, apply) + 2 launches on one stream,
-// no syncs), and so reads and writes W, V and the stage plane every step
-// (12 B per path-step in, 8 B out at 1M paths, mostly from the 50 MB L2). A
-// persistent kernel that keeps W and V on chip (8 MB at 1M paths fits the
-// register files and shared memory of the 132 SMs) is later work.
+// moments; its design floor is the P f32 -> f64 conversions of those
+// products a path-step. The per-step Gram is a grid-wide dependency.
+//
+// Design: one persistent launch a pricing instead of the maturity + T x
+// (regen + moments, solve, apply) + 2 launches of a host loop. It is a
+// cooperative launch (cudaLaunchCooperativeKernel) on a grid the wrapper
+// sizes from the occupancy query, so every block is co-resident and may
+// wait on another; a grid that cannot be co-resident is refused by the
+// runtime and the error returned, never run another way.
+// - Block 0 solves; blocks 1.. are workers. A worker thread owns units of
+//   paths for the whole pricing (grid-stride: a quad, or with antithetic
+//   the quad pair q, q + n/8, which share one Philox call and fold their
+//   pair means locally) and keeps their W, V, S_t, S_{t+1} (and tau_B) in
+//   shared-memory slots (p.chip_slots quads a thread; past them in global
+//   spill planes: large n_paths, or a degree whose registers leave room
+//   for fewer blocks).
+// - Per step t a worker runs pass A, which needs no coefficients: it
+//   regenerates W_t and S_t and sums the Gram head of step t's moments,
+//   while block 0 solves step t+1. It then waits for step t+1's
+//   coefficients (a generation word block 0 bumps), and pass B applies the
+//   exercise of step t+1 on S_{t+1} and sums the right-hand side of step t
+//   on the new V; the block's f64 row goes out and the block counts its
+//   arrival.
+// - Block 0 waits for every row of a step, sums them through L2 (__ldcg,
+//   never a stale L1 line) in sum_partials' fixed order, solves on one
+//   thread, writes the coefficient row and bumps the generation. No worker
+//   writes its row again before that bump, so one row buffer serves.
+// - The basis recurrences run on a quad's four paths with the basis switch
+//   hoisted out of them (quad_cols), so the four chains interleave.
+// Replay runs the same passes with no moments and no waits; the final two
+// sums are one more row a worker. Built, timed on the card and slower
+// (PERF.md): a grid barrier a step after which every block sums the rows
+// and solves (264 blocks reading the same L2 lines), block 0 solving
+// between two grid barriers, and the last block to arrive solving while
+// the others wait.
 //
 // Numerics: as lsmc_mega.cu, moments in f64 rounded once, no float atomics,
 // built with -fmad=false; every per-path operation is the plain version's
@@ -68,7 +96,8 @@ namespace amcx {
 struct FusedpathParams {
   int n_steps;
   int n_paths;  // a multiple of 4 (of 8 with antithetic)
-  int n_blocks;
+  int n_blocks;  // the cooperative grid
+  int chip_slots;  // quads a thread keeps in shared memory
   int basis;
   int american;
   int itm_weights;
@@ -94,17 +123,11 @@ namespace {
 
 using namespace amcx;
 
-// The normals of step t for the quad of paths 4q .. 4q+3.
+// The normals of step t for the quad of paths 4q .. 4q+3 (q < n/8 with
+// antithetic: the mirror quad negates them).
 __device__ __forceinline__ void draw4(const FusedpathParams& p, int t, int q, float (&z)[4]) {
-  const int half_quads = p.n_paths / 8;
-  const bool mirror = p.antithetic && q >= half_quads;
-  const uint4 ctr = make_uint4(static_cast<uint32_t>(t),
-                               static_cast<uint32_t>(mirror ? q - half_quads : q), 1u, 0u);
+  const uint4 ctr = make_uint4(static_cast<uint32_t>(t), static_cast<uint32_t>(q), 1u, 0u);
   philox_normals4_cos_sin(philox4x32_10(ctr, make_uint2(p.key_lo, p.key_hi)), z);
-  if (mirror) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) z[j] = -z[j];
-  }
 }
 
 __device__ __forceinline__ bool crosses(const FusedpathParams& p, float s) {
@@ -117,267 +140,461 @@ __device__ __forceinline__ bool gate_open(const FusedpathParams& p, float tau_b,
   return p.barrier_in ? knocked : !knocked;
 }
 
-__device__ __forceinline__ void load4(const float* plane, int q, float (&v)[4]) {
-  const float4 x = reinterpret_cast<const float4*>(plane)[q];
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
+__device__ __forceinline__ float spot(const FusedpathParams& p, float w, float tf) {
+  return p.S0 * expf(p.drift_dt * tf + p.sigma * w);
 }
 
-__device__ __forceinline__ void store4(float* plane, int q, const float (&v)[4]) {
-  reinterpret_cast<float4*>(plane)[q] = make_float4(v[0], v[1], v[2], v[3]);
+__device__ __forceinline__ void load4(const float4* x, float (&v)[4]) {
+  const float4 a = *x;
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
 }
 
-__global__ void __launch_bounds__(kThreads)
-maturity_kernel(const FusedpathParams p, float* __restrict__ V, float* __restrict__ W,
-                float* __restrict__ TB, float* __restrict__ cf, float* __restrict__ tau) {
-  const int n_quads = p.n_paths / 4;
+__device__ __forceinline__ void store4(float4* x, const float (&v)[4]) {
+  *x = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Maturity of one unit (qpu quads, the second the antithetic mirror).
+__device__ __forceinline__ void maturity(const FusedpathParams& p, int u, int qpu,
+                                         float (&w)[2][4], float (&v)[2][4], float (&tb)[2][4]) {
   const float T = static_cast<float>(p.n_steps);
-  for (int q = blockIdx.x * kThreads + threadIdx.x; q < n_quads; q += gridDim.x * kThreads) {
-    float w[4], s[4], tb[4], z[4];
-    if (p.barrier) {
-      const float sqrt_dt = sqrtf(p.dt);
-      const float never = static_cast<float>(p.n_steps + 1);
-      const float tb0 = crosses(p, p.S0) ? 0.0f : never;
+  float z[4];
+  if (p.barrier) {
+    const float sqrt_dt = sqrtf(p.dt);
+    const float never = static_cast<float>(p.n_steps + 1);
+    const float tb0 = crosses(p, p.S0) ? 0.0f : never;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        w[j] = 0.0f;
-        tb[j] = tb0;
+        w[h][j] = 0.0f;
+        tb[h][j] = tb0;
       }
-      for (int step = 1; step <= p.n_steps; ++step) {
-        draw4(p, step, q, z);
-        const float sf = static_cast<float>(step);
-        const float drift = p.drift_dt * sf;
+    }
+    for (int step = 1; step <= p.n_steps; ++step) {
+      draw4(p, step, u, z);
+      const float sf = static_cast<float>(step);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h >= qpu) break;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          w[j] = w[j] + sqrt_dt * z[j];
-          s[j] = p.S0 * expf(drift + p.sigma * w[j]);
-          if (crosses(p, s[j]) && sf < tb[j]) tb[j] = sf;
+          w[h][j] = w[h][j] + sqrt_dt * (h ? -z[j] : z[j]);
+          const float s = spot(p, w[h][j], sf);
+          if (crosses(p, s) && sf < tb[h][j]) tb[h][j] = sf;
         }
       }
-      store4(TB, q, tb);
-    } else {
-      draw4(p, p.n_steps, q, z);
-      const float wT = sqrtf(p.dt * T);
-      const float drift = p.drift_dt * T;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        w[j] = wT * z[j];
-        s[j] = p.S0 * expf(drift + p.sigma * w[j]);
-      }
-    }
-    float v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[j] = fmaxf(p.phi * (s[j] - p.strike), 0.0f);
-      if (p.barrier && !gate_open(p, tb[j], T)) v[j] = 0.0f;
-    }
-    store4(W, q, w);
-    store4(V, q, v);
-    if (cf != nullptr) {
-      const float taus[4] = {T, T, T, T};
-      store4(cf, q, v);
-      store4(tau, q, taus);
-    }
-  }
-}
-
-// Regenerate S_t into the stage plane and, unless replaying, sum the P
-// moments of step t into this block's partial row.
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-regen_moments_kernel(const FusedpathParams p, const float* __restrict__ stats,
-                     float* __restrict__ W, const float* __restrict__ V,
-                     const float* __restrict__ TB, float* __restrict__ Sp,
-                     double* __restrict__ partials, int t, int moments) {
-  constexpr int P = Layout<K>::kMoments;
-  constexpr int kPairs = Layout<K>::kPairs;
-  const int T1 = p.n_steps + 1;
-  const float mean = stats[t];
-  const float inv_std = stats[T1 + t];
-  const float c_t = stats[2 * T1 + t];
-  const float tf = static_cast<float>(t);
-  const float a = tf / (tf + 1.0f);
-  const float bscale = sqrtf(p.dt * a);
-  const float sqrt_dt = sqrtf(p.dt);
-  const float drift = p.drift_dt * tf;
-  const int n_quads = p.n_paths / 4;
-  double acc[P];
-#pragma unroll
-  for (int m = 0; m < P; ++m) acc[m] = 0.0;
-  for (int q = blockIdx.x * kThreads + threadIdx.x; q < n_quads; q += gridDim.x * kThreads) {
-    float z[4], w[4], s[4];
-    draw4(p, p.barrier ? t + 1 : t, q, z);
-    load4(W, q, w);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      w[j] = p.barrier ? w[j] - sqrt_dt * z[j] : a * w[j] + bscale * z[j];
-      s[j] = p.S0 * expf(drift + p.sigma * w[j]);
-    }
-    store4(W, q, w);
-    store4(Sp, q, s);
-    if (!moments) continue;
-    float v[4], tb[4];
-    load4(V, q, v);
-    if (p.barrier && p.itm_weights) load4(TB, q, tb);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float y = c_t * v[j];
-      const float xhat = (s[j] - mean) * inv_std;
-      float wgt = 1.0f;
-      if (p.itm_weights) {
-        wgt = fmaxf(p.phi * (s[j] - p.strike), 0.0f) > 0.0f ? 1.0f : 0.0f;
-        if (p.barrier && !gate_open(p, tb[j], tf)) wgt = 0.0f;
-      }
-      float cols[K];
-      basis_cols<K>(xhat, p.basis, cols);
-      const float yw = y * wgt;
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-        const float ci = cols[i] * wgt;
-#pragma unroll
-        for (int b = i; b < K; ++b) acc[pair_index(K, i, b)] += static_cast<double>(ci * cols[b]);
-      }
-#pragma unroll
-      for (int i = 0; i < K; ++i) acc[kPairs + i] += static_cast<double>(cols[i] * yw);
-    }
-  }
-  if (moments) block_reduce_store<P>(acc, partials + static_cast<size_t>(blockIdx.x) * P);
-}
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-apply_kernel(const FusedpathParams p, const float* __restrict__ stats,
-             const float* __restrict__ Sp, const float* __restrict__ TB, float* __restrict__ V,
-             float* __restrict__ cf, float* __restrict__ tau, const float* __restrict__ coeffs_row,
-             int t) {
-  const int T1 = p.n_steps + 1;
-  const float mean = stats[t];
-  const float inv_std = stats[T1 + t];
-  const float inv_c_t = stats[3 * T1 + t];
-  const float tf = static_cast<float>(t);
-  float coef[K];
-#pragma unroll
-  for (int a = 0; a < K; ++a) coef[a] = coeffs_row[a];
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.n_paths; i += gridDim.x * kThreads) {
-    const float s = Sp[i];
-    const float xhat = (s - mean) * inv_std;
-    float cols[K];
-    basis_cols<K>(xhat, p.basis, cols);
-    float fitted = cols[0] * coef[0];
-#pragma unroll
-    for (int a = 1; a < K; ++a) fitted = fitted + cols[a] * coef[a];
-    // max(fitted, 0) that keeps a NaN fit NaN, as torch.clamp_min does
-    const float cont = fitted > 0.0f ? fitted : (fitted != fitted ? fitted : 0.0f);
-    const float ex = fmaxf(p.phi * (s - p.strike), 0.0f);
-    if (ex > cont && (!p.barrier || gate_open(p, TB[i], tf))) {
-      V[i] = ex * inv_c_t;
-      if (cf != nullptr) {
-        cf[i] = ex;
-        tau[i] = tf;
-      }
-    }
-  }
-}
-
-// Per-block partials of sum c_0 V and of the squares (of the pair means
-// with antithetic paths).
-__global__ void __launch_bounds__(kThreads)
-final_partials_kernel(const FusedpathParams p, const float* __restrict__ V,
-                      const float* __restrict__ stats, double* __restrict__ partials) {
-  const float c_0 = stats[2 * (p.n_steps + 1)];
-  const int half = p.n_paths / 2;
-  double acc[2] = {0.0, 0.0};
-  if (p.antithetic) {
-    for (int i = blockIdx.x * kThreads + threadIdx.x; i < half; i += gridDim.x * kThreads) {
-      const float va = c_0 * V[i];
-      const float vb = c_0 * V[i + half];
-      const float fold = 0.5f * (va + vb);
-      acc[0] += static_cast<double>(va);
-      acc[0] += static_cast<double>(vb);
-      acc[1] += static_cast<double>(fold * fold);
     }
   } else {
-    for (int i = blockIdx.x * kThreads + threadIdx.x; i < p.n_paths; i += gridDim.x * kThreads) {
-      const float v = c_0 * V[i];
-      acc[0] += static_cast<double>(v);
-      acc[1] += static_cast<double>(v * v);
+    draw4(p, p.n_steps, u, z);
+    const float wT = sqrtf(p.dt * T);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[h][j] = wT * (h ? -z[j] : z[j]);
     }
   }
-  block_reduce_store<2>(acc, partials + static_cast<size_t>(blockIdx.x) * 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float s = spot(p, w[h][j], T);
+      v[h][j] = fmaxf(p.phi * (s - p.strike), 0.0f);
+      if (p.barrier && !gate_open(p, tb[h][j], T)) v[h][j] = 0.0f;
+    }
+  }
+}
+
+// The state planes of a quad slot, [W | V | S even | S odd | tau_B]: S_t
+// lives in plane 2 + (t & 1), so S_{t+1} survives the pass that makes S_t.
+constexpr int kW = 0, kV = 1, kS = 2, kTB = 4;
+
+// Where plane `plane` of quad slot k of this thread lies: shared memory
+// below chip_slots (chip_slots x kThreads quads a plane), else the global
+// spill planes (n_paths floats each) at quad q.
+__device__ __forceinline__ float4* state(const FusedpathParams& p, float4* chip, float* spill,
+                                         int plane, int k, int q) {
+  if (k < p.chip_slots) return chip + (plane * p.chip_slots + k) * kThreads + threadIdx.x;
+  return reinterpret_cast<float4*>(spill + static_cast<size_t>(plane) * p.n_paths) + q;
+}
+
+// basis_cols of a quad's four paths with the basis switch outside the
+// recurrences, so the four chains interleave (basis_cols' operations, so
+// its bits).
+template <int K, int kBasis>
+__device__ __forceinline__ void quad_cols_of(const float (&x)[4], float (&cols)[4][K]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) basis_cols<K>(x[j], kBasis, cols[j]);
 }
 
 template <int K>
-cudaError_t run_fusedpath(const FusedpathParams& p, const float* stats,
-                          const unsigned char* allow, float* V, float* W, float* Sp, float* TB,
-                          float* cf, float* tau, double* partials, float* coeffs, float* sums,
-                          int replay, cudaStream_t stream) {
-  const int nb = p.n_blocks;
-  maturity_kernel<<<nb, kThreads, 0, stream>>>(p, V, W, TB, cf, tau);
-  AMCX_LAUNCH_CHECK();
-  for (int t = p.n_steps - 1; t >= 0; --t) {
-    float* coeffs_row = coeffs + static_cast<size_t>(t) * K;
-    regen_moments_kernel<K><<<nb, kThreads, 0, stream>>>(p, stats, W, V, TB, Sp, partials, t,
-                                                         !replay);
-    AMCX_LAUNCH_CHECK();
-    if (!replay) {
-      solve_kernel<K><<<1, kThreads, 0, stream>>>(partials, nb, K, p.rcond, coeffs_row);
-      AMCX_LAUNCH_CHECK();
-    }
-    // European: the regression still runs (coefficient export) but the
-    // carry is never touched; a Bermudan row skips the dates it forbids
-    if (p.american && allow[t]) {
-      apply_kernel<K><<<nb, kThreads, 0, stream>>>(p, stats, Sp, TB, V, cf, tau, coeffs_row, t);
-      AMCX_LAUNCH_CHECK();
+__device__ __forceinline__ void quad_cols(int basis, const float (&x)[4], float (&cols)[4][K]) {
+  switch (basis) {
+    case kPower:
+      quad_cols_of<K, kPower>(x, cols);
+      break;
+    case kChebyshev:
+      quad_cols_of<K, kChebyshev>(x, cols);
+      break;
+    case kLegendre:
+      quad_cols_of<K, kLegendre>(x, cols);
+      break;
+    case kLaguerre:
+      quad_cols_of<K, kLaguerre>(x, cols);
+      break;
+    default:
+      quad_cols_of<K, kHermite>(x, cols);
+      break;
+  }
+}
+
+// The fit's basis columns and weights of a quad's spots of step t.
+template <int K>
+__device__ __forceinline__ void fit_quad(const FusedpathParams& p, const float (&s)[4],
+                                         const float (&tb)[4], float tf, float mean,
+                                         float inv_std, float (&cols)[4][K], float (&wgt)[4]) {
+  float x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = (s[j] - mean) * inv_std;
+  quad_cols<K>(p.basis, x, cols);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wgt[j] = 1.0f;
+    if (p.itm_weights) {
+      wgt[j] = fmaxf(p.phi * (s[j] - p.strike), 0.0f) > 0.0f ? 1.0f : 0.0f;
+      if (p.barrier && !gate_open(p, tb[j], tf)) wgt[j] = 0.0f;
     }
   }
-  final_partials_kernel<<<nb, kThreads, 0, stream>>>(p, V, stats, partials);
-  AMCX_LAUNCH_CHECK();
-  sum_partials_kernel<<<1, kThreads, 0, stream>>>(partials, nb, 2, sums);
-  return cudaGetLastError();
+}
+
+// Thread 0 waits until *word reaches target, then the block may read what
+// was fenced before it.
+__device__ __forceinline__ void wait_for(const volatile unsigned* word, unsigned target) {
+  if (threadIdx.x == 0) {
+    while (*word < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// After a block's row is written: fence it and count the arrival.
+__device__ __forceinline__ void arrive(unsigned* arrivals) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(arrivals, 1u);
+}
+
+// The pricing (the header's design): block 0 solves, blocks 1.. run the
+// passes A and B of each step.
+template <int K>
+__global__ void __launch_bounds__(kThreads, K <= 6 ? 2 : 1)
+fusedpath_kernel(const __grid_constant__ FusedpathParams p, const float* __restrict__ stats,
+                 const unsigned char* __restrict__ allow, float* spill, float* __restrict__ cf,
+                 float* __restrict__ tau, double* partials, float* coeffs,
+                 float* __restrict__ sums, int replay) {
+  constexpr int P = Layout<K>::kMoments;
+  constexpr int kPairs = Layout<K>::kPairs;
+  extern __shared__ float4 chip[];
+  __shared__ float packed[P];
+  __shared__ float coef[K];
+  const int T = p.n_steps;
+  const int T1 = T + 1;
+  unsigned* arrivals = reinterpret_cast<unsigned*>(partials);
+  const volatile unsigned* generation = arrivals + 1;
+  double* rows = partials + 1;
+  const int n_workers = gridDim.x - 1;
+
+  if (blockIdx.x == 0) {
+    for (int t = T - 1; t >= 0 && !replay; --t) {
+      wait_for(arrivals, static_cast<unsigned>(n_workers * (T - t)));
+      sum_partials_coherent(rows, n_workers, P, packed);
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        float scratch[solve_scratch_floats(K)];
+        solve_equilibrated_ridge<K>(packed, K, p.rcond, coef, scratch);
+#pragma unroll
+        for (int i = 0; i < K; ++i) coeffs[t * K + i] = coef[i];
+        __threadfence();
+        atomicAdd(arrivals + 1, 1u);
+      }
+    }
+    wait_for(arrivals, static_cast<unsigned>(n_workers * (replay ? 1 : T + 1)));
+    sum_partials_coherent(rows, n_workers, 2, sums);
+    return;
+  }
+
+  const int qpu = p.antithetic ? 2 : 1;
+  const int n_units = p.n_paths / (4 * qpu);
+  const int half_quads = p.n_paths / 8;
+  const int first = (blockIdx.x - 1) * kThreads + threadIdx.x;
+  const int stride = n_workers * kThreads;
+  const float sqrt_dt = sqrtf(p.dt);
+  double* row = rows + static_cast<size_t>(blockIdx.x - 1) * P;
+
+  // step t = T-1 .. 0, then t = -1 for the final sums
+  for (int t = T - 1; t >= -1; --t) {
+    const int a = t + 1;  // the step whose exercise pass B applies
+    const bool at_maturity = a == T;
+    const bool moments = t >= 0 && !replay;
+    const int tc = t < 0 ? 0 : t;
+    const float tf = static_cast<float>(tc), fa = static_cast<float>(a);
+    const float mean = stats[tc], inv_std = stats[T1 + tc], c_t = stats[2 * T1 + tc];
+    const float ratio = tf / (tf + 1.0f);
+    const float bscale = sqrtf(p.dt * ratio);
+    double acc[P];
+#pragma unroll
+    for (int m = 0; m < P; ++m) acc[m] = 0.0;
+
+    // pass A: maturity (t = T-1) or the stored W_{t+1}; regenerate W_t,
+    // S_t; the Gram head of step t
+    for (int u = first, k = 0; t >= 0 && u < n_units; u += stride, k += qpu) {
+      float w[2][4], v[2][4], tb[2][4], z[4];
+      if (at_maturity) maturity(p, u, qpu, w, v, tb);
+      draw4(p, p.barrier ? t + 1 : t, u, z);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h >= qpu) break;
+        const int q = u + h * half_quads;
+        if (at_maturity) {
+          store4(state(p, chip, spill, kV, k + h, q), v[h]);
+          if (p.barrier) store4(state(p, chip, spill, kTB, k + h, q), tb[h]);
+          if (cf != nullptr) {
+            const float taus[4] = {fa, fa, fa, fa};
+            store4(reinterpret_cast<float4*>(cf) + q, v[h]);
+            store4(reinterpret_cast<float4*>(tau) + q, taus);
+          }
+        } else {
+          load4(state(p, chip, spill, kW, k + h, q), w[h]);
+          if (p.barrier && moments) load4(state(p, chip, spill, kTB, k + h, q), tb[h]);
+        }
+        float s[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float zj = h ? -z[j] : z[j];
+          w[h][j] = p.barrier ? w[h][j] - sqrt_dt * zj : ratio * w[h][j] + bscale * zj;
+          s[j] = spot(p, w[h][j], tf);
+        }
+        if (moments) {
+          float cols[4][K], wgt[4];
+          fit_quad<K>(p, s, tb[h], tf, mean, inv_std, cols, wgt);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int i = 0; i < K; ++i) {
+              const float ci = cols[j][i] * wgt[j];
+#pragma unroll
+              for (int b = i; b < K; ++b) {
+                acc[pair_index(K, i, b)] += static_cast<double>(ci * cols[j][b]);
+              }
+            }
+          }
+        }
+        store4(state(p, chip, spill, kW, k + h, q), w[h]);
+        store4(state(p, chip, spill, kS + (t & 1), k + h, q), s);
+      }
+    }
+
+    // the coefficients of step a: block 0 has solved it (and so read every
+    // row of step a) before this block's row is written again
+    const bool apply = !at_maturity && p.american && (allow == nullptr || allow[a]);
+    float cf_row[K];
+    if (!at_maturity && !replay) {
+      wait_for(generation, static_cast<unsigned>(T - a));
+      if (apply && threadIdx.x < K) coef[threadIdx.x] = __ldcg(coeffs + a * K + threadIdx.x);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i) cf_row[i] = apply ? (replay ? coeffs[a * K + i] : coef[i]) : 0.0f;
+    const float mean_a = stats[a], inv_std_a = stats[T1 + a], inv_c_a = stats[3 * T1 + a];
+    const float c_0 = stats[2 * T1];
+
+    // pass B: the exercise of step a on S_a, then the right-hand side of
+    // step t on the new V (or, at t = -1, the final sums)
+    for (int u = first, k = 0; u < n_units && (apply || moments || t < 0); u += stride,
+                                                                          k += qpu) {
+      float v[2][4], tb[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h >= qpu) break;
+        const int q = u + h * half_quads;
+        load4(state(p, chip, spill, kV, k + h, q), v[h]);
+        if (p.barrier && (apply || moments)) load4(state(p, chip, spill, kTB, k + h, q), tb[h]);
+        if (apply) {
+          float s[4], x[4], cols[4][K];
+          load4(state(p, chip, spill, kS + (a & 1), k + h, q), s);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) x[j] = (s[j] - mean_a) * inv_std_a;
+          quad_cols<K>(p.basis, x, cols);
+          bool exercise[4];
+          float ex[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float fitted = cols[j][0] * cf_row[0];
+#pragma unroll
+            for (int i = 1; i < K; ++i) fitted = fitted + cols[j][i] * cf_row[i];
+            // max(fitted, 0) that keeps a NaN fit NaN, as torch.clamp_min does
+            const float cont = fitted > 0.0f ? fitted : (fitted != fitted ? fitted : 0.0f);
+            ex[j] = fmaxf(p.phi * (s[j] - p.strike), 0.0f);
+            exercise[j] = ex[j] > cont && (!p.barrier || gate_open(p, tb[h][j], fa));
+            v[h][j] = exercise[j] ? ex[j] * inv_c_a : v[h][j];
+          }
+          store4(state(p, chip, spill, kV, k + h, q), v[h]);
+          if (cf != nullptr) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (!exercise[j]) continue;
+              cf[4 * static_cast<size_t>(q) + j] = ex[j];
+              tau[4 * static_cast<size_t>(q) + j] = fa;
+            }
+          }
+        }
+        if (moments) {
+          float s[4], cols[4][K], wgt[4];
+          load4(state(p, chip, spill, kS + (t & 1), k + h, q), s);
+          fit_quad<K>(p, s, tb[h], tf, mean, inv_std, cols, wgt);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float yw = c_t * v[h][j] * wgt[j];
+#pragma unroll
+            for (int i = 0; i < K; ++i) acc[kPairs + i] += static_cast<double>(cols[j][i] * yw);
+          }
+        }
+      }
+      if (t >= 0) continue;
+      if (p.antithetic) {  // the final sums
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float va = c_0 * v[0][j];
+          const float vb = c_0 * v[1][j];
+          const float fold = 0.5f * (va + vb);
+          acc[0] += static_cast<double>(va);
+          acc[0] += static_cast<double>(vb);
+          acc[1] += static_cast<double>(fold * fold);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float x = c_0 * v[0][j];
+          acc[0] += static_cast<double>(x);
+          acc[1] += static_cast<double>(x * x);
+        }
+      }
+    }
+
+    if (t < 0) {
+      double fin[2] = {acc[0], acc[1]};
+      block_reduce_store<2>(fin, rows + static_cast<size_t>(blockIdx.x - 1) * 2);
+      arrive(arrivals);
+    } else if (moments) {
+      block_reduce_store<P>(acc, row);
+      arrive(arrivals);
+    }
+  }
+}
+
+template <int K>
+cudaError_t occupancy(int smem, int* blocks_per_sm) {
+  const auto kernel = fusedpath_kernel<K>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int device = 0, optin = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (err != cudaSuccess) return err;
+  if (static_cast<size_t>(smem) + attr.sharedSizeBytes > static_cast<size_t>(optin)) {
+    *blocks_per_sm = 0;
+    return cudaSuccess;
+  }
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);
+}
+
+template <int K>
+cudaError_t launch(const FusedpathParams& p, const float* stats, const unsigned char* allow,
+                   float* spill, float* cf, float* tau, double* partials, float* coeffs,
+                   float* sums, int replay, size_t smem, cudaStream_t stream) {
+  const auto kernel = fusedpath_kernel<K>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {const_cast<FusedpathParams*>(&p), &stats, &allow, &spill, &cf, &tau,
+                  &partials, &coeffs, &sums, &replay};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(p.n_blocks),
+                                     dim3(kThreads), args, smem, stream);
+}
+
+// Quad slots a worker thread needs: its units times the quads a unit.
+int slots_needed(const FusedpathParams& p) {
+  const int qpu = p.antithetic ? 2 : 1;
+  const long long threads = static_cast<long long>(p.n_blocks - 1) * kThreads;
+  const long long units = p.n_paths / (4 * qpu);
+  return static_cast<int>((units + threads - 1) / threads) * qpu;
 }
 
 }  // namespace
 
-// params: the pricing (host memory); stats 4 (n_steps+1) f32 rows
-// [mean_t, inv_std_t, c_t, 1/c_t]; allow (n_steps+1) host bytes, 1 where a
-// date may exercise; V, W, Sp (n_paths) f32 scratch; TB (n_paths) scratch
-// with a barrier, else null; cf, tau (n_paths) out, or both null; partials
-// (n_blocks, max(P, 2)) f64 scratch; coeffs (n_steps+1, degree+1): out,
-// zeroed by the caller, or with replay the frozen rows (maturity row 0);
-// sums (2) out. Every plane 16-byte aligned. Returns a cudaError_t.
+#define AMCX_FUSEDPATH_DISPATCH(CALL)        \
+  switch (degree + 1) {                      \
+    case 1: return static_cast<int>(CALL(1)); \
+    case 2: return static_cast<int>(CALL(2)); \
+    case 3: return static_cast<int>(CALL(3)); \
+    case 4: return static_cast<int>(CALL(4)); \
+    case 5: return static_cast<int>(CALL(5)); \
+    case 6: return static_cast<int>(CALL(6)); \
+    case 7: return static_cast<int>(CALL(7)); \
+    case 8: return static_cast<int>(CALL(8)); \
+    case 9: return static_cast<int>(CALL(9)); \
+    case 10: return static_cast<int>(CALL(10)); \
+    case 11: return static_cast<int>(CALL(11)); \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
+// blocks_per_sm: how many blocks of the degree's kernel with smem bytes of
+// dynamic shared memory one SM holds at once (0 when smem exceeds a block's
+// limit). Returns a cudaError_t.
+extern "C" int amcx_lsmc_fusedpath_occupancy(int degree, int smem, int* blocks_per_sm) {
+  if (smem < 0 || blocks_per_sm == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+#define AMCX_OCCUPANCY(KK) occupancy<KK>(smem, blocks_per_sm)
+  AMCX_FUSEDPATH_DISPATCH(AMCX_OCCUPANCY)
+#undef AMCX_OCCUPANCY
+}
+
+// params: the pricing and its grid (host memory; n_blocks >= 2 blocks of
+// kThreads, all co-resident, else the launch is refused); stats 4
+// (n_steps+1) f32 rows [mean_t, inv_std_t, c_t, 1/c_t]; allow (n_steps+1)
+// device bytes, 1 where a date may exercise, or null for every date; spill
+// (4 or, with a barrier, 5 planes of n_paths f32: W, V, S even, S odd,
+// tau_B) scratch for the quads past chip_slots, null where every quad stays
+// in shared memory; cf, tau (n_paths) out, or both null; partials: the
+// arrival and generation words (the first 8 bytes, zeroed by the caller),
+// then (n_blocks - 1, max(P, 2)) f64 rows of scratch; coeffs
+// (n_steps+1, degree+1): out, zeroed by the caller, or with replay the
+// frozen rows (maturity row 0); sums (2) out. Every plane 16-byte aligned.
+// Returns a cudaError_t.
 extern "C" int amcx_lsmc_fusedpath(const amcx::FusedpathParams* params, const float* stats,
-                                   const unsigned char* allow, float* V, float* W, float* Sp,
-                                   float* TB, float* cf, float* tau, double* partials,
-                                   float* coeffs, float* sums, int degree, int replay,
-                                   void* stream) {
+                                   const unsigned char* allow, float* spill, float* cf,
+                                   float* tau, double* partials, float* coeffs, float* sums,
+                                   int degree, int replay, void* stream) {
   const amcx::FusedpathParams& p = *params;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int quantum = p.antithetic ? 8 : 4;
-  if (p.n_steps < 1 || p.n_paths < quantum || p.n_paths % quantum != 0 || p.n_blocks < 1 ||
-      p.basis < 0 || p.basis > 4 || (cf == nullptr) != (tau == nullptr) ||
-      (p.barrier != 0) == (TB == nullptr) || allow == nullptr) {
+  if (p.n_steps < 1 || p.n_paths < quantum || p.n_paths % quantum != 0 || p.n_blocks < 2 ||
+      p.chip_slots < 0 || p.basis < 0 || p.basis > 4 || (cf == nullptr) != (tau == nullptr) ||
+      (slots_needed(p) > p.chip_slots && spill == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-#define AMCX_FUSEDPATH_CASE(KK)                                                           \
-  case KK:                                                                                \
-    return static_cast<int>(run_fusedpath<KK>(p, stats, allow, V, W, Sp, TB, cf, tau,     \
-                                              partials, coeffs, sums, replay, s));
-  switch (degree + 1) {
-    AMCX_FUSEDPATH_CASE(1)
-    AMCX_FUSEDPATH_CASE(2)
-    AMCX_FUSEDPATH_CASE(3)
-    AMCX_FUSEDPATH_CASE(4)
-    AMCX_FUSEDPATH_CASE(5)
-    AMCX_FUSEDPATH_CASE(6)
-    AMCX_FUSEDPATH_CASE(7)
-    AMCX_FUSEDPATH_CASE(8)
-    AMCX_FUSEDPATH_CASE(9)
-    AMCX_FUSEDPATH_CASE(10)
-    AMCX_FUSEDPATH_CASE(11)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef AMCX_FUSEDPATH_CASE
+  const size_t smem = static_cast<size_t>(p.chip_slots) * kThreads * sizeof(float4) *
+                      (p.barrier ? 5 : 4);
+#define AMCX_LAUNCH(KK) \
+  launch<KK>(p, stats, allow, spill, cf, tau, partials, coeffs, sums, replay, smem, s)
+  AMCX_FUSEDPATH_DISPATCH(AMCX_LAUNCH)
+#undef AMCX_LAUNCH
 }
+
+#undef AMCX_FUSEDPATH_DISPATCH

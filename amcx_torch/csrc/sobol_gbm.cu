@@ -21,23 +21,38 @@
 // factors over the bit ranges 0..8 and 9..29, so one XOR per element
 // rebuilds the point in natural order.
 //
-// Bound on the H100 (1M paths x 100 steps): in increment mode the store of
-// the path array (4 B per path-step, 424 MB, about 0.13 ms at 3.35 TB/s;
-// the tables add 1 MB), with ~60 f32 operations per path-step (the inverse
-// CDF's two rational forms, a log and a sqrt); in bridge mode the 2 n_steps
-// f32 operations per path-step of the bridge product (2e10 at 1M x 100,
-// about 0.3 ms at 67 TFLOP/s). Design: one thread per path, neighbouring
-// threads on neighbouring paths, so every store of row t is coalesced; the
-// u_hi word is uniform over a 512-path group (a broadcast load) and u_lo's
-// 512 words per step stay in L2. The increment mode walks the steps with a
-// running sum in a register (amcx's log-step doubling scan was a TPU
-// layout choice). The bridge mode stages B in shared memory (40 KB at 100
-// steps) and each thread's n_steps normals in a shared column (stride
-// blockDim), then forms each W_t in full f32, in a fixed order: no tensor
+// Bound on the H100 (1M paths x 100 steps): the store of the path array (4
+// B per path-step, 424 MB, about 0.13 ms at 3.35 TB/s; the tables add 1
+// MB), with ~60 f32 operations per path-step (the inverse CDF's two
+// rational forms, a log and a sqrt) and, in bridge mode, the 2 nnz(B) /
+// n_steps operations of the bridge product (B is sparse: 673 of its
+// 10,000 entries are nonzero at 100 steps, at most 8 a row). Design: one
+// thread per path, neighbouring threads on neighbouring paths, so every
+// store of row t is coalesced; the u_hi word is uniform over a 512-path
+// group (a broadcast load) and u_lo's 512 words per step stay in L2. The
+// increment mode walks the steps with a running sum in a register (amcx's
+// log-step doubling scan was a TPU layout choice).
+//
+// The bridge mode walks the rows of B in time order over its nonzeros
+// only (the host's schedule, ops/sobol_pallas.py _bridge_schedule): row t
+// lists its nonzero columns s in ascending order, each as (s, slot,
+// born, B[t, s]). Dimension s's normal is computed once, at the first row
+// that uses it (born), and kept in a shared-memory slot until its last
+// row; the bisection's nesting keeps few dimensions live (8 at 100 steps,
+// 11 at 1,000), so a block holds a few KB of normals and the step count is
+// not bounded by shared memory. The schedule is read as warp-uniform __ldg
+// loads (every thread of a warp reads the same entry), each once for the
+// kBridgePaths paths of a thread (1, 2 and 4 paths a thread timed 1.12,
+// 0.87 and 0.82 ms of device time at 1M x 100 on an H100).
+// W_t = 0 + B[t, s0] z_s0 + B[t, s1] z_s1 + ... in ascending s is the dense
+// ascending sum with its exact zeros skipped: a skipped term is b z = +-0
+// (z is finite: the uniform lies in [2^-24, 1 - 2^-24]), w + +-0 = w but
+// for the sign of a zero, and drift_dt (t+1) + vol w then exp cannot tell
+// +0 from -0. So both modes run in full f32, in a fixed order: no tensor
 // cores, no TF32, no library call. Built with -fmad=false and without fast
 // math: logf, sqrtf, expf and the division give torch's CUDA bits, so the
-// plain version (ops/sobol_pallas.py, sobol_gbm_paths_reference) equals
-// the kernel to the bit.
+// plain version (ops/sobol_pallas.py, sobol_gbm_paths_reference: the dense
+// ascending sum) equals the kernel to the bit.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -48,6 +63,11 @@ namespace {
 constexpr int kLanes = 512;  // paths per u_hi column (the low 9 index bits)
 constexpr int kLowBits = 9;
 constexpr int kIncrementThreads = 256;
+constexpr int kBridgePaths = 4;  // paths a thread in bridge mode
+constexpr int kBridgeThreads = kLanes / kBridgePaths;
+// A schedule entry's first word: the column s (bits 8..30), its slot (bits
+// 0..7) and, in bit 31, born: the first row that uses column s
+constexpr int kSlotBits = 8;
 
 // Acklam's coefficients, rounded from double to float as amcx rounds its
 // Python floats.
@@ -121,67 +141,85 @@ sobol_increment_kernel(const uint32_t* __restrict__ u_hi, const uint32_t* __rest
   }
 }
 
-// Dynamic shared memory: B (n_steps x n_steps) then the normals, n_steps
-// columns of blockDim floats.
-__global__ void sobol_bridge_kernel(const uint32_t* __restrict__ u_hi,
-                                    const uint32_t* __restrict__ u_lo,
-                                    const float* __restrict__ bmat, float* __restrict__ out,
-                                    int n_steps, int n_paths, float S0, float drift_dt,
-                                    float vol) {
-  extern __shared__ float smem[];
-  float* B = smem;
-  float* z = smem + n_steps * n_steps;
-  for (int q = threadIdx.x; q < n_steps * n_steps; q += blockDim.x) B[q] = bmat[q];
-  __syncthreads();
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_paths) return;
+// Dynamic shared memory: n_slots x kBridgePaths columns of kBridgeThreads
+// normals. row_ptr (n_steps + 1) and entries (nnz x {column|slot|born, bits
+// of B[t, s]}): the schedule, rows in time order, columns ascending. A
+// block covers one 512-path group, each thread kBridgePaths paths
+// kBridgeThreads apart, so each schedule entry is loaded once for them.
+__global__ void __launch_bounds__(kBridgeThreads)
+sobol_bridge_kernel(const uint32_t* __restrict__ u_hi, const uint32_t* __restrict__ u_lo,
+                    const int* __restrict__ row_ptr, const int2* __restrict__ entries,
+                    float* __restrict__ out, int n_steps, int n_paths, float S0, float drift_dt,
+                    float vol) {
+  extern __shared__ float slots[];
+  const int p0 = blockIdx.x * kLanes + threadIdx.x;
+  float* z_of = slots + threadIdx.x;  // path j of slot k at z_of[(k kBridgePaths + j) threads]
   const size_t row = static_cast<size_t>(n_paths);
   const int n_blocks = n_paths / kLanes;
-  const int stride = blockDim.x;
-  for (int s = 0; s < n_steps; ++s) {
-    z[s * stride + threadIdx.x] = sobol_normal(u_hi, u_lo, s, n_blocks, p);
-  }
-  out[p] = S0;
+#pragma unroll
+  for (int j = 0; j < kBridgePaths; ++j) out[p0 + j * kBridgeThreads] = S0;
+  int e = __ldg(row_ptr);
   for (int t = 0; t < n_steps; ++t) {
-    const float* b = B + t * n_steps;
-    float w = 0.0f;
-    for (int s = 0; s < n_steps; ++s) w = w + b[s] * z[s * stride + threadIdx.x];
-    const float cum = drift_dt * static_cast<float>(t + 1) + vol * w;
-    out[(static_cast<size_t>(t) + 1) * row + p] = S0 * expf(cum);
+    const int end = __ldg(row_ptr + t + 1);
+    float w[kBridgePaths];
+#pragma unroll
+    for (int j = 0; j < kBridgePaths; ++j) w[j] = 0.0f;
+    for (; e < end; ++e) {
+      const int2 entry = __ldg(entries + e);
+      const float b = __int_as_float(entry.y);
+      float* slot = z_of + (entry.x & ((1 << kSlotBits) - 1)) * kBridgePaths * kBridgeThreads;
+      if (entry.x < 0) {  // born here: the normals of Sobol dimension s
+        const int s = (entry.x & 0x7FFFFFFF) >> kSlotBits;
+#pragma unroll
+        for (int j = 0; j < kBridgePaths; ++j) {
+          const float z = sobol_normal(u_hi, u_lo, s, n_blocks, p0 + j * kBridgeThreads);
+          slot[j * kBridgeThreads] = z;
+          w[j] = w[j] + b * z;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kBridgePaths; ++j) w[j] = w[j] + b * slot[j * kBridgeThreads];
+      }
+    }
+    const float drift = drift_dt * static_cast<float>(t + 1);
+#pragma unroll
+    for (int j = 0; j < kBridgePaths; ++j) {
+      out[(static_cast<size_t>(t) + 1) * row + p0 + j * kBridgeThreads] =
+          S0 * expf(drift + vol * w[j]);
+    }
   }
 }
 
 }  // namespace
 
-// u_hi (n_steps, n_paths / 512) and u_lo (n_steps, 512) uint32 tables; bmat
-// (n_steps, n_steps) f32 or null (increment mode); out (n_steps+1, n_paths)
-// f32. n_paths a multiple of 512. bridge_threads: the bridge mode's block
-// size (a divisor of 512 whose shared memory, 4 (n_steps^2 + threads
-// n_steps) bytes, fits the block). Returns a cudaError_t.
+// u_hi (n_steps, n_paths / 512) and u_lo (n_steps, 512) uint32 tables;
+// row_ptr and entries: the bridge schedule (see sobol_bridge_kernel), or
+// both null (increment mode); n_slots its live normals a path; out
+// (n_steps+1, n_paths) f32. n_paths a multiple of 512. Returns a
+// cudaError_t.
 extern "C" int amcx_sobol_gbm_paths(const unsigned int* u_hi, const unsigned int* u_lo,
-                                    const float* bmat, float* out, int n_steps, int n_paths,
-                                    float S0, float drift_dt, float vol, int bridge_threads,
-                                    void* stream) {
-  if (n_steps < 1 || n_paths < kLanes || n_paths % kLanes != 0) {
+                                    const int* row_ptr, const int* entries, float* out,
+                                    int n_steps, int n_paths, float S0, float drift_dt, float vol,
+                                    int n_slots, void* stream) {
+  if (n_steps < 1 || n_paths < kLanes || n_paths % kLanes != 0 ||
+      (row_ptr == nullptr) != (entries == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bmat == nullptr) {
+  if (row_ptr == nullptr) {
     sobol_increment_kernel<<<n_paths / kIncrementThreads, kIncrementThreads, 0, s>>>(
         u_hi, u_lo, out, n_steps, n_paths, S0, drift_dt, vol);
     return static_cast<int>(cudaGetLastError());
   }
-  if (bridge_threads < 32 || kLanes % bridge_threads != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = (static_cast<size_t>(n_steps) * n_steps +
-                       static_cast<size_t>(bridge_threads) * n_steps) * sizeof(float);
+  if (n_slots < 1 || n_slots > (1 << kSlotBits)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(n_slots) * kLanes * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         sobol_bridge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  sobol_bridge_kernel<<<n_paths / bridge_threads, bridge_threads, smem, s>>>(
-      u_hi, u_lo, bmat, out, n_steps, n_paths, S0, drift_dt, vol);
+  sobol_bridge_kernel<<<n_paths / kLanes, kBridgeThreads, smem, s>>>(
+      u_hi, u_lo, row_ptr, reinterpret_cast<const int2*>(entries), out, n_steps, n_paths, S0,
+      drift_dt, vol);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,8 +2,8 @@
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python3 -m amcx_torch.kernel_profile [--route put|book|ma-step|swing|step] [--reps 20]
-        [--label NAME]
+    python3 -m amcx_torch.kernel_profile [--route put|book|ma-step|swing|step|fusedpath|qmc]
+        [--reps 20] [--label NAME]
 
 Routes, each on fixed inputs made from fixed seeds:
 
@@ -31,6 +31,15 @@ Routes, each on fixed inputs made from fixed seeds:
   solved once on the CPU; the hash covers both packed vectors and the
   cf, tau and surface rows of one apply on fresh copies of the carry. It
   also prints the ITM moments' device time at degrees 0, 2, 4 and 10.
+- ``fusedpath`` (kernel 6): the flagship put regenerated inside the
+  induction (1,048,576 paths x 100 steps, ITM fit, Chebyshev degree 4)
+  through ``lsmc_price_fusedpath`` with ``return_cf_tau`` and
+  ``return_coeffs``; the hash covers the price, stderr, cf/tau planes and
+  coefficient bits.
+- ``qmc`` (kernel 11): scrambled-Sobol paths of the flagship market at
+  1,048,576 paths x 100 steps through ``sobol_gbm_paths``, increment and
+  then bridge order (one run is both arrays); the hash covers the path
+  bits of each order.
 
 The routes other than ``put`` also print the wrappers' host time per run
 (enqueue, no sync) and the CUDA-event time minus the device time; a
@@ -170,7 +179,35 @@ def _step(torch, amcx_torch, dev):
     return run, outs, {"price": packed_itm[0], "by_degree": by_degree}
 
 
-ROUTES = {"put": _put, "book": _book, "ma-step": _ma_step, "swing": _swing, "step": _step}
+def _fusedpath(torch, amcx_torch, dev):
+    from amcx_torch.ops.lsmc_fusedpath import lsmc_price_fusedpath
+
+    n_paths, n_steps, S0, r, sigma, K, T = 1_048_576, 100, 100.0, 0.01, 0.2, 100.0, 1.0
+
+    def run():
+        return lsmc_price_fusedpath(20261016, S0, K, r, sigma, T / n_steps, n_steps, n_paths,
+                                    -1.0, itm_weights=True, return_cf_tau=True,
+                                    return_coeffs=True, device=dev)
+
+    res = run()
+    return run, tuple(res), {"price": res.price}
+
+
+def _qmc(torch, amcx_torch, dev):
+    from amcx_torch.ops.sobol_pallas import sobol_gbm_paths
+
+    args = (20261016, 100.0, 0.01, 0.2, 0.0, 1.0, 100, 1_048_576)
+
+    def run():
+        return tuple(sobol_gbm_paths(*args, brownian_bridge=bridge, device=dev)
+                     for bridge in (False, True))
+
+    outs = run()
+    return run, outs, {"price": outs[1][-1].mean()}
+
+
+ROUTES = {"put": _put, "book": _book, "ma-step": _ma_step, "swing": _swing, "step": _step,
+          "fusedpath": _fusedpath, "qmc": _qmc}
 
 
 def _device_us(torch, profile, activity, fn, reps):

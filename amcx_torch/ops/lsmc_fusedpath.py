@@ -38,6 +38,7 @@ so that kernel 2 can price the same bits.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import operator
 from typing import Callable, NamedTuple, Optional
@@ -56,17 +57,18 @@ __all__ = ["lsmc_price_fusedpath", "lsmc_price_fusedpath_reference", "fusedpath_
            "fusedpath_paths_reference"]
 
 _THREADS = 256  # csrc/lsmc_common.cuh kThreads
-_MAX_BLOCKS = 1024
+_QUAD_BYTES = 16  # one f32 plane of a quad of paths
 _TWO_PI = 2.0 * math.pi
 _BARRIER_TYPES = ("down-in", "down-out", "up-in", "up-out")
 
 
 class FusedpathParams(ctypes.Structure):
     """``struct FusedpathParams`` of ``csrc/lsmc_fusedpath.cu``, handed to
-    the kernels by value."""
+    the kernel by value."""
 
     _fields_ = [("n_steps", ctypes.c_int), ("n_paths", ctypes.c_int),
-                ("n_blocks", ctypes.c_int), ("basis", ctypes.c_int),
+                ("n_blocks", ctypes.c_int), ("chip_slots", ctypes.c_int),
+                ("basis", ctypes.c_int),
                 ("american", ctypes.c_int), ("itm_weights", ctypes.c_int),
                 ("antithetic", ctypes.c_int), ("barrier", ctypes.c_int),
                 ("barrier_down", ctypes.c_int), ("barrier_in", ctypes.c_int),
@@ -245,46 +247,119 @@ def _fusedpath_reference(cfg: _Config, stats, coeffs, allow, cf_tau,
     return torch.stack([_sum_once_rounded(v), _sum_once_rounded(sq * sq)]), coeffs, cf, tau
 
 
+def _state_planes(barrier: bool) -> int:
+    """f32 planes of per-path state: W, V, S of two steps, and τ_B."""
+    return 5 if barrier else 4
+
+
+def _fusedpath_plan(n_paths: int, antithetic: bool, barrier: bool, n_sms: int,
+                    occupancy: Callable[[int], int]):
+    """The kernel's cooperative grid: ``(n_blocks, chip_slots,
+    slots_needed)``. Block 0 solves; each thread of the other blocks owns
+    units of paths (a quad, or with ``antithetic`` the mirrored quad pair)
+    and keeps their state planes in ``chip_slots`` quad slots of shared
+    memory, the rest in global spill planes (``slots_needed >
+    chip_slots``). ``occupancy`` maps a block's dynamic shared-memory bytes
+    to the blocks an SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``;
+    0 when they do not fit). The widest grid that keeps every quad on chip
+    wins; when none does, the widest grid keeps as many as its blocks leave
+    room for."""
+    qpu = 2 if antithetic else 1
+    units = n_paths // (4 * qpu)
+    slot_bytes = _THREADS * _QUAD_BYTES * _state_planes(barrier)
+    widest = occupancy(0)
+    if widest < 1 or widest * n_sms < 2:
+        raise RuntimeError("the fusedpath kernel fits no two co-resident blocks")
+
+    def grid(per_sm):
+        workers = max(1, min(per_sm * n_sms - 1, -(-units // _THREADS)))
+        return workers + 1, -(-units // (workers * _THREADS)) * qpu
+
+    for per_sm in range(widest, 0, -1):
+        n_blocks, needed = grid(per_sm)
+        if occupancy(needed * slot_bytes) * n_sms >= n_blocks:
+            return n_blocks, needed, needed
+    n_blocks, needed = grid(widest)
+    per_sm = -(-n_blocks // n_sms)
+    chip = 0
+    while chip + qpu < needed and occupancy((chip + qpu) * slot_bytes) >= per_sm:
+        chip += qpu
+    return n_blocks, chip, needed
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(degree: int, smem: int, device_index: int) -> int:
+    from . import _build
+
+    with torch.cuda.device(device_index):
+        fn = _build.function("amcx_lsmc_fusedpath_occupancy",
+                             [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+        blocks = ctypes.c_int(0)
+        _build.check(fn(degree, smem, ctypes.byref(blocks)), "amcx_lsmc_fusedpath_occupancy")
+    return blocks.value
+
+
 def _fusedpath_cuda(cfg: _Config, stats, coeffs, allow, cf_tau):
     from . import _build
 
     n, n_steps, k = cfg.n_paths, cfg.n_steps, cfg.degree + 1
     dev = stats.device
     f32 = torch.float32
-    n_blocks = max(1, min(_MAX_BLOCKS, -(-(n // 4) // _THREADS)))
-    V, W, Sp = (torch.empty(n, dtype=f32, device=dev) for _ in range(3))
-    TB = torch.empty(n, dtype=f32, device=dev) if cfg.barrier is not None else None
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    n_blocks, chip_slots, needed = _fusedpath_plan(
+        n, cfg.antithetic, cfg.barrier is not None, _build.sm_count(dev),
+        lambda smem: _occupancy(cfg.degree, smem, index))
+    # the state of the quads past the shared-memory slots
+    spill = None
+    if needed > chip_slots:
+        spill = torch.empty(_state_planes(cfg.barrier is not None) * n, dtype=f32, device=dev)
     cf = tau = None
     if cf_tau:
         cf, tau = torch.empty(n, dtype=f32, device=dev), torch.empty(n, dtype=f32, device=dev)
-    partials = torch.empty(n_blocks * max(_n_moments(cfg.degree), 2), dtype=torch.float64,
-                           device=dev)
+    # the arrival and generation words (zeroed), then the workers' rows
+    partials = torch.empty(1 + (n_blocks - 1) * max(_n_moments(cfg.degree), 2),
+                           dtype=torch.float64, device=dev)
+    partials[0] = 0.0
     replay = coeffs is not None
     if not replay:
         coeffs = torch.zeros((n_steps + 1, k), dtype=f32, device=dev)
     sums = torch.empty(2, dtype=f32, device=dev)
+    allow_dev = None if all(allow) else torch.tensor([int(a) for a in allow], dtype=torch.uint8,
+                                                     device=dev)
     key_lo, key_hi = _seed_key(cfg.seed)
     params = FusedpathParams(
-        n_steps=n_steps, n_paths=n, n_blocks=n_blocks, basis=BASIS_IDS[cfg.basis],
-        american=int(cfg.american), itm_weights=int(cfg.itm_weights),
-        antithetic=int(cfg.antithetic), barrier=int(cfg.barrier is not None),
-        barrier_down=int(cfg.barrier_down), barrier_in=int(cfg.barrier_in),
-        key_lo=key_lo, key_hi=key_hi, strike=cfg.K, phi=cfg.phi, rcond=cfg.rcond,
-        sigma=cfg.sigma, drift_dt=cfg.drift_dt, dt=cfg.dt, S0=cfg.S0,
-        level=0.0 if cfg.barrier is None else cfg.barrier)
-    allow_host = (ctypes.c_ubyte * (n_steps + 1))(*(int(a) for a in allow))
+        n_steps=n_steps, n_paths=n, n_blocks=n_blocks, chip_slots=chip_slots,
+        basis=BASIS_IDS[cfg.basis], american=int(cfg.american),
+        itm_weights=int(cfg.itm_weights), antithetic=int(cfg.antithetic),
+        barrier=int(cfg.barrier is not None), barrier_down=int(cfg.barrier_down),
+        barrier_in=int(cfg.barrier_in), key_lo=key_lo, key_hi=key_hi, strike=cfg.K,
+        phi=cfg.phi, rcond=cfg.rcond, sigma=cfg.sigma, drift_dt=cfg.drift_dt, dt=cfg.dt,
+        S0=cfg.S0, level=0.0 if cfg.barrier is None else cfg.barrier)
     Vp, I = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("amcx_lsmc_fusedpath",
-                         [ctypes.POINTER(FusedpathParams), Vp] + [Vp] * 10 + [I, I, Vp])
+                         [ctypes.POINTER(FusedpathParams)] + [Vp] * 8 + [I, I, Vp])
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(ctypes.byref(params), stats.data_ptr(), ctypes.cast(allow_host, Vp),
-            V.data_ptr(), W.data_ptr(), Sp.data_ptr(), None if TB is None else TB.data_ptr(),
-            None if cf is None else cf.data_ptr(), None if tau is None else tau.data_ptr(),
-            partials.data_ptr(), coeffs.data_ptr(), sums.data_ptr(), cfg.degree, int(replay),
-            stream)
+    rc = fn(ctypes.byref(params), stats.data_ptr(), ptr(allow_dev), ptr(spill), ptr(cf),
+            ptr(tau), partials.data_ptr(), coeffs.data_ptr(), sums.data_ptr(), cfg.degree,
+            int(replay), stream)
     lsmc_price_fusedpath.launches += 1
     _build.check(rc, "amcx_lsmc_fusedpath")
     return sums, coeffs, cf, tau
+
+
+@functools.lru_cache(maxsize=16)
+def _frame(S0: float, r: float, sigma: float, q: float, dt: float, n_steps: int,
+           device: torch.device) -> torch.Tensor:
+    """A pricing's closed-form frame and discount rows (`mega_stats`),
+    cached per market and grid: built once, the rows need no host-to-card
+    copies on later calls. Read-only."""
+    mean_t, inv_std_t = gbm_standardization(MarketParams(S0, r, sigma, q), dt * n_steps, n_steps,
+                                            device=device)
+    return mega_stats(mean_t, inv_std_t, r, dt, n_steps, device)
 
 
 def _scalar(name, x) -> float:
@@ -345,9 +420,7 @@ def _price_fusedpath(run, seed, S0, K, r, sigma, dt, n_steps, n_paths, phi, q=0.
     allow = [True] * (n_steps + 1)
     if exercise_steps is not None:
         allow = exercise_allow_row(exercise_steps, n_steps).tolist()
-    mean_t, inv_std_t = gbm_standardization(MarketParams(float(S0), r, sigma, q),
-                                            float(dt) * n_steps, n_steps, device=dev)
-    stats = mega_stats(mean_t, inv_std_t, r, dt, n_steps, dev)
+    stats = _frame(float(S0), r, sigma, q, float(dt), n_steps, dev)
     cfg = _Config(seed=seed, n_steps=n_steps, n_paths=n_paths, K=_f32(K), phi=_f32(phi),
                   rcond=_f32(rcond), sigma=_f32(sigma),
                   drift_dt=_f32((r - q - 0.5 * sigma ** 2) * dt), dt=_f32(dt), S0=_f32(S0),
@@ -381,7 +454,7 @@ def lsmc_price_fusedpath(seed, S0, K, r, sigma, dt, n_steps: int, n_paths: int, 
 
     ``seed``: an integer in [0, 2⁶⁴); the price is a pure function of
     (seed, n_paths, n_steps) and the market. Runs on ``device``: on the
-    card the kernels of ``csrc/lsmc_fusedpath.cu`` (or it raises), on the
+    card the kernel of ``csrc/lsmc_fusedpath.cu`` (or it raises), on the
     CPU :func:`lsmc_price_fusedpath_reference`'s arithmetic. The frame is
     the closed-form GBM standardization (`amcx_torch.gbm_standardization`)
     and the discount rows are `mega_stats`', so a fit here and kernel 2's on

@@ -9,12 +9,15 @@ rebuilds each point as ``u_hi[j, p >> 9] ^ u_lo[j, p & 511]``, maps it to a
 uniform and by Acklam's inverse CDF (:func:`norm_ppf`) to a normal, and
 writes the time-major ``(n_steps+1, n_paths)`` f32 path array, either by a
 running log-sum (increment order) or by the Brownian-bridge matrix (bridge
-order, `amcx_torch.qmc.brownian_bridge_matrix`).
+order, `amcx_torch.qmc.brownian_bridge_matrix`). In bridge order the
+kernel sums only B's nonzeros, walked by a schedule the host builds once
+per (n_steps, T) (:func:`_bridge_schedule`).
 
 :func:`sobol_gbm_paths_reference` computes the same function in plain torch
 with the kernel's operation order: a loop over steps for the running sum,
-and the bridge product accumulated over s in ascending order. On the card
-the two agree to the bit. Natural point order is a block permutation of
+and the dense bridge product accumulated over s in ascending order (the
+kernel's sparse sum skips exact zero terms only, which changes no bit). On
+the card the two agree to the bit. Natural point order is a block permutation of
 scipy's Gray-code order: the point sets are equal for power-of-two counts.
 scipy is imported inside the functions that need it, never at import.
 """
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 
 import numpy as np
 import torch
@@ -34,8 +38,10 @@ __all__ = ["sobol_gbm_paths", "sobol_gbm_paths_reference", "simulate_gbm_qmc_dev
 
 LANES = 512  # paths per u_hi column: the low 9 bits of the path index
 _LOW_BITS = 9
-_SMEM_BYTES = 232_448  # shared memory a block can have on the H100
-BRIDGE_MAX_STEPS = 225  # B and 32 threads' normals in one block's shared memory
+# the dense bridge matrix the plain version sums (and its f64 host builder)
+# stays small: 4 MB of f32 at the cap
+BRIDGE_MAX_STEPS = 1024
+_SLOT_BITS = 8  # csrc/sobol_gbm.cu kSlotBits
 
 # Acklam's inverse normal CDF coefficients
 _A = (-3.969683028665376e+01, 2.209460984245205e+02, -2.759285104469687e+02,
@@ -136,14 +142,41 @@ def _bridge_matrix(n_steps, T):
     return np.ascontiguousarray(brownian_bridge_matrix(n_steps, T / n_steps), np.float32)
 
 
-def _bridge_threads(n_steps: int) -> int:
-    """The bridge kernel's block size: the largest of 128, 64, 32 threads
-    whose shared memory (B and each thread's normals) fits a block."""
-    for threads in (128, 64, 32):
-        if 4 * (n_steps * n_steps + threads * n_steps) <= _SMEM_BYTES:
-            return threads
-    raise ValueError(f"bridge mode takes at most {BRIDGE_MAX_STEPS} steps on the kernel "
-                     f"(B must fit one block's shared memory), got {n_steps}")
+@functools.lru_cache(maxsize=8)
+def _bridge_schedule(n_steps: int, T: float):
+    """The bridge kernel's walk over the nonzeros of the f32 bridge matrix B:
+    ``(row_ptr (n_steps+1,) int32, entries (nnz, 2) int32, n_slots)``. Row
+    t's entries are its nonzero columns s in ascending order, each
+    ``(s << 8 | slot | born << 31, bits of B[t, s])``: column s's normal is
+    made at its first row (born) into a slot that no other column holds
+    between that row and s's last row; ``n_slots`` slots are live at most.
+    Read-only (cached)."""
+    B = _bridge_matrix(n_steps, T)
+    rows, cols = np.nonzero(B)  # row-major: columns ascending within a row
+    last = np.zeros(n_steps, dtype=np.int64)
+    last[cols] = rows  # the last row that uses each column
+    words = np.empty(cols.size, dtype=np.int64)
+    slot_of, free, n_slots = {}, [], 0
+    row_ptr = np.searchsorted(rows, np.arange(n_steps + 1)).astype(np.int32)
+    for t in range(n_steps):
+        start, end = row_ptr[t], row_ptr[t + 1]
+        for e in range(start, end):
+            s = int(cols[e])
+            born = s not in slot_of
+            if born:  # the lowest free slot, else a new one
+                slot_of[s] = heapq.heappop(free) if free else n_slots
+                n_slots = max(n_slots, slot_of[s] + 1)
+            words[e] = (s << _SLOT_BITS) | slot_of[s] | (born << 31)
+        for s in cols[start:end]:
+            if last[s] == t:
+                heapq.heappush(free, slot_of[int(s)])
+    if n_slots > 1 << _SLOT_BITS:
+        raise ValueError(f"the bridge schedule needs {n_slots} slots")
+    entries = np.stack([words.astype(np.uint32).view(np.int32),
+                        B[rows, cols].view(np.int32)], axis=1)
+    for a in (row_ptr, entries):
+        a.flags.writeable = False
+    return row_ptr, entries, n_slots
 
 
 def _check(n_steps, n_paths, bridge):
@@ -152,8 +185,9 @@ def _check(n_steps, n_paths, bridge):
     if n_paths % LANES or n_paths < LANES or n_paths > 2 ** 30:
         raise ValueError(f"n_paths must be a multiple of {LANES} in [{LANES}, 2^30], "
                          f"got {n_paths}")
-    if bridge:
-        _bridge_threads(n_steps)
+    if bridge and n_steps > BRIDGE_MAX_STEPS:
+        raise ValueError(f"bridge mode takes at most {BRIDGE_MAX_STEPS} steps (the plain "
+                         f"version's dense B), got {n_steps}")
 
 
 def sobol_gbm_paths_reference(seed, S0, r, sigma, q, T, n_steps: int, n_paths: int,
@@ -192,8 +226,11 @@ def _device_tables(seed: int, n_steps: int, n_paths: int, bridge: bool, T: float
     u_hi, u_lo = _direction_tables(seed, n_steps, n_paths)
     hi = torch.from_numpy(u_hi.view(np.int32).copy()).to(device)
     lo = torch.from_numpy(u_lo.view(np.int32).copy()).to(device)
-    B = torch.from_numpy(_bridge_matrix(n_steps, T)).to(device) if bridge else None
-    return hi, lo, B
+    if not bridge:
+        return hi, lo, None, None, 0
+    row_ptr, entries, n_slots = _bridge_schedule(n_steps, T)
+    return (hi, lo, torch.from_numpy(row_ptr.copy()).to(device),
+            torch.from_numpy(entries.copy()).to(device), n_slots)
 
 
 def sobol_gbm_paths(seed, S0, r, sigma, q, T, n_steps: int, n_paths: int,
@@ -220,16 +257,16 @@ def sobol_gbm_paths(seed, S0, r, sigma, q, T, n_steps: int, n_paths: int,
     _check(n_steps, n_paths, brownian_bridge)
     from . import _build
 
-    hi, lo, B = _device_tables(int(seed), n_steps, n_paths, bool(brownian_bridge), float(T),
-                               device)
+    hi, lo, row_ptr, entries, n_slots = _device_tables(int(seed), n_steps, n_paths,
+                                                       bool(brownian_bridge), float(T), device)
     S0, drift_dt, vol = _params(S0, r, sigma, q, T, n_steps, brownian_bridge)
-    threads = _bridge_threads(n_steps) if brownian_bridge else 0
     out = torch.empty((n_steps + 1, n_paths), dtype=torch.float32, device=device)
     Vp, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _build.function("amcx_sobol_gbm_paths", [Vp, Vp, Vp, Vp, I, I, F, F, F, I, Vp])
+    fn = _build.function("amcx_sobol_gbm_paths", [Vp, Vp, Vp, Vp, Vp, I, I, F, F, F, I, Vp])
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(hi.data_ptr(), lo.data_ptr(), None if B is None else B.data_ptr(), out.data_ptr(),
-            n_steps, n_paths, S0, drift_dt, vol, threads, stream)
+    rc = fn(hi.data_ptr(), lo.data_ptr(), None if row_ptr is None else row_ptr.data_ptr(),
+            None if entries is None else entries.data_ptr(), out.data_ptr(), n_steps, n_paths,
+            S0, drift_dt, vol, n_slots, stream)
     sobol_gbm_paths.launches += 1
     _build.check(rc, "amcx_sobol_gbm_paths")
     return out

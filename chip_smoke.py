@@ -32,8 +32,9 @@ width:
   against CRR-2000 per strike, the xla book, the single-option kernel and,
   for mixed maturities and the Greeks ladder, the xla routes;
 - phases 13-14: zero-path-memory pricing: the kernel ``lsmc_fusedpath``,
-  which regenerates the paths inside the induction, against its plain
-  version in five cases and against ``lsmc_mega`` on the same paths, then
+  which regenerates the paths inside the induction in one cooperative
+  launch, against its plain version in eight cases (degrees 0, 4 and 10,
+  an uneven grid) and against ``lsmc_mega`` on the same paths, then
   ``price_option(engine="fusedpath")`` (the put against CRR-2000, a
   down-and-in put against the CRR barrier tree, 1M x 1000 steps) and
   ``price_out_of_sample`` fitted on 1M paths and replayed on 16 blocks of
@@ -48,8 +49,9 @@ width:
   an 11-rights forward up-swing at 1M x 20) against its composed lattice
   value;
 - phases 17-18: scrambled-Sobol QMC: the kernel ``sobol_gbm`` against its
-  plain version in increment and bridge order at 1M x 100 and its point set
-  against scipy's, then ``simulate_gbm_qmc_device`` into ``lsmc_mega`` on
+  plain version in increment and bridge order at 1M x 100 (the bridge order
+  also at 20 steps and at its step cap) and its point set against scipy's,
+  then ``simulate_gbm_qmc_device`` into ``lsmc_mega`` on
   the flagship put against CRR-2000, and the bridge-order European put
   against Black-Scholes.
 
@@ -57,9 +59,10 @@ It times the pricings, each kernel, each plain version and, where one
 PyTorch call computes the same function, that call, with CUDA events, and
 computes each kernel's bound: the larger of the bytes it must move over the
 card's memory rate and its arithmetic over the card's peak rates. For
-kernels 4, 5, 8, 3 and 10 (phases 5, 8, 11, 12, 15) it also prints the
-device time by kernel (``torch.profiler``) beside their design floors: the
-bytes they must move and their f32 -> f64 conversions at 16 a clock a SM.
+kernels 4, 5, 8, 3, 6 and 10 (phases 5, 8, 11, 12, 14, 15) it also prints
+the device time by kernel (``torch.profiler``) beside their design floors:
+the bytes they must move and their f32 -> f64 conversions at 16 a clock a
+SM.
 Any failed phase raises (non-zero exit). Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 
@@ -89,6 +92,7 @@ BOOK_CRR_TOL = 0.2
 # the zero-path-memory route (amcx's scale configurations,
 # scripts/make_results.py:253-275 and :310-327)
 OOS_BLOCKS, DEEP_STEPS = 16, 1000
+FP_UNEVEN_PATHS = 1_000_004  # a multiple of 4 that fills no grid of 256-thread blocks evenly
 FP_MEMORY_CAP = 64 * 2 ** 20
 # swing options: amcx's published rights ladder and volume contract
 # (scripts/make_results.py:660-720): S0 = 100, r = 5%, sigma = 25%, T = 1
@@ -337,33 +341,40 @@ def _swing_phases(torch, dev, amcx_torch):
 def _qmc_phases(torch, dev, amcx_torch):
     """Phases 17-18: kernel 11 (``sobol_gbm``) against its plain version and
     scipy's point set, then the QMC route into kernel 2 on the flagship put.
-    Returns the kernel's row numbers (increment order) and its bound."""
+    Returns the kernel's row numbers and bound in each order."""
     import numpy as np
     from scipy.stats import norm, qmc
 
     from amcx_torch.ops.lsmc_megakernel import lsmc_price_megakernel
-    from amcx_torch.ops.sobol_pallas import (_bits_to_uniform, _direction_tables,
+    from amcx_torch.ops.sobol_pallas import (BRIDGE_MAX_STEPS, _bits_to_uniform,
+                                             _bridge_schedule, _direction_tables,
                                              sobol_gbm_paths, sobol_gbm_paths_reference)
 
     seed = 2026
     args = (seed, S0, R, SIGMA, 0.0, T, N_STEPS, N_PATHS)
-    err, ms, plain_ms = 0.0, {}, {}
-    for bridge in (False, True):
-        mode = "bridge" if bridge else "increment"
+    err, ms, plain_ms = {}, {}, {}
+    # the main path's shape in both orders, then the bridge order at 20 steps
+    # and at its cap (131,072 paths: the plain version's dense product)
+    for mode, bridge, n_steps, n_paths in (("increment", False, N_STEPS, N_PATHS),
+                                           ("bridge", True, N_STEPS, N_PATHS),
+                                           ("bridge", True, 20, N_PATHS),
+                                           ("bridge", True, BRIDGE_MAX_STEPS, 131_072)):
+        case_args = args[:6] + (n_steps, n_paths)
         before = sobol_gbm_paths.launches
-        ker = sobol_gbm_paths(*args, brownian_bridge=bridge, device=dev)
-        again = sobol_gbm_paths(*args, brownian_bridge=bridge, device=dev)
-        ref = sobol_gbm_paths_reference(*args, brownian_bridge=bridge, device=dev)
+        ker = sobol_gbm_paths(*case_args, brownian_bridge=bridge, device=dev)
+        again = sobol_gbm_paths(*case_args, brownian_bridge=bridge, device=dev)
+        ref = sobol_gbm_paths_reference(*case_args, brownian_bridge=bridge, device=dev)
         torch.cuda.synchronize()
         n_launch = sobol_gbm_paths.launches - before
         d = float(torch.max(torch.abs(ker - ref)))
         same, rerun = torch.equal(ker, ref), torch.equal(ker, again)
-        _require(tuple(ker.shape) == (N_STEPS + 1, N_PATHS) and bool(torch.isfinite(ker).all()),
-                 f"sobol {mode}: shape and finite")
-        _require(n_launch == 2, f"sobol {mode}: launches {n_launch}")
-        _require(same, f"sobol {mode}: kernel equal to its plain version (max|dS| {d:.3e})")
-        _require(rerun, f"sobol {mode}: two kernel runs bit-identical")
-        err = max(err, d)
+        case = f"{mode} order {n_paths}x{n_steps}"
+        _require(tuple(ker.shape) == (n_steps + 1, n_paths) and bool(torch.isfinite(ker).all()),
+                 f"sobol {case}: shape and finite")
+        _require(n_launch == 2, f"sobol {case}: launches {n_launch}")
+        _require(same, f"sobol {case}: kernel equal to its plain version (max|dS| {d:.3e})")
+        _require(rerun, f"sobol {case}: two kernel runs bit-identical")
+        err[mode] = max(err.get(mode, 0.0), d)
         if not bridge:
             # the first 4096 points of scipy's scrambled engine (Gray-code
             # order k, natural index k ^ (k >> 1)): the tables hold the same
@@ -388,13 +399,15 @@ def _qmc_phases(torch, dev, amcx_torch):
                   f"inverted max|d| {u_err:.3e}", flush=True)
             _require(ints_equal and trunc <= 2.0 ** -24 and u_err <= 1e-4,
                      "Sobol point set equal to scipy's to f32 truncation")
-        ms[mode] = _time_ms(torch, lambda b=bridge: sobol_gbm_paths(
-            *args, brownian_bridge=b, device=dev), 20, 3)
-        plain_ms[mode] = _time_ms(torch, lambda b=bridge: sobol_gbm_paths_reference(
-            *args, brownian_bridge=b, device=dev), 3, 1)
-        print(f"phase 17 Sobol kernel {mode} order {N_PATHS}x{N_STEPS}: kernel vs plain max|dS| "
-              f"{d:.3e} | equal to plain {same} | bit-identical rerun {rerun} | launches "
-              f"{n_launch} | {ms[mode]:.3f} ms, plain {plain_ms[mode]:.3f} ms", flush=True)
+        timing = ""
+        if n_steps == N_STEPS:
+            ms[mode] = _time_ms(torch, lambda b=bridge: sobol_gbm_paths(
+                *args, brownian_bridge=b, device=dev), 20, 3)
+            plain_ms[mode] = _time_ms(torch, lambda b=bridge: sobol_gbm_paths_reference(
+                *args, brownian_bridge=b, device=dev), 3, 1)
+            timing = f" | {ms[mode]:.3f} ms, plain {plain_ms[mode]:.3f} ms"
+        print(f"phase 17 Sobol kernel {case}: kernel vs plain max|dS| {d:.3e} | equal to plain "
+              f"{same} | bit-identical rerun {rerun} | launches {n_launch}{timing}", flush=True)
         del ker, again, ref
 
     # ---- phase 18: the QMC route at full width ---------------------------
@@ -411,12 +424,16 @@ def _qmc_phases(torch, dev, amcx_torch):
                                     mean_t=mean_t, inv_std_t=inv_std_t, return_stats=True)
         return paths, out
 
-    torch.cuda.synchronize()
-    sobol_gbm_paths.launches = lsmc_price_megakernel.launches = 0
-    runs = {bridge: route(seed + 1, bridge) for bridge in (False, True)}
-    torch.cuda.synchronize()
-    launches = {"sobol_gbm": sobol_gbm_paths.launches, "lsmc_mega": lsmc_price_megakernel.launches}
-    _require(all(n > 0 for n in launches.values()), f"QMC route launched {launches}")
+    runs, launches = {}, {}
+    for bridge in (False, True):  # each order's launches counted on their own
+        torch.cuda.synchronize()
+        sobol_gbm_paths.launches = lsmc_price_megakernel.launches = 0
+        runs[bridge] = route(seed + 1, bridge)
+        torch.cuda.synchronize()
+        launches[bridge] = {"sobol_gbm": sobol_gbm_paths.launches,
+                            "lsmc_mega": lsmc_price_megakernel.launches}
+        _require(all(n > 0 for n in launches[bridge].values()),
+                 f"QMC route (bridge={bridge}) launched {launches[bridge]}")
     for bridge, (paths, (price, stderr)) in runs.items():
         mode = "bridge" if bridge else "increment"
         euro = math.exp(-R * T) * float(torch.clamp_min(STRIKE - paths[-1].double(), 0.0).mean())
@@ -434,24 +451,31 @@ def _qmc_phases(torch, dev, amcx_torch):
         print(f"phase 18 QMC route {mode} order {N_PATHS}x{N_STEPS} American put: price "
               f"{float(price):.5f} (MC stderr formula {float(stderr):.5f}) CRR-2000 {crr:.5f} "
               f"|err| {p_err:.5f} | European {euro:.5f} Black-Scholes {bs:.5f} |err| "
-              f"{abs(euro - bs):.5f} | launches (both orders) {launches} | route {route_ms:.3f} "
+              f"{abs(euro - bs):.5f} | launches {launches[bridge]} | route {route_ms:.3f} "
               f"ms (median of 5, a new seed each: the host's direction tables, "
               f"{tables_ms:.1f} ms on their own, included)", flush=True)
     del runs
 
-    # kernel 11 in increment order: writes the (T+1, n) paths and reads the
-    # two tables; per path-step ~62 f32 operations (Acklam's two rational
-    # forms, log, sqrt, the uniform, the running sum, exp, the S0 product);
-    # the bridge order adds 2 n_steps per path-step
+    # kernel 11 writes the (T+1, n) paths and reads the two tables; per
+    # path-step ~62 f32 operations (Acklam's two rational forms, log, sqrt,
+    # the uniform, the running sum, exp, the S0 product). The bridge order
+    # adds its schedule's bytes and the 2 nnz(B) / n_steps operations a
+    # path-step of the bridge product (the dense count, 2 n_steps, is work
+    # the function does not need)
     table_bytes = N_STEPS * (N_PATHS // 512) * 4 + N_STEPS * 512 * 4
-    bound = _bound((N_STEPS + 1) * N_PATHS * 4 + table_bytes, f32_ops=62 * N_STEPS * N_PATHS)
-    bridge_bound = _bound((N_STEPS + 1) * N_PATHS * 4 + table_bytes + N_STEPS ** 2 * 4,
-                          f32_ops=(62 + 2 * N_STEPS) * N_STEPS * N_PATHS)
-    print(f"phase 17 bounds: increment {bound[0]:.4f} ms ({bound[1]}), bridge "
-          f"{bridge_bound[0]:.4f} ms ({bridge_bound[1]}) | kernel ms {ms} plain ms {plain_ms}",
-          flush=True)
-    return dict(launches=launches["sobol_gbm"], max_abs_err=err, ms=ms["increment"],
-                plain_ms=plain_ms["increment"], bound=bound)
+    _, entries, _ = _bridge_schedule(N_STEPS, T)
+    nnz = len(entries)
+    bound = {"increment": _bound((N_STEPS + 1) * N_PATHS * 4 + table_bytes,
+                                 f32_ops=62 * N_STEPS * N_PATHS),
+             "bridge": _bound((N_STEPS + 1) * N_PATHS * 4 + table_bytes + nnz * 8
+                              + (N_STEPS + 1) * 4, f32_ops=(62 * N_STEPS + 2 * nnz) * N_PATHS)}
+    print(f"phase 17 bounds: increment {bound['increment'][0]:.4f} ms "
+          f"({bound['increment'][1]}), bridge {bound['bridge'][0]:.4f} ms "
+          f"({bound['bridge'][1]}; nnz(B) {nnz} of {N_STEPS ** 2}) | kernel ms {ms} plain ms "
+          f"{plain_ms}", flush=True)
+    return {mode: dict(launches=launches[mode == "bridge"]["sobol_gbm"], max_abs_err=err[mode],
+                       ms=ms[mode], plain_ms=plain_ms[mode], bound=bound[mode])
+            for mode in ("increment", "bridge")}
 
 
 def main():
@@ -1167,15 +1191,20 @@ def main():
             ("(c) down-in put H=90", SEED + 23, dict(fit_a, barrier=90.0)),
             ("(d) Bermudan every 10th step, antithetic", SEED + 24,
              dict(fit_a, exercise_steps=tuple(range(0, N_STEPS, 10)), antithetic=True)),
-            ("(e) replay of (a)'s coeffs, new seed", SEED + 25, dict(return_cf_tau=True))):
+            ("(e) replay of (a)'s coeffs, new seed", SEED + 25, dict(return_cf_tau=True)),
+            ("(f) degree 0", SEED + 26, dict(fit_a, degree=0)),
+            ("(g) degree 10", SEED + 27, dict(fit_a, degree=10)),
+            (f"(h) {FP_UNEVEN_PATHS} paths (an uneven grid)", SEED + 28,
+             dict(fit_a, n_paths=FP_UNEVEN_PATHS))):
         if case.startswith("(e)"):
             kw = dict(kw, replay_coeffs=fp_coeffs_a)
+        case_args = fp_args[:6] + (kw.pop("n_paths", N_PATHS), -1.0)
         before = lsmc_price_fusedpath.launches
-        ker = lsmc_price_fusedpath(seed, *fp_args, **kw, device=dev)
-        again = lsmc_price_fusedpath(seed, *fp_args, **kw, device=dev)
+        ker = lsmc_price_fusedpath(seed, *case_args, **kw, device=dev)
+        again = lsmc_price_fusedpath(seed, *case_args, **kw, device=dev)
         torch.cuda.synchronize()
         n_launch = lsmc_price_fusedpath.launches - before
-        ref = lsmc_price_fusedpath_reference(seed, *fp_args, **kw, device=dev)
+        ref = lsmc_price_fusedpath_reference(seed, *case_args, **kw, device=dev)
         torch.cuda.synchronize()
         fields = [f for f in ker._fields if getattr(ker, f) is not None]
         diffs = {f: float(torch.max(torch.abs(getattr(ker, f) - getattr(ref, f))))
@@ -1184,7 +1213,7 @@ def main():
         same_rerun = all(torch.equal(getattr(ker, f), getattr(again, f)) for f in fields)
         n_ex = "" if ker.exercise_times is None else (
             f" | early-exercised paths {int((ker.exercise_times < N_STEPS).sum())}")
-        print(f"phase 13 fusedpath kernel {N_PATHS}x{N_STEPS} {case}: kernel "
+        print(f"phase 13 fusedpath kernel {case_args[6]}x{N_STEPS} {case}: kernel "
               f"{float(ker.price):.6f} plain {float(ref.price):.6f} stderr "
               f"{float(ker.stderr):.5f} | max|d| {diffs}{n_ex} | launches {n_launch} | equal to "
               f"plain {same_ref} | bit-identical rerun {same_rerun}", flush=True)
@@ -1312,7 +1341,13 @@ def main():
                      3)
     ms_fp_plain = _time_ms(torch, lambda: lsmc_price_fusedpath_reference(
         SEED, *fp_args, **fkw, device=dev), 2, 1)
-    print(f"phase 14 kernel 6 alone {ms_fp:.3f} ms, plain {ms_fp_plain:.3f} ms", flush=True)
+    prof6 = _profile(torch, lambda: lsmc_price_fusedpath(SEED, *fp_args, **fkw, device=dev), 3)
+    # the design floor: one f32 -> f64 conversion of each of the 20 moment
+    # products a path-step (the cooperative kernel moves no path bytes)
+    floor6_ms = N_STEPS * N_PATHS * 20 / F64_CONVERSIONS_PER_S * 1e3
+    print(f"phase 14 kernel 6 alone {ms_fp:.3f} ms, plain {ms_fp_plain:.3f} ms | device "
+          f"{prof6 or 'no device activity recorded'} | design floor (conversions) "
+          f"{floor6_ms:.4f} ms", flush=True)
 
     sw = _swing_phases(torch, dev, amcx_torch)
     qmc = _qmc_phases(torch, dev, amcx_torch)
@@ -1365,7 +1400,8 @@ def main():
                             f32_ops=N_STEPS * N_PATHS * (P_book + BOOK_N * (2 * k4 - 1)),
                             f64_ops=N_STEPS * N_PATHS * P_book),
         "lsmc_swing": sw["bound"],
-        "sobol_gbm": qmc["bound"],
+        "sobol_gbm": qmc["increment"]["bound"],
+        "sobol_gbm_bridge": qmc["bridge"]["bound"],
     }
 
     print(smi)
@@ -1412,10 +1448,12 @@ def main():
          "replaces": "amcx/ops/lsmc_swing.py:49", "launches": sw["launches"],
          "max_abs_err": sw["max_abs_err"], "ms": sw["ms"], "plain_ms": sw["plain_ms"],
          "library_ms": None},
-        {"name": "sobol_gbm", "route": "cuda", "source": "amcx_torch/csrc/sobol_gbm.cu",
-         "replaces": "amcx/ops/sobol_pallas.py:92", "launches": qmc["launches"],
-         "max_abs_err": qmc["max_abs_err"], "ms": qmc["ms"], "plain_ms": qmc["plain_ms"],
-         "library_ms": None},
+        *({"name": name, "route": "cuda", "source": "amcx_torch/csrc/sobol_gbm.cu",
+           "replaces": "amcx/ops/sobol_pallas.py:92", "launches": row["launches"],
+           "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+           "library_ms": None}
+          for name, row in (("sobol_gbm", qmc["increment"]),
+                            ("sobol_gbm_bridge", qmc["bridge"]))),
     ]]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -590,6 +590,81 @@ def test_fusedpath_kernel_matches_kernel_2(cuda_device):
         assert torch.equal(a, b)
 
 
+FP_DEGREE_CASES = {
+    "down-in-90": (26, dict(itm_weights=True, barrier=90.0, return_cf_tau=True,
+                            return_coeffs=True)),
+    "bermudan-antithetic": (27, dict(itm_weights=True, exercise_steps=tuple(range(0, 100, 10)),
+                                     antithetic=True, return_cf_tau=True, return_coeffs=True)),
+    "replay": (28, dict(return_cf_tau=True)),
+}
+
+
+def _fusedpath_equal_to_plain(dev, seed, n, kw, n_steps=100):
+    args = (seed, S0, K, R, SIGMA, 1.0 / n_steps, n_steps, n, -1.0)
+    ker = tfp.lsmc_price_fusedpath(*args, **kw, device=dev)
+    ref = tfp.lsmc_price_fusedpath_reference(*args, **kw, device=dev)
+    torch.cuda.synchronize()
+    assert math.isfinite(float(ker.price)) and float(ker.stderr) > 0
+    for a, b in zip(ker, ref):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("degree", [0, 10])
+@pytest.mark.parametrize("case", sorted(FP_DEGREE_CASES))
+def test_fusedpath_kernel_degrees_match_plain(cuda_device, case, degree):
+    # the cooperative kernel at the smallest and the largest degree (one
+    # column; 77 moments, a block an SM), 131,072 paths x 100 steps
+    seed, kw = FP_DEGREE_CASES[case]
+    kw = dict(kw, degree=degree)
+    if case == "replay":
+        fit = tfp.lsmc_price_fusedpath(21, *FP_ARGS, 131_072, -1.0, itm_weights=True,
+                                       degree=degree, return_coeffs=True, device=cuda_device)
+        kw = dict(kw, replay_coeffs=fit.coeffs)
+    _fusedpath_equal_to_plain(cuda_device, seed, 131_072, kw)
+
+
+@pytest.mark.parametrize("case", sorted(FP_CARD_CASES))
+def test_fusedpath_kernel_global_planes_match_plain(cuda_device, case, monkeypatch):
+    # every quad past the first shared-memory slot goes through the global
+    # planes (the path that large n_paths take), on 1,000,008 paths (an
+    # uneven grid) x 20 steps
+    plan = tfp._fusedpath_plan
+
+    def one_slot(*args):
+        n_blocks, chip, needed = plan(*args)
+        return n_blocks, min(chip, 2 if args[1] else 1), needed
+
+    monkeypatch.setattr(tfp, "_fusedpath_plan", one_slot)
+    seed, kw = FP_CARD_CASES[case]
+    kw = dict(kw)
+    n = 1_000_008
+    if "exercise_steps" in kw:
+        kw["exercise_steps"] = (0, 5, 10, 15)
+    if case == "replay":
+        fit = tfp.lsmc_price_fusedpath(21, S0, K, R, SIGMA, 0.05, 20, n, -1.0, itm_weights=True,
+                                       return_coeffs=True, device=cuda_device)
+        kw = dict(kw, replay_coeffs=fit.coeffs)
+    _fusedpath_equal_to_plain(cuda_device, seed, n, kw, n_steps=20)
+
+
+def test_fusedpath_kernel_large_n_matches_plain(cuda_device):
+    # 8,388,608 paths: more quads than the grid's shared memory holds, so the
+    # plan itself sends the rest to the global planes
+    _fusedpath_equal_to_plain(cuda_device, 29, 1 << 23,
+                              dict(itm_weights=True, return_cf_tau=True, return_coeffs=True),
+                              n_steps=4)
+
+
+def test_fusedpath_refused_cooperative_launch_raises(cuda_device, monkeypatch):
+    # a grid larger than the card holds at once is refused by the runtime:
+    # the wrapper raises, it never runs the pricing another way
+    monkeypatch.setattr(tfp, "_fusedpath_plan", lambda *args: (100_000, 1, 1))
+    before = tfp.lsmc_price_fusedpath.launches
+    with pytest.raises(RuntimeError, match="amcx_lsmc_fusedpath"):
+        tfp.lsmc_price_fusedpath(1, *FP_ARGS, 1 << 20, -1.0, device=cuda_device)
+    assert tfp.lsmc_price_fusedpath.launches == before + 1
+
+
 def test_fusedpath_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(TypeError, match="integer seed"):
         tfp.lsmc_price_fusedpath(torch.Generator(), *FP_ARGS, 1024, -1.0, device=cuda_device)
@@ -705,6 +780,17 @@ def test_swing_kernel_unaligned_paths(cuda_device):
     torch.cuda.synchronize()
     for a, b, c in zip(ker, aligned, ref):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+# kernel 11's bridge order at several step counts up to its cap, 65,536 paths
+@pytest.mark.parametrize("n_steps", [1, 7, 20, 225, tsp.BRIDGE_MAX_STEPS])
+def test_sobol_bridge_kernel_step_counts_match_plain(cuda_device, n_steps):
+    args = (10, 100.0, 0.01, 0.2, 0.0, 1.0, n_steps, 65_536)
+    ker = tsp.sobol_gbm_paths(*args, brownian_bridge=True, device=cuda_device)
+    ref = tsp.sobol_gbm_paths_reference(*args, brownian_bridge=True, device=cuda_device)
+    torch.cuda.synchronize()
+    assert ker.shape == (n_steps + 1, 65_536) and bool(torch.isfinite(ker).all())
+    assert torch.equal(ker, ref)
 
 
 # kernel 11: scrambled-Sobol paths, both orders, at 262,144 paths x 100 steps

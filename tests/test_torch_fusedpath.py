@@ -312,3 +312,59 @@ def test_fusedpath_rejects_what_it_does_not_take():
                                replay_engine="fusedpath", device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         tpolicy.valuation_interval(0, market, prod)
+
+
+# kernel 6's cooperative grid (`_fusedpath_plan`) against an H100-shaped
+# occupancy: 132 SMs, 228 KB of shared memory an SM with 1 KB reserved a
+# block, 227 KB a block at most, 6 KB of static shared memory, and
+# registers for 2 blocks of 256 threads an SM
+N_SMS = 132
+
+
+def _occupancy(smem):
+    static = 6 * 1024
+    if smem + static > 232_448:
+        return 0
+    return min(2, 233_472 // (smem + static + 1024))
+
+
+PLAN_CASES = {  # (n_paths, antithetic, barrier): (n_blocks, chip_slots, needed)
+    "flagship-1M": ((1 << 20, False, False), (264, 4, 4)),
+    "antithetic-1M": ((1 << 20, True, False), (264, 4, 4)),
+    "barrier-1M": ((1 << 20, False, True), (264, 4, 4)),
+    "uneven-1000004": ((1_000_004, False, False), (264, 4, 4)),
+    "small-131072": ((131_072, False, False), (129, 1, 1)),
+    "one-quad": ((4, False, False), (2, 1, 1)),
+    "one-pair": ((8, True, True), (2, 2, 2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_fusedpath_plan_keeps_every_quad_on_chip(case):
+    (n_paths, antithetic, barrier), want = PLAN_CASES[case]
+    n_blocks, chip, needed = tfp._fusedpath_plan(n_paths, antithetic, barrier, N_SMS,
+                                                 _occupancy)
+    assert (n_blocks, chip, needed) == want
+    qpu = 2 if antithetic else 1
+    # every unit has a slot on a worker block (block 0 solves), and the grid
+    # is co-resident with its shared memory
+    assert (n_blocks - 1) * 256 * (needed // qpu) >= n_paths // (4 * qpu)
+    assert _occupancy(chip * 256 * 16 * (5 if barrier else 4)) * N_SMS >= n_blocks
+
+
+@pytest.mark.parametrize("antithetic, barrier", [(False, False), (True, True)])
+def test_fusedpath_plan_spills_past_shared_memory(antithetic, barrier):
+    # 16M paths need more slots than shared memory holds: the widest grid
+    # keeps as many as still fit two blocks an SM, the rest go to the
+    # global planes
+    slot = 256 * 16 * (5 if barrier else 4)
+    n_blocks, chip, needed = tfp._fusedpath_plan(1 << 24, antithetic, barrier, N_SMS,
+                                                 _occupancy)
+    assert n_blocks == 264 and 0 < chip < needed and chip % (2 if antithetic else 1) == 0
+    assert _occupancy(chip * slot) == 2 and _occupancy((chip + 2) * slot) < 2
+    assert (n_blocks - 1) * 256 * needed * 4 >= 1 << 24
+
+
+def test_fusedpath_plan_raises_when_no_block_fits():
+    with pytest.raises(RuntimeError, match="fits no two co-resident blocks"):
+        tfp._fusedpath_plan(1 << 20, False, False, N_SMS, lambda smem: 0)

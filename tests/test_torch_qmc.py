@@ -175,3 +175,74 @@ def test_qmc_validation_errors():
         at.simulate_gbm_qmc_device(0, market, 1.0, at.SimConfig(n_paths=512, n_steps=4,
                                                                 dtype="float64"),
                                    device="cpu")
+
+
+# the bridge kernel's schedule (csrc/sobol_gbm.cu walks it): the nonzeros of
+# the f32 bridge matrix, each column's normal made once and kept in a slot
+BRIDGE_STEPS = (1, 2, 3, 7, 20, 100, 225, tsp.BRIDGE_MAX_STEPS)
+
+
+def _decode(entries):
+    """(column, slot, born, value) of each schedule entry."""
+    word = entries[:, 0].astype(np.int64) & 0xFFFFFFFF
+    return (word & 0x7FFFFFFF) >> 8, word & 0xFF, word >> 31, entries[:, 1].view(np.float32)
+
+
+@pytest.mark.parametrize("n_steps", BRIDGE_STEPS)
+def test_bridge_schedule_holds_the_nonzeros(n_steps):
+    B = tq.brownian_bridge_matrix(n_steps, 1.0 / n_steps).astype(np.float32)
+    row_ptr, entries, n_slots = tsp._bridge_schedule(n_steps, 1.0)
+    cols, slots, born, vals = _decode(entries)
+    assert row_ptr[0] == 0 and row_ptr[-1] == len(entries) == np.count_nonzero(B)
+    sparse = np.zeros_like(B)
+    holder, seen = {}, set()
+    last = {int(c): t for t in range(n_steps) for c in cols[row_ptr[t]:row_ptr[t + 1]]}
+    for t in range(n_steps):
+        lo, hi = row_ptr[t], row_ptr[t + 1]
+        assert np.all(np.diff(cols[lo:hi]) > 0)  # ascending, as the dense sum adds
+        sparse[t, cols[lo:hi]] = vals[lo:hi]
+        for c, k, b in zip(cols[lo:hi].tolist(), slots[lo:hi].tolist(), born[lo:hi].tolist()):
+            assert b == (c not in seen)  # made at its first row
+            if b:  # into a slot whose holder is dead
+                assert k not in holder or last[holder[k]] < t
+                holder[k] = c
+                seen.add(c)
+            assert holder[k] == c
+    # exactly the f32 matrix's nonzeros, to the bit
+    assert np.array_equal(sparse.view(np.int32), B.view(np.int32))
+    # the live normals: as many as the densest row needs
+    assert n_slots == max(np.diff(row_ptr)) == len(set(slots.tolist()))
+
+
+def _bridge_walk(seed, n_steps, n_paths):
+    """The bridge kernel's arithmetic in torch: each row's f32 sum over its
+    schedule entries, in order, each normal made where it is born."""
+    u_hi, u_lo = tsp._direction_tables(seed, n_steps, n_paths)
+    S0_, drift_dt, vol = tsp._params(S0, R, SIGMA, Q, 1.0, n_steps, True)
+    p = torch.arange(n_paths)
+    hi = torch.from_numpy(u_hi.view(np.int32).copy())[:, p >> 9]
+    lo = torch.from_numpy(u_lo.view(np.int32).copy())[:, p & 511]
+    row_ptr, entries, n_slots = tsp._bridge_schedule(n_steps, 1.0)
+    cols, slots, born, vals = _decode(entries)
+    held = [None] * n_slots
+    out = torch.empty((n_steps + 1, n_paths))
+    out[0] = S0_
+    for t in range(n_steps):
+        w = torch.zeros(n_paths)
+        for e in range(row_ptr[t], row_ptr[t + 1]):
+            if born[e]:
+                c = cols[e]
+                held[slots[e]] = tsp.norm_ppf(tsp._bits_to_uniform(hi[c] ^ lo[c]))
+            w = w + torch.tensor(vals[e]) * held[slots[e]]
+        out[t + 1] = S0_ * torch.exp(drift_dt * torch.tensor(float(t + 1)) + vol * w)
+    return out
+
+
+@pytest.mark.parametrize("n_steps", (1, 7, 20, 100, tsp.BRIDGE_MAX_STEPS))
+def test_bridge_schedule_sum_equals_the_dense_plain_version(n_steps):
+    # skipping B's exact zeros changes no bit: a skipped term is ±0 (the
+    # normals are finite), w + ±0 = w but for a zero's sign, and exp of the
+    # drift plus vol·w cannot tell +0 from -0
+    want = tsp.sobol_gbm_paths_reference(5, S0, R, SIGMA, Q, 1.0, n_steps, 1024,
+                                         brownian_bridge=True)
+    assert torch.equal(_bridge_walk(5, n_steps, 1024), want)
