@@ -1,12 +1,12 @@
 // Device helpers shared by the LSMC kernels (lsmc_mega.cu, lsmc_step.cu,
-// lsmc_book.cu, lsmc_swing.cu, and through ma_common.cuh ma_step.cu and
-// lsmc_ma_mega.cu): the packed moment layout, the basis recurrences, a
-// four-path row load, the fixed-order f64 block and cross-block reductions
-// that make the moments independent of the grid (and the one-block kernel
-// that sums the partial rows), and the one-thread equilibrated
-// ridge-Cholesky solve - a factor step and a refined solve per right-hand
-// side - with its one-block kernels (one right-hand side, or one shared
-// factor and many).
+// lsmc_book.cu, lsmc_swing.cu, lsmc_fusedpath.cu, and through ma_common.cuh
+// ma_step.cu and lsmc_ma_mega.cu): the packed moment layout, the basis
+// recurrences, a four-path row load, the fixed-order f64 block and
+// cross-block reductions that make the moments independent of the grid
+// (and the one-block kernel that sums the partial rows), the one-thread
+// equilibrated ridge-Cholesky solve - a factor step and a refined solve per
+// right-hand side - with its one-block kernel for one shared factor and
+// many right-hand sides, and the same solve on the lanes of one warp.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,10 +17,6 @@ namespace amcx {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Row stride, in floats, of the shared-memory tiles that stage kThreads
-// paths per row: threads reading different rows of one path hit different
-// banks.
-constexpr int kTileStride = kThreads + 1;
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <class Kernel>
@@ -163,12 +159,13 @@ sum_partials_kernel(const double* __restrict__ partials, int n_blocks, int P,
   sum_partials(partials, n_blocks, P, out);
 }
 
-// The ridge-Cholesky solve below is one routine for two callers. KC > 0:
-// the size is the compile-time KC (kernel 2, k <= 11), every loop unrolls
-// and the scratch is a local array that lives in registers. KC == 0: the
-// size is the runtime k <= kMaxSolveK (the multi-asset inductions, m up to
-// 32) and the scratch lies in shared memory. Both run the same operations
-// in the same order, so the results do not depend on KC.
+// The one-thread ridge-Cholesky solve below: KC > 0 is the compile-time
+// size (kernels 2, 3, 6 and 10, k <= 11), every loop unrolls and the
+// scratch is a local array that lives in registers; KC == 0 takes a runtime
+// k <= kMaxSolveK with the scratch in shared memory (the multi-asset
+// induction's first design; it now runs warp_solve_equilibrated_ridge,
+// further below, which keeps this order per element). Both forms run the
+// same operations in the same order, so the results do not depend on KC.
 constexpr int kMaxSolveK = 32;
 
 // Floats of scratch that solve_equilibrated_ridge needs for a k x k system:
@@ -286,26 +283,118 @@ __device__ __forceinline__ void solve_equilibrated_ridge(const float* packed, in
   solve_factored<KC>(L, d, Gnr, packed + k * (k + 1) / 2, k, coeffs, d + k);
 }
 
-// One block: sum the (n_blocks, P) partial rows of a k-column system in a
-// fixed order (rounded once to f32), then solve it on thread 0 into
-// coeffs[0..k). KC as for solve_equilibrated_ridge.
-template <int KC>
-__global__ void __launch_bounds__(kThreads)
-solve_kernel(const double* __restrict__ partials, int n_blocks, int k_rt, float rcond,
-             float* __restrict__ coeffs) {
-  constexpr int kMaxK = KC > 0 ? KC : kMaxSolveK;
-  __shared__ float packed[kMaxK * (kMaxK + 1) / 2 + kMaxK];
-  __shared__ float shared_scratch[KC > 0 ? 1 : solve_scratch_floats(kMaxSolveK)];
-  const int k = KC > 0 ? KC : k_rt;
-  sum_partials(partials, n_blocks, k * (k + 1) / 2 + k, packed);
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  if constexpr (KC > 0) {
-    float scratch[solve_scratch_floats(KC)];
-    solve_equilibrated_ridge<KC>(packed, k, rcond, coeffs, scratch);
-  } else {
-    solve_equilibrated_ridge<0>(packed, k, rcond, coeffs, shared_scratch);
+// solve_equilibrated_ridge on the 32 lanes of ONE warp, for a runtime k <=
+// kMaxSolveK (the multi-asset induction's m x m system): the same
+// operations in the same order per element, so the same bits. Lane i owns
+// row i.
+// - d, Gnr and the refinement's residual rows are independent per element;
+//   each inner sum keeps its j order.
+// - The factor is right-looking: when column m is final, every entry
+//   (i, j), m < j <= i, subtracts L[i][m] L[j][m], so each entry sees the
+//   subtractions of the one-thread loop in its m order, from the same start
+//   Gnr + (i == j ? rcond : 0).
+// - Forward substitution goes by columns (lane m divides, the lanes below
+//   subtract), the same m order per entry.
+// - Back substitution stays one serial chain on lane 0: c[i] sums m = i+1
+//   ascending, but c[m] becomes known descending, so no reordering keeps
+//   its bits. It is O(k^2), the factor O(k^3).
+// The matrices lie in shared memory and the loops stay loops: the same
+// schedule with every row in registers and every loop unrolled (each
+// register index a constant) was built and ran slower on the card, and took
+// minutes to compile.
+// Call with every lane of the warp; scratch holds warp_solve_floats()
+// floats of shared memory; coeffs[0..k) is written by lanes 0..k-1.
+constexpr int kWarpSolveStride = kMaxSolveK + 1;  // a row a lane, distinct banks
+
+__host__ __device__ constexpr int warp_solve_floats() {
+  return 2 * kMaxSolveK * kWarpSolveStride + 3 * kMaxSolveK;
+}
+
+// The two triangular solves of chol_solve with the factor in L (lower
+// triangle, row stride kWarpSolveStride): lane i's rhs in, its c[i] out.
+__device__ __forceinline__ float warp_chol_solve(const float* L, float rhs, int k, float* z_sh,
+                                                 float* c_sh) {
+  const int i = threadIdx.x & 31;
+  const bool row = i < k;
+  float s = rhs, z = 0.0f;
+  for (int m = 0; m < k; ++m) {
+    if (i == m) z = s / L[m * kWarpSolveStride + m];
+    const float zm = __shfl_sync(0xffffffffu, z, m);
+    if (row && i > m) s = s - L[i * kWarpSolveStride + m] * zm;
   }
+  if (row) z_sh[i] = z;
+  __syncwarp();
+  if (i == 0) {
+    for (int r = k - 1; r >= 0; --r) {
+      float b = z_sh[r];
+      for (int m = r + 1; m < k; ++m) b = b - L[m * kWarpSolveStride + r] * c_sh[m];
+      c_sh[r] = b / L[r * kWarpSolveStride + r];
+    }
+  }
+  __syncwarp();
+  return row ? c_sh[i] : 0.0f;
+}
+
+__device__ __forceinline__ void warp_solve_equilibrated_ridge(const float* packed, int k,
+                                                              float rcond, float* coeffs,
+                                                              float* scratch) {
+  constexpr int S = kWarpSolveStride;
+  const int i = threadIdx.x & 31;
+  const bool row = i < k;
+  const float tiny = 1e-30f;
+  float* L = scratch;  // the ridged Gram, factored in place (lower triangle)
+  float* Gnr = L + kMaxSolveK * S;
+  float* d = Gnr + kMaxSolveK * S;
+  float* z_sh = d + kMaxSolveK;
+  float* c_sh = z_sh + kMaxSolveK;
+  float di = 0.0f;
+  if (row) {
+    di = 1.0f / sqrtf(fmaxf(packed[pair_index(k, i, i)], tiny));
+    d[i] = di;
+  }
+  __syncwarp();
+  if (row) {
+    for (int j = 0; j < k; ++j) {
+      const float g = packed[i <= j ? pair_index(k, i, j) : pair_index(k, j, i)];
+      const float gn = g * di * d[j];
+      Gnr[i * S + j] = gn;
+      if (j <= i) L[i * S + j] = gn + (i == j ? rcond : 0.0f);
+    }
+  }
+  __syncwarp();
+  for (int m = 0; m < k; ++m) {
+    if (i == m) L[m * S + m] = sqrtf(fmaxf(L[m * S + m], tiny));
+    __syncwarp();
+    float lim = 0.0f;
+    if (row && i > m) {
+      lim = L[i * S + m] / L[m * S + m];
+      L[i * S + m] = lim;
+    }
+    __syncwarp();
+    if (row && i > m) {
+      for (int j = m + 1; j <= i; ++j) L[i * S + j] = L[i * S + j] - lim * L[j * S + m];
+    }
+  }
+  __syncwarp();
+  const float b = row ? packed[k * (k + 1) / 2 + i] * di : 0.0f;
+  float c = warp_chol_solve(L, b, k, z_sh, c_sh);
+  for (int step = 0; step < 2; ++step) {
+    // every lane has read c_sh (warp_chol_solve's last sync) before it
+    // changes; broadcast this lane's c for the residual rows
+    __syncwarp();
+    if (row) c_sh[i] = c;
+    __syncwarp();
+    float resid = 0.0f;
+    if (row) {
+      float acc = 0.0f;
+      for (int j = 0; j < k; ++j) acc = acc + Gnr[i * S + j] * c_sh[j];
+      resid = b - acc;
+    }
+    __syncwarp();
+    const float dc = warp_chol_solve(L, resid, k, z_sh, c_sh);
+    c = c + dc;
+  }
+  if (row) coeffs[i] = c * di;
 }
 
 // One block: sum the (n_blocks, P) partial rows of a system with one shared

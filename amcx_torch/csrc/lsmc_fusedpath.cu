@@ -86,7 +86,7 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "lsmc_common.cuh"
+#include "lsmc_coop.cuh"
 #include "philox.cuh"
 
 namespace amcx {
@@ -144,18 +144,6 @@ __device__ __forceinline__ float spot(const FusedpathParams& p, float w, float t
   return p.S0 * expf(p.drift_dt * tf + p.sigma * w);
 }
 
-__device__ __forceinline__ void load4(const float4* x, float (&v)[4]) {
-  const float4 a = *x;
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = a.z;
-  v[3] = a.w;
-}
-
-__device__ __forceinline__ void store4(float4* x, const float (&v)[4]) {
-  *x = make_float4(v[0], v[1], v[2], v[3]);
-}
-
 // Maturity of one unit (qpu quads, the second the antithetic mirror).
 __device__ __forceinline__ void maturity(const FusedpathParams& p, int u, int qpu,
                                          float (&w)[2][4], float (&v)[2][4], float (&tb)[2][4]) {
@@ -211,43 +199,11 @@ __device__ __forceinline__ void maturity(const FusedpathParams& p, int u, int qp
 // lives in plane 2 + (t & 1), so S_{t+1} survives the pass that makes S_t.
 constexpr int kW = 0, kV = 1, kS = 2, kTB = 4;
 
-// Where plane `plane` of quad slot k of this thread lies: shared memory
-// below chip_slots (chip_slots x kThreads quads a plane), else the global
-// spill planes (n_paths floats each) at quad q.
+// Where plane `plane` of quad slot k of this thread lies (quad_slot: shared
+// memory below chip_slots, else the global spill planes at quad q).
 __device__ __forceinline__ float4* state(const FusedpathParams& p, float4* chip, float* spill,
                                          int plane, int k, int q) {
-  if (k < p.chip_slots) return chip + (plane * p.chip_slots + k) * kThreads + threadIdx.x;
-  return reinterpret_cast<float4*>(spill + static_cast<size_t>(plane) * p.n_paths) + q;
-}
-
-// basis_cols of a quad's four paths with the basis switch outside the
-// recurrences, so the four chains interleave (basis_cols' operations, so
-// its bits).
-template <int K, int kBasis>
-__device__ __forceinline__ void quad_cols_of(const float (&x)[4], float (&cols)[4][K]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) basis_cols<K>(x[j], kBasis, cols[j]);
-}
-
-template <int K>
-__device__ __forceinline__ void quad_cols(int basis, const float (&x)[4], float (&cols)[4][K]) {
-  switch (basis) {
-    case kPower:
-      quad_cols_of<K, kPower>(x, cols);
-      break;
-    case kChebyshev:
-      quad_cols_of<K, kChebyshev>(x, cols);
-      break;
-    case kLegendre:
-      quad_cols_of<K, kLegendre>(x, cols);
-      break;
-    case kLaguerre:
-      quad_cols_of<K, kLaguerre>(x, cols);
-      break;
-    default:
-      quad_cols_of<K, kHermite>(x, cols);
-      break;
-  }
+  return quad_slot(chip, spill, plane, k, q, p.chip_slots, static_cast<size_t>(p.n_paths));
 }
 
 // The fit's basis columns and weights of a quad's spots of step t.
@@ -267,24 +223,6 @@ __device__ __forceinline__ void fit_quad(const FusedpathParams& p, const float (
       if (p.barrier && !gate_open(p, tb[j], tf)) wgt[j] = 0.0f;
     }
   }
-}
-
-// Thread 0 waits until *word reaches target, then the block may read what
-// was fenced before it.
-__device__ __forceinline__ void wait_for(const volatile unsigned* word, unsigned target) {
-  if (threadIdx.x == 0) {
-    while (*word < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// After a block's row is written: fence it and count the arrival.
-__device__ __forceinline__ void arrive(unsigned* arrivals) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) atomicAdd(arrivals, 1u);
 }
 
 // The pricing (the header's design): block 0 solves, blocks 1.. run the
@@ -308,21 +246,7 @@ fusedpath_kernel(const __grid_constant__ FusedpathParams p, const float* __restr
   const int n_workers = gridDim.x - 1;
 
   if (blockIdx.x == 0) {
-    for (int t = T - 1; t >= 0 && !replay; --t) {
-      wait_for(arrivals, static_cast<unsigned>(n_workers * (T - t)));
-      sum_partials_coherent(rows, n_workers, P, packed);
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        float scratch[solve_scratch_floats(K)];
-        solve_equilibrated_ridge<K>(packed, K, p.rcond, coef, scratch);
-#pragma unroll
-        for (int i = 0; i < K; ++i) coeffs[t * K + i] = coef[i];
-        __threadfence();
-        atomicAdd(arrivals + 1, 1u);
-      }
-    }
-    wait_for(arrivals, static_cast<unsigned>(n_workers * (replay ? 1 : T + 1)));
-    sum_partials_coherent(rows, n_workers, 2, sums);
+    solver_block<K>(arrivals, rows, n_workers, T, !replay, p.rcond, coeffs, sums, packed, coef);
     return;
   }
 

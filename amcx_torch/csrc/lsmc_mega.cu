@@ -1,5 +1,5 @@
-// Longstaff-Schwartz backward induction for a vanilla put/call, one pricing
-// per call of amcx_lsmc_mega.
+// Longstaff-Schwartz backward induction for a vanilla put/call, one
+// cooperative launch per pricing (amcx_lsmc_mega).
 //
 // Replaces: amcx/ops/lsmc_megakernel.py::_mega_kernel (via
 // lsmc_price_megakernel / _run) with its in-kernel solve
@@ -16,21 +16,49 @@
 //            With the cf/tau planes (amcx's return_cf_tau) the same select
 //            also writes cf <- ex and tau <- t; maturity sets cf = V_T and
 //            tau = n_steps (SURVEY Q5/Q7). V's arithmetic is the same with
-//            or without them.
+//            or without them. European: the regression still runs (the
+//            coefficient export), with no apply.
 // V is carried in time-T units (value * e^{+r dt (T - tau)}): written only
 // at exercise, discounted by the scalar c_t, never multiplied per step.
 // Finally sum c_0 V and sum (c_0 V)^2.
 //
-// Bound on the H100: device-memory traffic, per step one read of S_t and V
-// for the moments plus a second read of both (from the 50 MB L2 at 1M
-// paths: S_t and V are 4 MB each) and a sparse write of V for the apply,
-// about 2 GB per 1M x 100 pricing; and the ~300 launches, since the per-step
-// Gram is a grid-wide dependency. Design: the steps are driven by a host
-// loop on one stream with no syncs; the moments kernel keeps its P sums in
-// registers over a grid-stride loop and reduces each block in a fixed order
-// (warp shuffles, then warps in order) into a per-block partial row; a
-// one-block solve kernel sums those rows in a fixed block order. No float
-// atomics anywhere, so two runs give identical bits.
+// Bound on the H100: device memory, one read of the (T+1, n) paths (0.13 ms
+// at 1M x 100), beside the P f32 products a path-step and their f64 sums;
+// the design floor is the P = 20 f32 -> f64 conversions a path-step (~0.50
+// ms at 1M x 100, 16 a clock a SM). The per-step Gram is a grid-wide
+// dependency.
+//
+// Design: kernel 6's schedule (lsmc_fusedpath.cu) with its regeneration
+// replaced by one read of S_t a step; the protocol is lsmc_coop.cuh's. One
+// cooperative launch (cudaLaunchCooperativeKernel) on a grid the wrapper
+// sizes from the occupancy query, so every block is co-resident and may
+// wait on another; a grid that cannot be co-resident is refused by the
+// runtime and the error returned, never run another way.
+// - Block 0 solves each step (one thread, the unrolled
+//   solve_equilibrated_ridge<K>) while the workers' pass A sums the next
+//   step's Gram head, which needs no coefficients.
+// - A worker thread owns quads of paths (4 consecutive; the last quad of an
+//   n_paths that is no multiple of 4 is masked: x = 0, w = 0, no exercise,
+//   no sums) and keeps V, S_t and S_{t+1} in shared-memory slots (past
+//   chip_slots in global spill planes: large n_paths, or a degree whose
+//   registers leave room for one block an SM).
+// - Pass A of step t reads S_t once (a 16-byte load a quad where the row is
+//   so aligned; else one load a path) and keeps it, and sums step t's Gram
+//   head; at t = T-1 it first sets V from S_T (the maturity). Pass B waits
+//   for step t+1's coefficients, applies step t+1 on the kept S_{t+1},
+//   writing V and, where asked, cf/tau, then sums step t's right-hand side
+//   on the new V. At t = -1 pass B applies step 0 and sums the final two.
+// - The basis recurrences run on a quad's four paths with the basis switch
+//   hoisted out of them (quad_cols).
+// The first design was a host loop of maturity + T x (moments, one-block
+// solve, apply) + 2 launches (302 at 100 steps): the moments kernel over a
+// 1,024-block grid wrote partial rows that a one-block solve kernel summed
+// and solved on one thread, serial after the moments, and every step read
+// S_t and V twice (PERF.md: 2.75 ms of device time and ~3.3 ms of
+// host enqueue at 1M x 100). Built, timed on the card and dropped: reading
+// the next quad's S_t a quad ahead (no faster: the passes, not the loads,
+// set a step), and the Gram head posted as a row of its own so that block
+// 0 factors it during pass B (lsmc_coop.cuh).
 //
 // Numerics: the moments (and the final two sums) are accumulated in f64
 // from f32 products and rounded once to f32; the solve and every per-path
@@ -43,195 +71,336 @@
 // built with -fmad=false, so each multiply and add rounds as in torch's
 // separate elementwise ops. The kernel and its plain version
 // (ops/lsmc_megakernel.py, _mega_reference) then give the same bits on the
-// card, whatever the grid. The TPU's blocked (T+1, N/512, 512) layout and
-// its n_paths % 4096 rule are dropped: a warp reading 32 consecutive paths
-// of row t is already coalesced. A persistent
-// kernel with a grid barrier per step, CUDA graphs and fusing apply(t) into
-// moments(t-1) are later work.
+// card, whatever the grid. No float atomics. The TPU's blocked
+// (T+1, N/512, 512) layout and its n_paths % 4096 rule are dropped.
 //
 // Degenerate t = 0 at S0 == K with ITM weights: every weight is 0, the Gram
 // is exactly 0, and the solve returns exactly 0 coefficients (ridge-only
 // Cholesky of a zero system). Like the TPU kernel, there is deliberately no
 // degenerate-weight fallback. `tiny` = 1e-30 makes d = 1e15 on a zero
 // diagonal; that is safe because the zero entries stay exactly zero, so the
-// expression order below matches amcx's.
+// expression order matches amcx's.
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
-#include "lsmc_common.cuh"
+#include "lsmc_coop.cuh"
+
+namespace amcx {
+
+// The pricing's switches and scalars; mirrors
+// amcx_torch.ops.lsmc_megakernel.MegaParams. Passed by value.
+struct MegaParams {
+  int n_steps;
+  int n_paths;
+  int n_blocks;  // the cooperative grid
+  int chip_slots;  // quads a thread keeps in shared memory
+  int basis;
+  int american;
+  int itm_weights;
+  float strike;
+  float phi;
+  float rcond;
+};
+
+}  // namespace amcx
 
 namespace {
 
 using namespace amcx;
 
-// V_T = max(phi (S_T - K), 0); cf = V_T and tau = n_steps where asked.
-__global__ void __launch_bounds__(kThreads)
-maturity_kernel(const float* __restrict__ S, float* __restrict__ V, float* __restrict__ cf,
-                float* __restrict__ tau, int n_steps, int n_paths, float strike, float phi) {
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_paths; i += gridDim.x * kThreads) {
-    const float v = fmaxf(phi * (S[i] - strike), 0.0f);
-    V[i] = v;
-    if (cf != nullptr) {
-      cf[i] = v;
-      tau[i] = static_cast<float>(n_steps);
-    }
+// The state planes of a quad slot, [V | S even | S odd]: S_t lives in plane
+// 1 + (t & 1), so S_{t+1} survives the pass that reads S_t.
+constexpr int kV = 0, kS = 1, kPlanes = 3;
+
+// The fit's basis columns and weights of a quad's spots of one step; the
+// paths past n_paths (n_here < 4) get x = 0 and weight 0.
+template <int K>
+__device__ __forceinline__ void fit_quad(const MegaParams& p, const float (&s)[4], int n_here,
+                                         float mean, float inv_std, float (&cols)[4][K],
+                                         float (&wgt)[4]) {
+  float x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = j < n_here ? (s[j] - mean) * inv_std : 0.0f;
+  quad_cols<K>(p.basis, x, cols);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wgt[j] = 1.0f;
+    if (p.itm_weights) wgt[j] = fmaxf(p.phi * (s[j] - p.strike), 0.0f) > 0.0f ? 1.0f : 0.0f;
+    if (j >= n_here) wgt[j] = 0.0f;
   }
 }
 
+__device__ __forceinline__ bool aligned16(const float* x) {
+  return (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
+}
+
+// The pricing (the header's design): block 0 solves, blocks 1.. run the
+// passes A and B of each step.
 template <int K>
-__global__ void __launch_bounds__(kThreads)
-moments_kernel(const float* __restrict__ S, const float* __restrict__ V,
-               const float* __restrict__ stats, double* __restrict__ partials,
-               int t, int n_steps, int n_paths, float strike, float phi,
-               int basis, int itm_weights) {
+__global__ void __launch_bounds__(kThreads, K <= 6 ? 2 : 1)
+mega_kernel(const __grid_constant__ MegaParams p, const float* __restrict__ paths,
+            const float* __restrict__ stats, float* spill, float* __restrict__ cf,
+            float* __restrict__ tau, double* partials, float* coeffs, float* __restrict__ sums) {
   constexpr int P = Layout<K>::kMoments;
   constexpr int kPairs = Layout<K>::kPairs;
-  const int T1 = n_steps + 1;
-  const float mean = stats[t];
-  const float inv_std = stats[T1 + t];
-  const float c_t = stats[2 * T1 + t];
-  double acc[P];
-#pragma unroll
-  for (int p = 0; p < P; ++p) acc[p] = 0.0;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_paths; i += gridDim.x * kThreads) {
-    const float s = S[i];
-    const float y = c_t * V[i];
-    const float xhat = (s - mean) * inv_std;
-    const float w = (!itm_weights || fmaxf(phi * (s - strike), 0.0f) > 0.0f) ? 1.0f : 0.0f;
-    float cols[K];
-    basis_cols<K>(xhat, basis, cols);
-    const float yw = y * w;
-#pragma unroll
-    for (int a = 0; a < K; ++a) {
-      const float ca = cols[a] * w;
-#pragma unroll
-      for (int b = a; b < K; ++b) acc[pair_index(K, a, b)] += static_cast<double>(ca * cols[b]);
-    }
-#pragma unroll
-    for (int a = 0; a < K; ++a) acc[kPairs + a] += static_cast<double>(cols[a] * yw);
-  }
-  block_reduce_store<P>(acc, partials + static_cast<size_t>(blockIdx.x) * P);
-}
+  extern __shared__ float4 chip[];
+  __shared__ float packed[P];
+  __shared__ float coef[K];
+  const int T = p.n_steps;
+  const int T1 = T + 1;
+  unsigned* arrivals = reinterpret_cast<unsigned*>(partials);
+  const volatile unsigned* generation = arrivals + 1;
+  double* rows = partials + 1;
+  const int n_workers = gridDim.x - 1;
 
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-apply_kernel(const float* __restrict__ S, float* __restrict__ V, float* __restrict__ cf,
-             float* __restrict__ tau, const float* __restrict__ stats,
-             const float* __restrict__ coeffs_row, int t, int n_steps, int n_paths,
-             float strike, float phi, int basis) {
-  const int T1 = n_steps + 1;
-  const float mean = stats[t];
-  const float inv_std = stats[T1 + t];
-  const float inv_c_t = stats[3 * T1 + t];
-  float coef[K];
+  if (blockIdx.x == 0) {
+    solver_block<K>(arrivals, rows, n_workers, T, true, p.rcond, coeffs, sums, packed, coef);
+    return;
+  }
+
+  const int n_quads = (p.n_paths + 3) / 4;
+  const size_t plane_floats = 4 * static_cast<size_t>(n_quads);
+  const int first = (blockIdx.x - 1) * kThreads + threadIdx.x;
+  const int stride = n_workers * kThreads;
+  double* row = rows + static_cast<size_t>(blockIdx.x - 1) * P;
+  const float c_0 = stats[2 * T1];
+  const int chip_slots = p.chip_slots;
+  auto slot = [&](int plane, int k, int q) {
+    return quad_slot(chip, spill, plane, k, q, chip_slots, plane_floats);
+  };
+
+  // step t = T-1 .. 0, then t = -1 for the final sums
+  for (int t = T - 1; t >= -1; --t) {
+    const int a = t + 1;  // the step whose exercise pass B applies
+    const bool at_maturity = a == T;
+    const bool moments = t >= 0;
+    const int tc = t < 0 ? 0 : t;
+    const float mean = stats[tc], inv_std = stats[T1 + tc], c_t = stats[2 * T1 + tc];
+    double acc[P];
 #pragma unroll
-  for (int a = 0; a < K; ++a) coef[a] = coeffs_row[a];
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_paths; i += gridDim.x * kThreads) {
-    const float s = S[i];
-    const float xhat = (s - mean) * inv_std;
-    float cols[K];
-    basis_cols<K>(xhat, basis, cols);
-    float fitted = cols[0] * coef[0];
+    for (int m = 0; m < P; ++m) acc[m] = 0.0;
+
+    // pass A: at t = T-1 the maturity; S_t kept, and the Gram head of step t
+    if (moments) {
+      const float* row_t = paths + static_cast<size_t>(t) * p.n_paths;
+      const float* row_T = paths + static_cast<size_t>(T) * p.n_paths;
+      const bool vec_t = aligned16(row_t), vec_T = aligned16(row_T);
+      for (int q = first, k = 0; q < n_quads; q += stride, ++k) {
+        const int n_here = min(4, p.n_paths - 4 * q);
+        if (at_maturity) {
+          float sT[4], v[4];
+          load_row4(row_T, 4 * q, n_here, vec_T, sT);
 #pragma unroll
-    for (int a = 1; a < K; ++a) fitted = fitted + cols[a] * coef[a];
-    // max(fitted, 0) that keeps a NaN fit NaN (then no path exercises), as
-    // torch.clamp_min and jnp.maximum do; fmaxf would return 0
-    const float cont = fitted > 0.0f ? fitted : (fitted != fitted ? fitted : 0.0f);
-    const float ex = fmaxf(phi * (s - strike), 0.0f);
-    // ex > cont implies ex > 0 (cont >= 0): the ITM clause is implied
-    if (ex > cont) {
-      V[i] = ex * inv_c_t;
-      if (cf != nullptr) {
-        cf[i] = ex;
-        tau[i] = static_cast<float>(t);
+          for (int j = 0; j < 4; ++j) {
+            v[j] = j < n_here ? fmaxf(p.phi * (sT[j] - p.strike), 0.0f) : 0.0f;
+          }
+          store4(slot(kV, k, q), v);
+          if (cf != nullptr) {
+            const float fT = static_cast<float>(T);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (j >= n_here) break;
+              cf[4 * static_cast<size_t>(q) + j] = v[j];
+              tau[4 * static_cast<size_t>(q) + j] = fT;
+            }
+          }
+        }
+        float s[4], cols[4][K], wgt[4];
+        load_row4(row_t, 4 * q, n_here, vec_t, s);
+        store4(slot(kS + (t & 1), k, q), s);
+        fit_quad<K>(p, s, n_here, mean, inv_std, cols, wgt);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int i = 0; i < K; ++i) {
+            const float ci = cols[j][i] * wgt[j];
+#pragma unroll
+            for (int b = i; b < K; ++b) {
+              acc[pair_index(K, i, b)] += static_cast<double>(ci * cols[j][b]);
+            }
+          }
+        }
       }
     }
-  }
-}
 
-// Per-block partials of sum c_0 V and sum (c_0 V)^2.
-__global__ void __launch_bounds__(kThreads)
-final_partials_kernel(const float* __restrict__ V, const float* __restrict__ stats,
-                      double* __restrict__ partials, int n_steps, int n_paths) {
-  const float c_0 = stats[2 * (n_steps + 1)];
-  double acc[2] = {0.0, 0.0};
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_paths; i += gridDim.x * kThreads) {
-    const float v = c_0 * V[i];
-    acc[0] += static_cast<double>(v);
-    acc[1] += static_cast<double>(v * v);
+    // the coefficients of step a: block 0 has solved it (and so read every
+    // row of step a) before this block's row is written again
+    const bool apply = !at_maturity && p.american;
+    float cf_row[K];
+    if (!at_maturity) {
+      wait_for(generation, static_cast<unsigned>(T - a));
+      if (apply && threadIdx.x < K) coef[threadIdx.x] = __ldcg(coeffs + a * K + threadIdx.x);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i) cf_row[i] = apply ? coef[i] : 0.0f;
+    const float mean_a = stats[a], inv_std_a = stats[T1 + a], inv_c_a = stats[3 * T1 + a];
+    const float fa = static_cast<float>(a);
+
+    // pass B: the exercise of step a on S_a, then the right-hand side of
+    // step t on the new V (or, at t = -1, the final sums)
+    for (int q = first, k = 0; q < n_quads; q += stride, ++k) {
+      const int n_here = min(4, p.n_paths - 4 * q);
+      float v[4];
+      load4(slot(kV, k, q), v);
+      if (apply) {
+        float s[4], x[4], cols[4][K];
+        load4(slot(kS + (a & 1), k, q), s);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[j] = j < n_here ? (s[j] - mean_a) * inv_std_a : 0.0f;
+        quad_cols<K>(p.basis, x, cols);
+        bool exercise[4];
+        float ex[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float fitted = cols[j][0] * cf_row[0];
+#pragma unroll
+          for (int i = 1; i < K; ++i) fitted = fitted + cols[j][i] * cf_row[i];
+          // max(fitted, 0) that keeps a NaN fit NaN (then no path exercises),
+          // as torch.clamp_min and jnp.maximum do; fmaxf would return 0
+          const float cont = fitted > 0.0f ? fitted : (fitted != fitted ? fitted : 0.0f);
+          ex[j] = fmaxf(p.phi * (s[j] - p.strike), 0.0f);
+          // ex > cont implies ex > 0 (cont >= 0): the ITM clause is implied
+          exercise[j] = j < n_here && ex[j] > cont;
+          v[j] = exercise[j] ? ex[j] * inv_c_a : v[j];
+        }
+        store4(slot(kV, k, q), v);
+        if (cf != nullptr) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (!exercise[j]) continue;
+            cf[4 * static_cast<size_t>(q) + j] = ex[j];
+            tau[4 * static_cast<size_t>(q) + j] = fa;
+          }
+        }
+      }
+      if (moments) {
+        float s[4], cols[4][K], wgt[4];
+        load4(slot(kS + (t & 1), k, q), s);
+        fit_quad<K>(p, s, n_here, mean, inv_std, cols, wgt);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float yw = c_t * v[j] * wgt[j];
+#pragma unroll
+          for (int i = 0; i < K; ++i) acc[kPairs + i] += static_cast<double>(cols[j][i] * yw);
+        }
+      } else {  // the final sums
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j >= n_here) break;
+          const float x = c_0 * v[j];
+          acc[0] += static_cast<double>(x);
+          acc[1] += static_cast<double>(x * x);
+        }
+      }
+    }
+
+    if (moments) {
+      block_reduce_store<P>(acc, row);
+    } else {
+      double fin[2] = {acc[0], acc[1]};
+      block_reduce_store<2>(fin, rows + static_cast<size_t>(blockIdx.x - 1) * 2);
+    }
+    arrive(arrivals);
   }
-  block_reduce_store<2>(acc, partials + static_cast<size_t>(blockIdx.x) * 2);
 }
 
 template <int K>
-cudaError_t run_mega(const float* paths, const float* stats, float* V, float* cf, float* tau,
-                     double* partials, float* coeffs, float* sums, int n_steps, int n_paths,
-                     int n_blocks, float strike, float phi, float rcond, int basis,
-                     int american, int itm_weights, cudaStream_t stream) {
-  const size_t row = static_cast<size_t>(n_paths);
-  maturity_kernel<<<n_blocks, kThreads, 0, stream>>>(
-      paths + static_cast<size_t>(n_steps) * row, V, cf, tau, n_steps, n_paths, strike, phi);
-  AMCX_LAUNCH_CHECK();
-  for (int t = n_steps - 1; t >= 0; --t) {
-    const float* S_t = paths + static_cast<size_t>(t) * row;
-    float* coeffs_row = coeffs + static_cast<size_t>(t) * K;
-    moments_kernel<K><<<n_blocks, kThreads, 0, stream>>>(
-        S_t, V, stats, partials, t, n_steps, n_paths, strike, phi, basis, itm_weights);
-    AMCX_LAUNCH_CHECK();
-    solve_kernel<K><<<1, kThreads, 0, stream>>>(partials, n_blocks, K, rcond, coeffs_row);
-    AMCX_LAUNCH_CHECK();
-    // European: the regression still runs (coefficient export) but the
-    // time-T-units carry needs no update at all
-    if (american) {
-      apply_kernel<K><<<n_blocks, kThreads, 0, stream>>>(
-          S_t, V, cf, tau, stats, coeffs_row, t, n_steps, n_paths, strike, phi, basis);
-      AMCX_LAUNCH_CHECK();
-    }
+cudaError_t occupancy(int smem, int* blocks_per_sm) {
+  const auto kernel = mega_kernel<K>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int device = 0, optin = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   }
-  final_partials_kernel<<<n_blocks, kThreads, 0, stream>>>(V, stats, partials, n_steps, n_paths);
-  AMCX_LAUNCH_CHECK();
-  sum_partials_kernel<<<1, kThreads, 0, stream>>>(partials, n_blocks, 2, sums);
-  return cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (static_cast<size_t>(smem) + attr.sharedSizeBytes > static_cast<size_t>(optin)) {
+    *blocks_per_sm = 0;
+    return cudaSuccess;
+  }
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);
+}
+
+template <int K>
+cudaError_t launch(const MegaParams& p, const float* paths, const float* stats, float* spill,
+                   float* cf, float* tau, double* partials, float* coeffs, float* sums,
+                   size_t smem, cudaStream_t stream) {
+  const auto kernel = mega_kernel<K>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {const_cast<MegaParams*>(&p), &paths, &stats, &spill, &cf, &tau, &partials,
+                  &coeffs, &sums};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(p.n_blocks),
+                                     dim3(kThreads), args, smem, stream);
+}
+
+// Quad slots a worker thread needs.
+int slots_needed(const MegaParams& p) {
+  const long long threads = static_cast<long long>(p.n_blocks - 1) * kThreads;
+  const long long quads = (p.n_paths + 3) / 4;
+  return static_cast<int>((quads + threads - 1) / threads);
 }
 
 }  // namespace
 
-// paths (n_steps+1, n_paths) f32; stats 4 (n_steps+1) f32 rows
-// [mean_t, inv_std_t, c_t, 1/c_t]; V (n_paths) scratch; cf, tau (n_paths)
-// out, or both null; partials (n_blocks, max(P, 2)) f64 scratch; coeffs
-// (n_steps+1, degree+1), zeroed by the caller (the maturity row stays 0);
-// sums (2) out. Returns a cudaError_t.
-extern "C" int amcx_lsmc_mega(const float* paths, const float* stats, float* V, float* cf,
-                              float* tau, double* partials, float* coeffs, float* sums,
-                              int n_steps, int n_paths, int n_blocks, float strike,
-                              float phi, float rcond, int basis, int degree, int american,
-                              int itm_weights, void* stream) {
+#define AMCX_MEGA_DISPATCH(CALL)                              \
+  switch (degree + 1) {                                       \
+    case 1: return static_cast<int>(CALL(1));                 \
+    case 2: return static_cast<int>(CALL(2));                 \
+    case 3: return static_cast<int>(CALL(3));                 \
+    case 4: return static_cast<int>(CALL(4));                 \
+    case 5: return static_cast<int>(CALL(5));                 \
+    case 6: return static_cast<int>(CALL(6));                 \
+    case 7: return static_cast<int>(CALL(7));                 \
+    case 8: return static_cast<int>(CALL(8));                 \
+    case 9: return static_cast<int>(CALL(9));                 \
+    case 10: return static_cast<int>(CALL(10));               \
+    case 11: return static_cast<int>(CALL(11));               \
+    default: return static_cast<int>(cudaErrorInvalidValue);  \
+  }
+
+// blocks_per_sm: how many blocks of the degree's kernel with smem bytes of
+// dynamic shared memory one SM holds at once (0 when smem exceeds a block's
+// limit). Returns a cudaError_t.
+extern "C" int amcx_lsmc_mega_occupancy(int degree, int smem, int* blocks_per_sm) {
+  if (smem < 0 || blocks_per_sm == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+#define AMCX_OCCUPANCY(KK) occupancy<KK>(smem, blocks_per_sm)
+  AMCX_MEGA_DISPATCH(AMCX_OCCUPANCY)
+#undef AMCX_OCCUPANCY
+}
+
+// params: the pricing and its grid (host memory; n_blocks >= 2 blocks of
+// kThreads, all co-resident, else the launch is refused); paths
+// (n_steps+1, n_paths) f32, any alignment; stats 4 (n_steps+1) f32 rows
+// [mean_t, inv_std_t, c_t, 1/c_t]; spill (3 planes of 4 ceil(n_paths / 4)
+// f32: V, S even, S odd, 16-byte aligned) scratch for the quads past
+// chip_slots, null where every quad stays in shared memory; cf, tau
+// (n_paths) out, or both null; partials: the arrival and generation words
+// (the first 8 bytes, zeroed by the caller), then (n_blocks - 1, max(P, 2))
+// f64 rows of scratch; coeffs (n_steps+1, degree+1) out, zeroed by the
+// caller (the maturity row stays 0); sums (2) out. Returns a cudaError_t.
+extern "C" int amcx_lsmc_mega(const amcx::MegaParams* params, const float* paths,
+                              const float* stats, float* spill, float* cf, float* tau,
+                              double* partials, float* coeffs, float* sums, int degree,
+                              void* stream) {
+  const amcx::MegaParams& p = *params;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_steps < 1 || n_paths < 1 || n_blocks < 1 || basis < 0 || basis > 4 ||
-      (cf == nullptr) != (tau == nullptr)) {
+  if (p.n_steps < 1 || p.n_paths < 1 || p.n_blocks < 2 || p.chip_slots < 0 || p.basis < 0 ||
+      p.basis > 4 || (cf == nullptr) != (tau == nullptr) ||
+      (slots_needed(p) > p.chip_slots && spill == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-#define AMCX_MEGA_CASE(KK)                                                                \
-  case KK:                                                                                \
-    return static_cast<int>(run_mega<KK>(paths, stats, V, cf, tau, partials, coeffs, sums, \
-                                         n_steps, n_paths, n_blocks, strike, phi, rcond,   \
-                                         basis, american, itm_weights, s));
-  switch (degree + 1) {
-    AMCX_MEGA_CASE(1)
-    AMCX_MEGA_CASE(2)
-    AMCX_MEGA_CASE(3)
-    AMCX_MEGA_CASE(4)
-    AMCX_MEGA_CASE(5)
-    AMCX_MEGA_CASE(6)
-    AMCX_MEGA_CASE(7)
-    AMCX_MEGA_CASE(8)
-    AMCX_MEGA_CASE(9)
-    AMCX_MEGA_CASE(10)
-    AMCX_MEGA_CASE(11)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef AMCX_MEGA_CASE
+  const size_t smem = static_cast<size_t>(p.chip_slots) * kThreads * sizeof(float4) * kPlanes;
+#define AMCX_LAUNCH(KK) launch<KK>(p, paths, stats, spill, cf, tau, partials, coeffs, sums, smem, s)
+  AMCX_MEGA_DISPATCH(AMCX_LAUNCH)
+#undef AMCX_LAUNCH
 }
+
+#undef AMCX_MEGA_DISPATCH

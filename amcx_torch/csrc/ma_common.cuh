@@ -1,8 +1,8 @@
 // Device code shared by the multi-asset kernels (ma_step.cu: kernels 8/9,
 // lsmc_ma_mega.cu: kernel 7): the product/basis description, the payoff
-// kinds, the sorted and standardized features, the cross-term columns, and
-// kernel 7's moments of one block's paths (kernel 8 has its own,
-// register-blocked, in ma_step.cu).
+// kinds, the sorted and standardized features, the cross-term columns and
+// the fitted continuation. The register-blocked moments of both inductions
+// are ma_moments.cuh's.
 //
 // Layout: the asset planes of step t are a contiguous (A, n_paths) f32
 // slice of the time-major asset-major (n_steps+1, A, n_paths) paths, so a
@@ -17,18 +17,6 @@
 // lsmc_common.cuh, then column c = prod over assets with alpha[c][a] > 0 of
 // uni[a][alpha[c][a]], multiplied left to right (1 for alpha = 0). The
 // multi-index table comes from the host (amcx_torch.basis._multi_index_set).
-//
-// Kernel 7's moments: a block stages a tile of kThreads paths in shared
-// memory - the m columns, the ITM-weighted columns and the weighted target
-// w y, with a row stride of kThreads + 1 floats so that threads reading
-// different columns of one path hit different banks - then thread p < P
-// (and p + kThreads, ...) adds packed sum p over the tile's paths in path
-// order in f64: pairs (i <= j) sum f32(cw_i * c_j), the rhs sums
-// f32(c_i * w y). The block
-// writes one (P,) f64 partial row, and a one-block kernel sums the rows in
-// a fixed order (sum_partials) and rounds once to f32. No float atomics, so
-// runs are bit-identical, and the plain torch versions (f64 sums of the
-// same f32 products, rounded once) give the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,7 +30,7 @@ namespace amcx {
 constexpr int kMaxAssets = 8;
 constexpr int kMaxCols = 32;
 constexpr int kMaxMaDegree = 4;
-static_assert(kMaxCols <= kMaxSolveK, "the induction's m x m solve must fit solve_kernel<0>");
+static_assert(kMaxCols <= kMaxSolveK, "the induction's m x m solve must fit one warp");
 
 enum PayoffKind : int {
   kMaxCall = 0,
@@ -73,12 +61,6 @@ inline bool bad_params(const MaParams& p) {
   return p.n_assets < 1 || p.n_assets > kMaxAssets || p.n_cols < 1 || p.n_cols > kMaxCols ||
          p.degree < 0 || p.degree > kMaxMaDegree || p.basis < 0 || p.basis > 4 ||
          p.payoff_kind < 0 || p.payoff_kind > 6;
-}
-
-// Bytes of the moments tile: m columns, m weighted columns (ITM fits only)
-// and the weighted target.
-inline size_t moments_smem_bytes(int m, int itm_weights) {
-  return static_cast<size_t>((itm_weights ? 2 * m : m) + 1) * kTileStride * sizeof(float);
 }
 
 __host__ __device__ inline int pack_dim(int m) { return m * (m + 1) / 2 + m; }
@@ -182,87 +164,6 @@ __device__ __forceinline__ float ma_continuation(const float (&uni)[A][kMaxMaDeg
   float fitted = ma_column<A>(uni, p.alpha[0]) * coef[0];
   for (int c = 1; c < p.n_cols; ++c) fitted = fitted + ma_column<A>(uni, p.alpha[c]) * coef[c];
   return fitted > 0.0f ? fitted : (fitted != fitted ? fitted : 0.0f);
-}
-
-// The packed moments of this block's paths (grid-stride over tiles of
-// kThreads paths) into partials_row[0..P). y(i) gives path i's regression
-// target; dynamic shared memory holds moments_smem_bytes(m, itm_weights).
-template <int A, class YFn>
-__device__ __forceinline__ void ma_moments_block(const float* __restrict__ planes, int n_paths,
-                                                 const float* __restrict__ stats, int T1, int t,
-                                                 const MaParams& p, int itm_weights, YFn y,
-                                                 double* __restrict__ partials_row) {
-  extern __shared__ float tile[];
-  constexpr int kMaxPack = kMaxCols * (kMaxCols + 1) / 2 + kMaxCols;
-  constexpr int kSlots = (kMaxPack + kThreads - 1) / kThreads;
-  const int m = p.n_cols;
-  const int n_pairs = m * (m + 1) / 2;
-  const int P = n_pairs + m;
-  float* cols = tile;
-  float* cols_w = itm_weights ? tile + m * kTileStride : cols;
-  float* yw = tile + (itm_weights ? 2 * m : m) * kTileStride;
-  const int tid = threadIdx.x;
-  // this thread's sums: pair (ia, ib) or rhs ia (ib = -1)
-  int ia[kSlots], ib[kSlots];
-  double acc[kSlots];
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    acc[s] = 0.0;
-    ia[s] = -1;
-    ib[s] = -1;
-    const int q = tid + s * kThreads;
-    if (q < n_pairs) {
-      int i = 0, rest = q;
-      while (rest >= m - i) {
-        rest -= m - i;
-        ++i;
-      }
-      ia[s] = i;
-      ib[s] = i + rest;
-    } else if (q < P) {
-      ia[s] = q - n_pairs;
-    }
-  }
-  for (int base = blockIdx.x * kThreads; base < n_paths; base += gridDim.x * kThreads) {
-    const int count = min(kThreads, n_paths - base);
-    if (tid < count) {
-      const int i = base + tid;
-      float s[A];
-      load_assets<A>(planes, static_cast<size_t>(n_paths), i, s);
-      float uni[A][kMaxMaDegree + 1];
-      ma_features<A>(s, p, stats, T1, t, uni);
-      // w is 0 or 1, so weighting is exact: the all-paths fit (w = 1)
-      // rounds as the plain version's unweighted products
-      const float w = itm_weights ? (ma_payoff<A>(s, p) > 0.0f ? 1.0f : 0.0f) : 1.0f;
-      for (int c = 0; c < m; ++c) {
-        const float v = ma_column<A>(uni, p.alpha[c]);
-        cols[c * kTileStride + tid] = v;
-        if (itm_weights) cols_w[c * kTileStride + tid] = v * w;
-      }
-      yw[tid] = y(i) * w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      if (ia[s] < 0) continue;
-      double a = acc[s];
-      if (ib[s] >= 0) {
-        const float* ci = cols_w + ia[s] * kTileStride;
-        const float* cj = cols + ib[s] * kTileStride;
-        for (int k = 0; k < count; ++k) a += static_cast<double>(ci[k] * cj[k]);
-      } else {
-        const float* ci = cols + ia[s] * kTileStride;
-        for (int k = 0; k < count; ++k) a += static_cast<double>(ci[k] * yw[k]);
-      }
-      acc[s] = a;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int q = tid + s * kThreads;
-    if (q < P) partials_row[q] = acc[s];
-  }
 }
 
 }  // namespace amcx

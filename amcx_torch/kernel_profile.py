@@ -2,8 +2,8 @@
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python3 -m amcx_torch.kernel_profile [--route put|book|ma-step|swing|step|fusedpath|qmc]
-        [--reps 20] [--label NAME]
+    python3 -m amcx_torch.kernel_profile
+        [--route put|book|ma-step|ma-mega|swing|step|fusedpath|qmc] [--reps 20] [--label NAME]
 
 Routes, each on fixed inputs made from fixed seeds:
 
@@ -21,6 +21,12 @@ Routes, each on fixed inputs made from fixed seeds:
   q = 10%, sigma = 20%, T = 3, sorted degree-2 basis: m = 21, P = 252)
   through ``ma_step_moments``, all-paths and ITM-weighted; the hash covers
   both packed moment vectors.
+- ``ma-mega`` (kernel 7): the whole induction of the 5-asset Bermudan
+  max-call of ``ma-step`` (maxcall-5-1M: 1,048,576 paths, 9 dates, sorted
+  degree-2 basis, m = 21, all-paths fit, exercise from date 1) through
+  ``lsmc_ma_mega._ma_mega_cuda`` on the asset-major planes and stats rows
+  that ``lsmc_ma_mega.prepare`` builds once, with the cf/tau planes; the
+  hash covers the price, stderr, cf and tau bits.
 - ``swing`` (kernel 10): swing-3-1M (a 3-rights put, K = 105, S0 = 100,
   r = 5%, sigma = 25%, T = 1, 1,048,576 Philox paths x 100 steps,
   Chebyshev degree 4, ITM fit, the closed-form frame) through
@@ -41,9 +47,9 @@ Routes, each on fixed inputs made from fixed seeds:
   then bridge order (one run is both arrays); the hash covers the path
   bits of each order.
 
-The routes other than ``put`` also print the wrappers' host time per run
-(enqueue, no sync) and the CUDA-event time minus the device time; a
-``step`` run is three wrapper calls (two moments, one apply).
+Every route also prints the wrappers' host time per run (enqueue, no
+sync) and the CUDA-event time minus the device time; a ``step`` run is
+three wrapper calls (two moments, one apply).
 
 Each prints one JSON line: the median ms per call by CUDA events, the
 device microseconds per call of each kernel by name (``torch.profiler``)
@@ -59,6 +65,7 @@ import argparse
 import hashlib
 import json
 import statistics
+import subprocess
 import time
 
 
@@ -117,6 +124,25 @@ def _ma_step(torch, amcx_torch, dev):
 
     outs = (run(), run(itm=True))
     return run, outs, {"price": outs[0][0]}
+
+
+def _ma_mega(torch, amcx_torch, dev):
+    from amcx_torch.ops import lsmc_ma_mega
+
+    n_paths, n_dates, S0, K, r, q, sigma, T = 1_048_576, 9, 100.0, 100.0, 0.05, 0.1, 0.2, 3.0
+    sim = amcx_torch.SimConfig(n_paths=n_paths, n_steps=n_dates)
+    paths = amcx_torch.simulate_gbm_multi(20261018, [S0] * 5, r, sigma, T, sim, q=q, device=dev)
+    planes, stats, cfg = lsmc_ma_mega.prepare(paths, K, r, T / n_dates, payoff_kind="maxcall",
+                                              degree=2, sorted_basis=True, exercise_from_step=1)
+    del paths
+
+    def run():
+        return lsmc_ma_mega._ma_mega_cuda(planes, stats, cfg, True, False)
+
+    sums, cf, tau = run()
+    price = sums[0] / n_paths
+    stderr = torch.sqrt(torch.clamp_min(sums[1] / n_paths - price * price, 0.0) / n_paths)
+    return run, (price, stderr, cf, tau), {"price": price}
 
 
 def _swing(torch, amcx_torch, dev):
@@ -206,8 +232,8 @@ def _qmc(torch, amcx_torch, dev):
     return run, outs, {"price": outs[1][-1].mean()}
 
 
-ROUTES = {"put": _put, "book": _book, "ma-step": _ma_step, "swing": _swing, "step": _step,
-          "fusedpath": _fusedpath, "qmc": _qmc}
+ROUTES = {"put": _put, "book": _book, "ma-step": _ma_step, "ma-mega": _ma_mega, "swing": _swing,
+          "step": _step, "fusedpath": _fusedpath, "qmc": _qmc}
 
 
 def _device_us(torch, profile, activity, fn, reps):
@@ -262,26 +288,29 @@ def main(argv=None):
         for _ in range(args.reps):
             run()
         torch.cuda.synchronize()
-    per_name = {}
+    per_name, count = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
             name = name.split("(")[0][:60]
             per_name[name] = per_name.get(name, 0.0) + e.time_range.end - e.time_range.start
+            count[name] = count.get(name, 0) + 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
     line = {
-        "label": args.label, "device": torch.cuda.get_device_name(0),
+        "label": args.label, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "price": float(extra["price"]), "bits_sha256": digest.hexdigest(),
         "ms_median": statistics.median(times), "ms_min": min(times),
         "device_us_per_induction": {k: v / args.reps for k, v in
-                                    sorted(per_name.items(), key=lambda kv: -kv[1])}}
+                                    sorted(per_name.items(), key=lambda kv: -kv[1])},
+        "device_launches_per_induction": {k: v / args.reps for k, v in
+                                          sorted(count.items(), key=lambda kv: -kv[1])}}
     if "by_degree" in extra:
         line["moments_device_us_by_degree"] = extra["by_degree"](
             lambda fn: _device_us(torch, profile, ProfilerActivity, fn, args.reps))
-    if args.route != "put":
-        device_us = sum(per_name.values()) / args.reps
-        line.update(route=args.route, device_us_per_call=device_us,
-                    host_enqueue_us_per_call=host_us,
-                    wall_minus_device_us=statistics.median(times) * 1e3 - device_us)
+    device_us = sum(per_name.values()) / args.reps
+    line.update(route=args.route, device_us_per_call=device_us, host_enqueue_us_per_call=host_us,
+                wall_minus_device_us=statistics.median(times) * 1e3 - device_us)
     print(json.dumps(line))
 
 

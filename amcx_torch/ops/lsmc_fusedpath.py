@@ -50,14 +50,13 @@ from ..paths import gbm_standardization
 from ..payoff import exercise_allow_row
 from ..types import MarketParams
 from .gbm import _seed_key, philox4x32_10
-from .lsmc_megakernel import (MAX_DEGREE, MegaOutputs, _n_moments, _not_ported, _pairs,
-                              _solve_equilibrated_ridge, _sum_once_rounded, mega_stats)
+from .lsmc_megakernel import (_QUAD_BYTES, _THREADS, MAX_DEGREE, MegaOutputs, _not_ported,
+                              _pairs, _solve_equilibrated_ridge, _sum_once_rounded,
+                              coop_partials, cooperative_plan, mega_stats)
 
 __all__ = ["lsmc_price_fusedpath", "lsmc_price_fusedpath_reference", "fusedpath_normals",
            "fusedpath_paths_reference"]
 
-_THREADS = 256  # csrc/lsmc_common.cuh kThreads
-_QUAD_BYTES = 16  # one f32 plane of a quad of paths
 _TWO_PI = 2.0 * math.pi
 _BARRIER_TYPES = ("down-in", "down-out", "up-in", "up-out")
 
@@ -255,36 +254,15 @@ def _state_planes(barrier: bool) -> int:
 def _fusedpath_plan(n_paths: int, antithetic: bool, barrier: bool, n_sms: int,
                     occupancy: Callable[[int], int]):
     """The kernel's cooperative grid: ``(n_blocks, chip_slots,
-    slots_needed)``. Block 0 solves; each thread of the other blocks owns
-    units of paths (a quad, or with ``antithetic`` the mirrored quad pair)
-    and keeps their state planes in ``chip_slots`` quad slots of shared
-    memory, the rest in global spill planes (``slots_needed >
-    chip_slots``). ``occupancy`` maps a block's dynamic shared-memory bytes
-    to the blocks an SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``;
-    0 when they do not fit). The widest grid that keeps every quad on chip
-    wins; when none does, the widest grid keeps as many as its blocks leave
-    room for."""
+    slots_needed)`` (:func:`~amcx_torch.ops.lsmc_megakernel.cooperative_plan`).
+    Block 0 solves; each thread of the other blocks owns units of paths (a
+    quad, or with ``antithetic`` the mirrored quad pair) and keeps their
+    state planes in ``chip_slots`` quad slots of shared memory, the rest in
+    global spill planes (``slots_needed > chip_slots``)."""
     qpu = 2 if antithetic else 1
-    units = n_paths // (4 * qpu)
-    slot_bytes = _THREADS * _QUAD_BYTES * _state_planes(barrier)
-    widest = occupancy(0)
-    if widest < 1 or widest * n_sms < 2:
-        raise RuntimeError("the fusedpath kernel fits no two co-resident blocks")
-
-    def grid(per_sm):
-        workers = max(1, min(per_sm * n_sms - 1, -(-units // _THREADS)))
-        return workers + 1, -(-units // (workers * _THREADS)) * qpu
-
-    for per_sm in range(widest, 0, -1):
-        n_blocks, needed = grid(per_sm)
-        if occupancy(needed * slot_bytes) * n_sms >= n_blocks:
-            return n_blocks, needed, needed
-    n_blocks, needed = grid(widest)
-    per_sm = -(-n_blocks // n_sms)
-    chip = 0
-    while chip + qpu < needed and occupancy((chip + qpu) * slot_bytes) >= per_sm:
-        chip += qpu
-    return n_blocks, chip, needed
+    return cooperative_plan(n_paths // (4 * qpu), qpu,
+                            _THREADS * _QUAD_BYTES * _state_planes(barrier), n_sms, occupancy,
+                            "fusedpath")
 
 
 @functools.lru_cache(maxsize=None)
@@ -316,10 +294,7 @@ def _fusedpath_cuda(cfg: _Config, stats, coeffs, allow, cf_tau):
     cf = tau = None
     if cf_tau:
         cf, tau = torch.empty(n, dtype=f32, device=dev), torch.empty(n, dtype=f32, device=dev)
-    # the arrival and generation words (zeroed), then the workers' rows
-    partials = torch.empty(1 + (n_blocks - 1) * max(_n_moments(cfg.degree), 2),
-                           dtype=torch.float64, device=dev)
-    partials[0] = 0.0
+    partials = coop_partials(n_blocks, cfg.degree, dev)
     replay = coeffs is not None
     if not replay:
         coeffs = torch.zeros((n_steps + 1, k), dtype=f32, device=dev)

@@ -5,11 +5,14 @@ Port of `amcx.ops.lsmc_ma_mega` (``_ma_mega_kernel`` via
 multi-asset product (max-call, arithmetic and geometric baskets, the
 two-plane kinds of the Heston/Asian/spread engines) in one call. On
 Hopper the per-step Gram is a grid-wide dependency, so
-``amcx_torch/csrc/lsmc_ma_mega.cu`` drives maturity → n_steps × (moments →
-one-block solve → apply) → final sums from a C host loop on one stream
-(the shape of ``csrc/lsmc_mega.cu``), with the column and moment code of
-kernels 8/9 (``csrc/ma_common.cuh``) and the equilibrated ridge-Cholesky
-solve of kernel 2 (``csrc/lsmc_common.cuh``), generic in m.
+``amcx_torch/csrc/lsmc_ma_mega.cu`` runs two launches a step from a C host
+loop on one stream: the step's moments on kernel 8's register-blocked
+design (``csrc/ma_moments.cuh``, on the persistent grid of
+:func:`~amcx_torch.ops.maxcall_pallas.ma_moments_blocks`), after which the
+last block sums the partial rows and one warp solves the m × m system
+(``warp_solve_equilibrated_ridge`` of ``csrc/lsmc_common.cuh``), then the
+step's exercise; the last launch takes step 0's exercise and the final
+sums.
 
 V is carried in time-T units: regression target ``y = c_t·V``, exercise
 ``V ← ex/c_t``, never multiplied per step. :func:`_ma_mega_reference` is
@@ -27,17 +30,17 @@ rate curves (with A9 ``term``) and ``axis_name`` (A15).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .lsmc_megakernel import _not_ported, _solve_equilibrated_ridge, _sum_once_rounded
 from .maxcall_pallas import (MaParams, _columns, _fitted, _moments_from_cols, _payoff_for,
-                             _tuple, ma_inputs, ma_pack_dim, ma_params)
+                             _tuple, ma_inputs, ma_moments_blocks, ma_pack_dim, ma_params)
 
 __all__ = ["lsmc_price_ma_mega", "lsmc_price_ma_mega_reference"]
 
 _THREADS = 256
-_MAX_BLOCKS = 1024
 
 
 def _ma_mega_reference(planes, stats, cfg, cf_tau, antithetic):
@@ -80,28 +83,40 @@ def _ma_mega_cuda(planes, stats, cfg, cf_tau, antithetic):
     n_steps -= 1
     dev = planes.device
     params = cfg["params"]
-    P = ma_pack_dim(params.n_cols)
-    n_blocks = max(1, min(_MAX_BLOCKS, -(-n_paths // _THREADS)))
+    m = params.n_cols
+    P = ma_pack_dim(m)
+    n_sm = _build.sm_count(dev)
+    n_blocks = ma_moments_blocks(n_paths, m, n_sm)
+    n_final = max(1, min(2 * n_sm, -(-n_paths // _THREADS)))
     V = torch.empty(n_paths, dtype=torch.float32, device=dev)
     cf = tau = None
     if cf_tau:
         cf = torch.empty(n_paths, dtype=torch.float32, device=dev)
         tau = torch.empty(n_paths, dtype=torch.float32, device=dev)
-    partials = torch.empty(n_blocks * P, dtype=torch.float64, device=dev)
-    coeffs = torch.empty(params.n_cols, dtype=torch.float32, device=dev)
+    # the ticket (zeroed), then the blocks' partial rows
+    partials = torch.empty(1 + max(n_blocks * P, 2 * n_final), dtype=torch.float64, device=dev)
+    partials[:1].zero_()  # a fill: a scalar store would copy from the host and wait
+    coeffs = torch.empty((n_steps + 1) * m, dtype=torch.float32, device=dev)
     sums = torch.empty(2, dtype=torch.float32, device=dev)
-    Vp, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _build.function("amcx_lsmc_ma_mega", [Vp, Vp, Vp, Vp, Vp, Vp, Vp, Vp, I, I, I, F, I,
-                                               I, ctypes.POINTER(MaParams), Vp])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(planes.data_ptr(), stats.data_ptr(), V.data_ptr(),
-            None if cf is None else cf.data_ptr(), None if tau is None else tau.data_ptr(),
-            partials.data_ptr(), coeffs.data_ptr(), sums.data_ptr(), n_steps, n_paths,
-            n_blocks, float(cfg["rcond"]), int(cfg["itm_weights"]), int(antithetic),
-            ctypes.byref(params), stream)
+    rc = _ma_mega_fn()(planes.data_ptr(), stats.data_ptr(), V.data_ptr(),
+                       None if cf is None else cf.data_ptr(),
+                       None if tau is None else tau.data_ptr(), partials.data_ptr(),
+                       coeffs.data_ptr(), sums.data_ptr(), n_steps, n_paths, n_blocks, n_final,
+                       float(cfg["rcond"]), int(cfg["itm_weights"]), int(antithetic),
+                       ctypes.byref(params), stream)
     lsmc_price_ma_mega.launches += 1
     _build.check(rc, "amcx_lsmc_ma_mega")
     return sums, cf, tau
+
+
+@functools.lru_cache(maxsize=None)
+def _ma_mega_fn():
+    from . import _build
+
+    Vp, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.function("amcx_lsmc_ma_mega", [Vp] * 8 + [I, I, I, I, F, I, I,
+                                                            ctypes.POINTER(MaParams), Vp])
 
 
 def lsmc_price_ma_mega(

@@ -6,9 +6,12 @@ Port of `amcx.ops.lsmc_megakernel`: ``_mega_kernel`` (via
 ``_book_kernel`` (via :func:`lsmc_book_megakernel`) for a strike/maturity
 book of them on one path set. The TPU kernels run the whole induction in
 one launch because their grid is sequential; on Hopper the per-step Gram is
-a grid-wide dependency, so ``amcx_torch/csrc/lsmc_mega.cu`` and
-``csrc/lsmc_book.cu`` drive moments → solve → apply kernels per step from a
-host loop on one stream (see the notes at the top of those files).
+a grid-wide dependency. ``amcx_torch/csrc/lsmc_mega.cu`` keeps one launch a
+pricing: a cooperative grid (sized by :func:`_mega_plan`) whose block 0
+solves each step while the other blocks, which own the paths for the whole
+pricing, sum the next step's moments; ``csrc/lsmc_book.cu`` drives moments
+→ solve → apply kernels per step from a host loop on one stream (see the
+notes at the top of those files).
 
 :func:`_mega_reference` is a plain-torch transcription of the same
 algorithm: V carried in time-T units, explicit pair moments, and the same
@@ -29,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -40,8 +43,9 @@ __all__ = ["lsmc_price_megakernel", "lsmc_price_mega_reference", "MegaOutputs",
            "mega_stats", "lsmc_book_megakernel", "lsmc_book_mega_reference", "BOOK_MAX_STRIKES"]
 
 MAX_DEGREE = 10
-_THREADS = 256  # csrc/lsmc_mega.cu kThreads
-_MAX_BLOCKS = 1024
+_THREADS = 256  # csrc/lsmc_common.cuh kThreads
+_QUAD_BYTES = 16  # one f32 plane of a quad of paths
+_MEGA_PLANES = 3  # csrc/lsmc_mega.cu kPlanes: V, S even, S odd
 BOOK_MAX_STRIKES = 64  # csrc/lsmc_book.cu kMaxStrikes
 
 
@@ -61,11 +65,6 @@ class MegaOutputs(NamedTuple):
 
 def _pairs(k):
     return [(i, j) for i in range(k) for j in range(i, k)]
-
-
-def _n_moments(degree: int) -> int:
-    k = degree + 1
-    return k * (k + 1) // 2 + k
 
 
 def _factor_equilibrated_ridge(g_raw, k, rcond):
@@ -182,6 +181,90 @@ def _sum_once_rounded(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x, dtype=torch.float64).to(torch.float32)
 
 
+class MegaParams(ctypes.Structure):
+    """``struct MegaParams`` of ``csrc/lsmc_mega.cu``, handed to the kernel
+    by value."""
+
+    _fields_ = [("n_steps", ctypes.c_int), ("n_paths", ctypes.c_int),
+                ("n_blocks", ctypes.c_int), ("chip_slots", ctypes.c_int),
+                ("basis", ctypes.c_int), ("american", ctypes.c_int),
+                ("itm_weights", ctypes.c_int), ("strike", ctypes.c_float),
+                ("phi", ctypes.c_float), ("rcond", ctypes.c_float)]
+
+
+def cooperative_plan(units: int, qpu: int, slot_bytes: int, n_sms: int,
+                     occupancy: Callable[[int], int], kernel: str):
+    """A cooperative induction's grid (kernels 2 and 6, ``csrc/lsmc_coop.cuh``):
+    ``(n_blocks, chip_slots, slots_needed)``. Block 0 solves; each thread of
+    the other blocks owns ``units`` of paths, ``qpu`` quad slots a unit of
+    ``slot_bytes`` for its ``_THREADS`` threads, in shared memory up to
+    ``chip_slots`` and in global spill planes past them (``slots_needed >
+    chip_slots``). ``occupancy`` maps a block's dynamic shared-memory bytes
+    to the blocks an SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``;
+    0 when they do not fit). The widest grid that keeps every quad on chip
+    wins; when none does, the widest grid keeps as many as its blocks leave
+    room for."""
+    widest = occupancy(0)
+    if widest < 1 or widest * n_sms < 2:
+        raise RuntimeError(f"the {kernel} kernel fits no two co-resident blocks")
+
+    def grid(per_sm):
+        workers = max(1, min(per_sm * n_sms - 1, -(-units // _THREADS)))
+        return workers + 1, -(-units // (workers * _THREADS)) * qpu
+
+    for per_sm in range(widest, 0, -1):
+        n_blocks, needed = grid(per_sm)
+        if occupancy(needed * slot_bytes) * n_sms >= n_blocks:
+            return n_blocks, needed, needed
+    n_blocks, needed = grid(widest)
+    per_sm = -(-n_blocks // n_sms)
+    chip = 0
+    while chip + qpu < needed and occupancy((chip + qpu) * slot_bytes) >= per_sm:
+        chip += qpu
+    return n_blocks, chip, needed
+
+
+def coop_partials(n_blocks: int, degree: int, device) -> torch.Tensor:
+    """A cooperative induction's f64 scratch (``csrc/lsmc_coop.cuh``): the
+    arrival and generation words, zeroed by a fill on the stream (a scalar
+    store would copy from the host and wait for the stream), then a row of
+    ``max(P, 2)`` sums for each worker block."""
+    k = degree + 1
+    buf = torch.empty(1 + (n_blocks - 1) * max(k * (k + 1) // 2 + k, 2), dtype=torch.float64,
+                      device=device)
+    buf[:1].zero_()
+    return buf
+
+
+def _mega_plan(n_paths: int, n_sms: int, occupancy: Callable[[int], int]):
+    """Kernel 2's cooperative grid (:func:`cooperative_plan`): a worker
+    thread owns quads of paths (the last one masked past ``n_paths``) and
+    keeps each quad's V, S_t and S_{t+1} in a slot."""
+    return cooperative_plan(-(-n_paths // 4), 1, _THREADS * _QUAD_BYTES * _MEGA_PLANES, n_sms,
+                            occupancy, "mega")
+
+
+@functools.lru_cache(maxsize=None)
+def _mega_occupancy(degree: int, smem: int, device_index: int) -> int:
+    from . import _build
+
+    with torch.cuda.device(device_index):
+        fn = _build.function("amcx_lsmc_mega_occupancy",
+                             [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+        blocks = ctypes.c_int(0)
+        _build.check(fn(degree, smem, ctypes.byref(blocks)), "amcx_lsmc_mega_occupancy")
+    return blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def _mega_fn():
+    from . import _build
+
+    Vp = ctypes.c_void_p
+    return _build.function("amcx_lsmc_mega", [ctypes.POINTER(MegaParams)] + [Vp] * 8
+                           + [ctypes.c_int, Vp])
+
+
 def _mega_cuda(paths, stats, K, phi, rcond, basis, degree, american, itm_weights,
                cf_tau=False):
     from . import _build
@@ -190,28 +273,35 @@ def _mega_cuda(paths, stats, K, phi, rcond, basis, degree, american, itm_weights
     n_paths = paths.shape[1]
     k = degree + 1
     dev = paths.device
-    n_blocks = max(1, min(_MAX_BLOCKS, -(-n_paths // _THREADS)))
-    V = torch.empty(n_paths, dtype=torch.float32, device=dev)
+    f32 = torch.float32
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    n_blocks, chip_slots, needed = _mega_plan(
+        n_paths, _build.sm_count(dev), lambda smem: _mega_occupancy(degree, smem, index))
+    # V, S_t, S_{t+1} of the quads past the shared-memory slots
+    spill = None
+    if needed > chip_slots:
+        spill = torch.empty(_MEGA_PLANES * 4 * (-(-n_paths // 4)), dtype=f32, device=dev)
     cf = tau = None
     if cf_tau:
-        cf = torch.empty(n_paths, dtype=torch.float32, device=dev)
-        tau = torch.empty(n_paths, dtype=torch.float32, device=dev)
-    partials = torch.empty(n_blocks * max(_n_moments(degree), 2), dtype=torch.float64,
-                           device=dev)
-    coeffs = torch.zeros((n_steps + 1, k), dtype=torch.float32, device=dev)
-    sums = torch.empty(2, dtype=torch.float32, device=dev)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _build.function("amcx_lsmc_mega",
-                         [P, P, P, P, P, P, P, P, I, I, I, F, F, F, I, I, I, I, P])
+        cf = torch.empty(n_paths, dtype=f32, device=dev)
+        tau = torch.empty(n_paths, dtype=f32, device=dev)
+    partials = coop_partials(n_blocks, degree, dev)
+    coeffs = torch.zeros((n_steps + 1, k), dtype=f32, device=dev)
+    sums = torch.empty(2, dtype=f32, device=dev)
+    params = MegaParams(n_steps=n_steps, n_paths=n_paths, n_blocks=n_blocks,
+                        chip_slots=chip_slots, basis=BASIS_IDS[basis], american=int(american),
+                        itm_weights=int(itm_weights), strike=K, phi=phi, rcond=rcond)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(paths.data_ptr(), stats.data_ptr(), V.data_ptr(),
-            None if cf is None else cf.data_ptr(), None if tau is None else tau.data_ptr(),
-            partials.data_ptr(), coeffs.data_ptr(), sums.data_ptr(), n_steps, n_paths, n_blocks,
-            float(K), float(phi), float(rcond), BASIS_IDS[basis], degree,
-            int(american), int(itm_weights), stream)
+    rc = _mega_fn()(ctypes.byref(params), paths.data_ptr(), stats.data_ptr(), ptr(spill),
+                    ptr(cf), ptr(tau), partials.data_ptr(), coeffs.data_ptr(), sums.data_ptr(),
+                    degree, stream)
     lsmc_price_megakernel.launches += 1
     _build.check(rc, "amcx_lsmc_mega")
-    return sums, coeffs, V, cf, tau
+    return sums, coeffs, None, cf, tau
 
 
 def _data_standardization(paths, K, phi, itm_weights):
@@ -235,8 +325,10 @@ def mega_stats(mean_t, inv_std_t, r, dt, n_steps: int, device) -> torch.Tensor:
     ``c_t = e^{−r·dt·(n_steps−t)}`` built in f32 in amcx's order."""
     f32 = torch.float32
     rem = n_steps - torch.arange(n_steps + 1, dtype=f32, device=device)
-    r_rem = torch.tensor(float(r), dtype=f32, device=device) * torch.tensor(
-        float(dt), dtype=f32, device=device) * rem
+    # f32(r) f32(dt) rounded once on the host (exact as a Python float): a
+    # device scalar would be a copy from the host that waits for the stream
+    r_dt = float(torch.tensor(float(r), dtype=f32) * torch.tensor(float(dt), dtype=f32))
+    r_rem = r_dt * rem
     return torch.cat([
         torch.as_tensor(mean_t, dtype=f32, device=device).reshape(-1),
         torch.as_tensor(inv_std_t, dtype=f32, device=device).reshape(-1),
@@ -279,7 +371,8 @@ def lsmc_price_megakernel(
     :class:`MegaOutputs` with the per-step coefficients (``return_coeffs``)
     and the undiscounted cashflow and exercise-time planes
     (``return_cf_tau``). Runs where ``paths_tm`` lies: on a CUDA tensor the
-    kernels of ``csrc/lsmc_mega.cu`` (or it raises), on a CPU tensor
+    kernel of ``csrc/lsmc_mega.cu`` (or it raises; a grid the card cannot
+    hold at once is refused, never run another way), on a CPU tensor
     :func:`_mega_reference`. ``mean_t``/``inv_std_t``: per-step
     standardization (computed from the paths when omitted). Not ported yet:
     ``barrier`` (any ``barrier_type``), ``exercise_steps``,

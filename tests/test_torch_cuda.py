@@ -95,6 +95,126 @@ def test_induction_kernel_other_bases(cuda_device, basis, degree):
                                equal_nan=True)
 
 
+def _mega_equal_to_plain(dev, paths, phi, kw, calls=2):
+    # kernel 2 against its plain version on the same card paths: identical
+    # bits (a NaN coefficient row, where the data frame overflows a high
+    # degree at t = 0, NaN in both), one wrapper call a pricing, and a rerun
+    # identical
+    before = tmega.lsmc_price_megakernel.launches
+    runs = [tmega.lsmc_price_megakernel(paths, K, R, 0.01, phi, **kw) for _ in range(calls)]
+    ref = tmega.lsmc_price_mega_reference(paths, K, R, 0.01, phi, **kw)
+    torch.cuda.synchronize()
+    assert tmega.lsmc_price_megakernel.launches == before + calls
+    ker = runs[0]
+    assert math.isfinite(float(ker.price)) and float(ker.stderr) > 0
+    for out in (*runs[1:], ref):
+        for a, b in zip(ker, out):
+            assert (a is None) == (b is None)
+            if a is not None:
+                torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    return ker
+
+
+@pytest.mark.parametrize("degree", range(11))
+@pytest.mark.parametrize("basis", ["power", "chebyshev", "legendre", "laguerre", "hermite"])
+def test_induction_kernel_every_basis_and_degree(cuda_device, basis, degree):
+    # the cooperative kernel at every k = 1..11 and basis, ITM American put
+    # in the closed-form frame with cf/tau and coefficients, 20,003 paths (the
+    # last quad masked) x 20 steps
+    paths = tgbm.gbm_paths(40 + degree, S0, R, SIGMA, 0.0, 0.2, 20, 20_003, device=cuda_device)
+    mean_t, inv_std_t = at.gbm_standardization(at.MarketParams(S0, R, SIGMA), 0.2, 20,
+                                               device=cuda_device)
+    kw = dict(basis=basis, degree=degree, itm_weights=True, mean_t=mean_t, inv_std_t=inv_std_t,
+              return_cf_tau=True, return_coeffs=True)
+    ker = _mega_equal_to_plain(cuda_device, paths, -1.0, kw)
+    assert bool((ker.exercise_times < 20).any())
+
+
+MEGA_FIT_CASES = {
+    # (phi, keywords): the data frame (a NaN t = 0 row at degree >= 5), an
+    # all-paths fit, a European (regression for the export only), a call
+    "data-frame-degree-5": (-1.0, dict(degree=5, itm_weights=True)),
+    "data-frame-degree-10-all": (-1.0, dict(degree=10)),
+    "all-paths-cf-tau": (-1.0, dict(return_cf_tau=True)),
+    "european-itm": (-1.0, dict(itm_weights=True, american=False)),
+    "call-itm-cf-tau": (1.0, dict(itm_weights=True, return_cf_tau=True)),
+}
+
+
+@pytest.mark.parametrize("n", [131_071, 131_072])
+@pytest.mark.parametrize("case", sorted(MEGA_FIT_CASES))
+def test_induction_kernel_fits_match_plain(cuda_device, case, n):
+    phi, kw = MEGA_FIT_CASES[case]
+    paths = tgbm.gbm_paths(9, S0, R, SIGMA, 0.0, 1.0, 100, n, device=cuda_device)
+    ker = _mega_equal_to_plain(cuda_device, paths, phi, dict(kw, return_coeffs=True))
+    if kw.get("degree", 4) >= 5 and kw.get("itm_weights"):
+        assert bool(ker.coeffs[0].isnan().all())  # no path is ITM at t = 0: a NaN fit
+
+
+def test_induction_kernel_unaligned_paths(cuda_device):
+    # a contiguous path tensor at a storage offset of one float: no row is
+    # 16-byte aligned, so every load is one a path
+    n, T = 131_072, 100
+    src = tgbm.gbm_paths(10, S0, R, SIGMA, 0.0, 1.0, T, n, device=cuda_device)
+    flat = torch.empty(1 + (T + 1) * n, device=cuda_device)
+    paths = flat[1:].view(T + 1, n)
+    paths.copy_(src)
+    assert paths.is_contiguous() and paths.data_ptr() % 16 != 0
+    mean_t, inv_std_t = at.gbm_standardization(at.MarketParams(S0, R, SIGMA), 1.0, T,
+                                               device=cuda_device)
+    kw = dict(itm_weights=True, mean_t=mean_t, inv_std_t=inv_std_t, return_cf_tau=True,
+              return_coeffs=True)
+    ker = _mega_equal_to_plain(cuda_device, paths, -1.0, kw)
+    aligned = tmega.lsmc_price_megakernel(src, K, R, 0.01, -1.0, **kw)
+    for a, b in zip(ker, aligned):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("degree", [4, 10])
+def test_induction_kernel_global_planes_match_plain(cuda_device, degree, monkeypatch):
+    # every quad past the first shared-memory slot goes through the global
+    # planes (the path that large n_paths take), 1,000,003 paths x 20 steps
+    plan = tmega._mega_plan
+
+    def one_slot(*args):
+        n_blocks, chip, needed = plan(*args)
+        return n_blocks, min(chip, 1), needed
+
+    monkeypatch.setattr(tmega, "_mega_plan", one_slot)
+    paths = tgbm.gbm_paths(11, S0, R, SIGMA, 0.0, 0.2, 20, 1_000_003, device=cuda_device)
+    mean_t, inv_std_t = at.gbm_standardization(at.MarketParams(S0, R, SIGMA), 0.2, 20,
+                                               device=cuda_device)
+    _mega_equal_to_plain(cuda_device, paths, -1.0,
+                         dict(degree=degree, itm_weights=True, mean_t=mean_t,
+                              inv_std_t=inv_std_t, return_cf_tau=True, return_coeffs=True))
+
+
+def test_induction_kernel_large_n_matches_plain(cuda_device):
+    # 8,388,608 paths x 100 steps: more quads than the grid's shared memory
+    # holds, so the plan itself sends the rest to the global planes
+    paths = tgbm.gbm_paths(12, S0, R, SIGMA, 0.0, 1.0, 100, 1 << 23, device=cuda_device)
+    mean_t, inv_std_t = at.gbm_standardization(at.MarketParams(S0, R, SIGMA), 1.0, 100,
+                                               device=cuda_device)
+    n_blocks, chip, needed = tmega._mega_plan(
+        1 << 23, torch.cuda.get_device_properties(0).multi_processor_count,
+        lambda smem: tmega._mega_occupancy(4, smem, 0))
+    assert chip < needed
+    _mega_equal_to_plain(cuda_device, paths, -1.0,
+                         dict(itm_weights=True, mean_t=mean_t, inv_std_t=inv_std_t,
+                              return_cf_tau=True, return_coeffs=True), calls=1)
+
+
+def test_induction_refused_cooperative_launch_raises(cuda_device, monkeypatch):
+    # a grid larger than the card holds at once is refused by the runtime:
+    # the wrapper raises, it never runs the pricing another way
+    monkeypatch.setattr(tmega, "_mega_plan", lambda *args: (100_000, 1, 1))
+    paths = tgbm.gbm_paths(13, S0, R, SIGMA, 0.0, 1.0, 10, 1 << 20, device=cuda_device)
+    before = tmega.lsmc_price_megakernel.launches
+    with pytest.raises(RuntimeError, match="amcx_lsmc_mega"):
+        tmega.lsmc_price_megakernel(paths, K, R, 0.1, -1.0)
+    assert tmega.lsmc_price_megakernel.launches == before + 1
+
+
 def test_main_path_on_card(cuda_device):
     # the flagship route end to end at 131k x 100: both kernels launch,
     # and the price sits within 4 stderr + 0.005 of CRR-2000
@@ -377,6 +497,20 @@ MA_MEGA_CARD_CASES = {
                                                   antithetic=True)),
     "basket-cf-tau": (5, "basket", dict(return_cf_tau=True)),
     "geobasket-separable": (3, "geobasket", dict(mode="separable", degree=3)),
+    # every other payoff kind: the put on asset 0, the fixed-strike call on
+    # asset 1, the spreads (m = 6, 10)
+    "first-put-itm": (2, "first", dict(phi=-1.0, itm_weights=True, return_cf_tau=True)),
+    "second-cf-tau": (2, "second", dict(return_cf_tau=True)),
+    "spread": (2, "spread", dict(degree=3)),
+    "spreadk-itm": (3, "spreadk", dict(itm_weights=True, degree=1, return_cf_tau=True)),
+    # the widest systems any basis reaches under kMaxCols = 32 (two task
+    # groups over gridDim.y), m = 25 and 29 not multiples of 4, m = 28 one
+    "8-assets-m25-itm": (8, "maxcall", dict(sorted_basis=True, mode="separable", degree=3,
+                                            itm_weights=True, return_cf_tau=True)),
+    "7-assets-m29-dates-off": (7, "basket", dict(mode="separable", degree=4,
+                                                 exercise_steps=(2, 4, 7), return_cf_tau=True)),
+    "6-assets-m28-antithetic": (6, "maxcall", dict(sorted_basis=True, antithetic=True,
+                                                   return_cf_tau=True)),
 }
 
 

@@ -283,3 +283,44 @@ def test_unported_routes_raise():
             tmega.lsmc_price_megakernel(paths, K, kw.pop("r", R), 0.25, -1.0, **kw)
     with pytest.raises(ValueError, match="degree"):
         tmega.lsmc_price_megakernel(paths, K, R, 0.25, -1.0, degree=11)
+
+
+# kernel 2's cooperative grid (`_mega_plan`) against an H100-shaped
+# occupancy (as tests/test_torch_fusedpath.py's): 132 SMs, 227 KB of shared
+# memory a block at most, 1 KB reserved a block, 6 KB of static shared
+# memory, registers for 2 blocks of 256 threads an SM; a quad slot holds V,
+# S_t and S_{t+1} (48 B a thread)
+def _h100_occupancy(smem):
+    static = 6 * 1024
+    if smem + static > 232_448:
+        return 0
+    return min(2, 233_472 // (smem + static + 1024))
+
+
+MEGA_PLAN_CASES = {  # n_paths: (n_blocks, chip_slots, needed)
+    "flagship-1M": (1 << 20, (264, 4, 4)),
+    "uneven-1000003": (1_000_003, (264, 4, 4)),
+    "small-131072": (131_072, (129, 1, 1)),
+    "five-paths": (5, (2, 1, 1)),
+    "spill-8M": (1 << 23, (264, 8, 32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MEGA_PLAN_CASES))
+def test_mega_plan_fits_the_card(case):
+    # every quad has a slot on a worker block (block 0 solves), the grid is
+    # co-resident with its shared memory, and past the chip's shared memory
+    # (8M paths) the widest grid keeps what its blocks leave room for
+    n_paths, want = MEGA_PLAN_CASES[case]
+    n_blocks, chip, needed = tmega._mega_plan(n_paths, 132, _h100_occupancy)
+    assert (n_blocks, chip, needed) == want
+    assert (n_blocks - 1) * 256 * needed >= -(-n_paths // 4)
+    slot = 256 * 16 * 3
+    assert _h100_occupancy(chip * slot) * 132 >= n_blocks
+    if chip < needed:
+        assert _h100_occupancy((chip + 1) * slot) * 132 < n_blocks
+
+
+def test_mega_plan_raises_when_no_block_fits():
+    with pytest.raises(RuntimeError, match="mega kernel fits no two co-resident blocks"):
+        tmega._mega_plan(1 << 20, 132, lambda smem: 0)
