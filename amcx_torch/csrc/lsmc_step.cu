@@ -43,11 +43,27 @@
 // ahead measured no faster: the sums run at ~6 conversions a clock a SM,
 // as in the other moments kernels (PERF.md). No float atomics, so two runs
 // give identical bits, and with -fmad=false the kernel and its plain
-// version (ops/lsmc_pallas.py) agree to the bit on the card. The apply
-// keeps the first design (one thread a path, grid-stride). The per-step
-// scalars (mean_t, inv_std_t, use_w_t, allow_t) come from a device array,
-// so the host loop never reads a value back. The TPU's (rows, 512) layout
-// and its n_paths % 4096 rule are dropped.
+// version (ops/lsmc_pallas.py) agree to the bit on the card.
+// Apply design (the first one ran one path a thread with 4-byte loads on a
+// 1,024-block grid, the basis switch inside the path loop, and read every
+// path on a step with nothing to write: 4.9 us a call at 1M paths against
+// its 2.73 us of bytes): a step that is no exercise date (or asks for no
+// select) and takes no surface row returns before any path is read; else a
+// persistent grid (the wrapper's n_blocks: up to 8 blocks of 256 a SM)
+// takes 4 consecutive paths a thread, with a 16-byte load of S_t, a 4-byte
+// load of the knocked bytes and a 16-byte store of the surface row where
+// those rows are so aligned (one access a path otherwise; the tail past
+// n_paths is masked); the basis is a template argument, so no switch runs
+// inside the path loop; cf and tau stay masked scalar stores, written only
+// where a path exercises. The fit keeps the plain version's order (c_0 B_0,
+// then + c_a B_a) and its NaN-keeping clamp, so the same bits. Two C
+// entries launch it: amcx_step_apply on one step's rows (the public
+// wrapper) and amcx_step_apply_planes on a plan of whole (n_steps+1,
+// n_paths) planes that a fused loop validates once, given only t and the
+// coefficients each step. The per-step scalars (mean_t, inv_std_t, use_w_t,
+// allow_t) come from a device array, so the host loop never reads a value
+// back. The TPU's (rows, 512) layout and its n_paths % 4096 rule are
+// dropped.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -58,6 +74,41 @@
 namespace {
 
 using namespace amcx;
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// The knocked bytes of paths i0 .. i0 + 3: one 4-byte load where vec (the
+// row 4-byte aligned) and all four exist, else one load a path (open past
+// n_here).
+__device__ __forceinline__ void load_flags4(const uint8_t* __restrict__ knocked, int i0,
+                                            int n_here, bool vec, bool (&open)[4]) {
+  if (vec && n_here == 4) {
+    const uchar4 q = *reinterpret_cast<const uchar4*>(knocked + i0);
+    open[0] = q.x != 0;
+    open[1] = q.y != 0;
+    open[2] = q.z != 0;
+    open[3] = q.w != 0;
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) open[e] = e >= n_here || knocked[i0 + e] != 0;
+}
+
+// x into paths i0 .. i0 + 3 of a row: one 16-byte store where vec and all
+// four exist, else one store a path up to n_here.
+__device__ __forceinline__ void store_row4(float* __restrict__ row, int i0, int n_here, bool vec,
+                                           const float (&x)[4]) {
+  if (vec && n_here == 4) {
+    *reinterpret_cast<float4*>(row + i0) = make_float4(x[0], x[1], x[2], x[3]);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (e < n_here) row[i0 + e] = x[e];
+  }
+}
 
 // stats: four (n_steps+1) f32 rows [mean_t, inv_std_t, use_w_t, allow_t].
 // scratch: the ticket (the first 8 bytes, 0 between calls), then the
@@ -90,18 +141,7 @@ step_moments_kernel(const float* __restrict__ S, const float* __restrict__ cf,
     load_row4(cf, i0, n_here, vec, cf4);
     load_row4(tau, i0, n_here, vec, tau4);
     bool open[4] = {true, true, true, true};
-    if (use_w && knocked != nullptr) {
-      if (vec && n_here == 4) {
-        const uchar4 q = *reinterpret_cast<const uchar4*>(knocked + i0);
-        open[0] = q.x != 0;
-        open[1] = q.y != 0;
-        open[2] = q.z != 0;
-        open[3] = q.w != 0;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) open[e] = e >= n_here || knocked[i0 + e] != 0;
-      }
-    }
+    if (use_w && knocked != nullptr) load_flags4(knocked, i0, n_here, vec, open);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (e >= n_here) break;
@@ -137,38 +177,53 @@ step_moments_kernel(const float* __restrict__ S, const float* __restrict__ cf,
   sum_partials_coherent(partials, gridDim.x, P, packed);
 }
 
-template <int K>
+// Step t's exercise and surface row: 4 paths a thread (the header's
+// design); vec: S_t and the surface row 16-byte aligned, the knocked row
+// 4-byte aligned.
+template <int K, int kBasis>
 __global__ void __launch_bounds__(kThreads)
 step_apply_kernel(const float* __restrict__ S, float* __restrict__ cf, float* __restrict__ tau,
                   const uint8_t* __restrict__ knocked, const float* __restrict__ stats,
                   const float* __restrict__ coeffs, float* __restrict__ surface_row, int t,
-                  int n_steps, int n_paths, float strike, float phi, int basis, int select) {
+                  int n_steps, int n_paths, float strike, float phi, int select, int vec) {
   const int T1 = n_steps + 1;
+  const bool exercise = select && stats[3 * T1 + t] > 0.0f;
+  if (!exercise && surface_row == nullptr) return;  // nothing to write on this step
   const float mean = stats[t];
   const float inv_std = stats[T1 + t];
-  const bool exercise = select && stats[3 * T1 + t] > 0.0f;
   const float tf = static_cast<float>(t);
   float coef[K];
 #pragma unroll
   for (int a = 0; a < K; ++a) coef[a] = coeffs[a];
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_paths; i += gridDim.x * kThreads) {
-    const float s = S[i];
-    const float xhat = (s - mean) * inv_std;
-    float cols[K];
-    basis_cols<K>(xhat, basis, cols);
-    float fitted = cols[0] * coef[0];
+  const int n_groups = (n_paths + 3) / 4;
+  for (int g = blockIdx.x * kThreads + threadIdx.x; g < n_groups; g += gridDim.x * kThreads) {
+    const int i0 = 4 * g;
+    const int n_here = min(4, n_paths - i0);
+    float s4[4];
+    load_row4(S, i0, n_here, vec, s4);
+    bool open[4] = {true, true, true, true};
+    if (exercise && knocked != nullptr) load_flags4(knocked, i0, n_here, vec, open);
+    float cont[4];
 #pragma unroll
-    for (int a = 1; a < K; ++a) fitted = fitted + cols[a] * coef[a];
-    // max(fitted, 0) that keeps a NaN fit NaN (then no path exercises), as
-    // torch.clamp_min and jnp.maximum do; fmaxf would return 0
-    const float cont = fitted > 0.0f ? fitted : (fitted != fitted ? fitted : 0.0f);
-    if (surface_row != nullptr) surface_row[i] = cont;
-    if (exercise) {
-      const float ex = fmaxf(phi * (s - strike), 0.0f);
+    for (int e = 0; e < 4; ++e) {
+      float cols[K];
+      basis_cols<K>((s4[e] - mean) * inv_std, kBasis, cols);
+      float fitted = cols[0] * coef[0];
+#pragma unroll
+      for (int a = 1; a < K; ++a) fitted = fitted + cols[a] * coef[a];
+      // max(fitted, 0) that keeps a NaN fit NaN (then no path exercises),
+      // as torch.clamp_min and jnp.maximum do; fmaxf would return 0
+      cont[e] = fitted > 0.0f ? fitted : (fitted != fitted ? fitted : 0.0f);
+    }
+    if (surface_row != nullptr) store_row4(surface_row, i0, n_here, vec, cont);
+    if (!exercise) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float ex = fmaxf(phi * (s4[e] - strike), 0.0f);
       // ex > cont implies ex > 0 (cont >= 0): the ITM clause is implied
-      if (ex > cont && (knocked == nullptr || knocked[i] != 0)) {
-        cf[i] = ex;
-        tau[i] = tf;
+      if (e < n_here && ex > cont[e] && open[e]) {
+        cf[i0 + e] = ex;
+        tau[i0 + e] = tf;
       }
     }
   }
@@ -179,9 +234,6 @@ cudaError_t run_moments(const float* S, const float* cf, const float* tau, const
                         const float* stats, double* scratch, float* packed, int t, int n_steps,
                         int n_paths, int n_blocks, float rdt, float strike, float phi, int basis,
                         int itm_weights, cudaStream_t stream) {
-  auto aligned = [](const void* p, uintptr_t bytes) {
-    return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
-  };
   const int vec = aligned(S, 16) && aligned(cf, 16) && aligned(tau, 16) &&
                   (knocked == nullptr || aligned(knocked, 4));
   step_moments_kernel<K><<<n_blocks, kThreads, 0, stream>>>(
@@ -190,15 +242,41 @@ cudaError_t run_moments(const float* S, const float* cf, const float* tau, const
   return cudaGetLastError();
 }
 
+template <int K, int kBasis>
+cudaError_t launch_apply(const float* S, float* cf, float* tau, const uint8_t* knocked,
+                         const float* stats, const float* coeffs, float* surface_row, int t,
+                         int n_steps, int n_paths, int n_blocks, float strike, float phi,
+                         int select, int vec, cudaStream_t stream) {
+  step_apply_kernel<K, kBasis><<<n_blocks, kThreads, 0, stream>>>(
+      S, cf, tau, knocked, stats, coeffs, surface_row, t, n_steps, n_paths, strike, phi, select,
+      vec);
+  return cudaGetLastError();
+}
+
+// The vector accesses are decided here from the rows' bases, each launch.
 template <int K>
 cudaError_t run_apply(const float* S, float* cf, float* tau, const uint8_t* knocked,
                       const float* stats, const float* coeffs, float* surface_row, int t,
                       int n_steps, int n_paths, int n_blocks, float strike, float phi, int basis,
                       int select, cudaStream_t stream) {
-  step_apply_kernel<K><<<n_blocks, kThreads, 0, stream>>>(
-      S, cf, tau, knocked, stats, coeffs, surface_row, t, n_steps, n_paths, strike, phi, basis,
-      select);
-  return cudaGetLastError();
+  const int vec = aligned(S, 16) && (surface_row == nullptr || aligned(surface_row, 16)) &&
+                  (knocked == nullptr || aligned(knocked, 4));
+#define AMCX_APPLY_ARGS                                                                       \
+  S, cf, tau, knocked, stats, coeffs, surface_row, t, n_steps, n_paths, n_blocks, strike, phi, \
+      select, vec, stream
+  switch (basis) {
+    case kPower:
+      return launch_apply<K, kPower>(AMCX_APPLY_ARGS);
+    case kChebyshev:
+      return launch_apply<K, kChebyshev>(AMCX_APPLY_ARGS);
+    case kLegendre:
+      return launch_apply<K, kLegendre>(AMCX_APPLY_ARGS);
+    case kLaguerre:
+      return launch_apply<K, kLaguerre>(AMCX_APPLY_ARGS);
+    default:
+      return launch_apply<K, kHermite>(AMCX_APPLY_ARGS);
+  }
+#undef AMCX_APPLY_ARGS
 }
 
 bool bad_args(int t, int n_steps, int n_paths, int n_blocks, int basis) {
@@ -248,6 +326,20 @@ extern "C" int amcx_step_moments(const float* S, const float* cf, const float* t
 #undef AMCX_MOMENTS_CASE
 }
 
+// A fused loop's apply, validated once (amcx_torch.ops.lsmc_pallas
+// step_apply_launcher); mirrors lsmc_pallas._ApplyPlan. Row t of each plane
+// is base + t n_paths.
+struct StepApplyPlan {
+  const float* paths;            // (n_steps+1, n_paths) f32
+  float* cf;                     // (n_paths) f32, updated in place
+  float* tau;                    // (n_paths) f32, updated in place
+  const unsigned char* knocked;  // (n_steps+1, n_paths) bytes or null
+  const float* stats;            // 4 (n_steps+1) f32 rows
+  float* surface;                // (n_steps+1, n_paths) f32 out or null
+  int n_steps, n_paths, n_blocks, basis, degree, select;
+  float strike, phi;
+};
+
 // Row t of the paths (n_paths) f32; cf, tau (n_paths) f32, updated in place;
 // knocked as above; coeffs (degree+1) f32 on the device; surface_row
 // (n_paths) f32 out or null; select 0 runs the fit for the surface only
@@ -267,4 +359,20 @@ extern "C" int amcx_step_apply(const float* S, float* cf, float* tau, const unsi
                                           select, s));
   AMCX_DEGREE_SWITCH(AMCX_APPLY_CASE)
 #undef AMCX_APPLY_CASE
+}
+
+// Step t of a fused loop's plan (above) on the device coefficients coeffs
+// (degree+1) f32. Returns a cudaError_t.
+extern "C" int amcx_step_apply_planes(const StepApplyPlan* plan, int t, const float* coeffs,
+                                      void* stream) {
+  if (plan == nullptr || t < 0 || t >= plan->n_steps || plan->n_paths < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const StepApplyPlan& q = *plan;
+  const size_t row = static_cast<size_t>(t) * static_cast<size_t>(q.n_paths);
+  const unsigned char* knocked = q.knocked == nullptr ? nullptr : q.knocked + row;
+  float* surface_row = q.surface == nullptr ? nullptr : q.surface + row;
+  return amcx_step_apply(q.paths + row, q.cf, q.tau, knocked, q.stats, coeffs, surface_row, t,
+                         q.n_steps, q.n_paths, q.n_blocks, q.strike, q.phi, q.basis, q.degree,
+                         q.select, stream);
 }

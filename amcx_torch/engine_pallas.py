@@ -24,6 +24,7 @@ amcx's ``n_paths % 4096`` rule is dropped: any ``n_paths`` works.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -31,8 +32,7 @@ import torch
 
 from .engine import LSMCResult, resolve_regression_spec
 from .ops.lsmc_pallas import (
-    step_apply,
-    step_apply_reference,
+    step_apply_launcher,
     step_moments,
     step_moments_reference,
     step_stats,
@@ -96,7 +96,7 @@ def backward_induction_fused(
     the surface is ``(n_steps+1, n_paths)`` with a zero maturity row.
     ``axis_name`` raises (ROADMAP A15).
     """
-    return _induction(step_moments, step_apply, paths_tm, r, dt, K, phi, spec, barrier,
+    return _induction(step_moments, step_apply_launcher, paths_tm, r, dt, K, phi, spec, barrier,
                       barrier_type, american, return_surface, axis_name, exercise_steps,
                       antithetic)
 
@@ -104,10 +104,12 @@ def backward_induction_fused(
 def backward_induction_fused_reference(paths_tm: torch.Tensor, *args, **kwargs) -> LSMCResult:
     """:func:`backward_induction_fused` on the step kernels' plain versions,
     on any device."""
-    return _induction(step_moments_reference, step_apply_reference, paths_tm, *args, **kwargs)
+    return _induction(step_moments_reference,
+                      functools.partial(step_apply_launcher, reference=True), paths_tm, *args,
+                      **kwargs)
 
 
-def _induction(moments, apply_, paths_tm, r, dt, K, phi, spec, barrier=None,
+def _induction(moments, apply_launcher, paths_tm, r, dt, K, phi, spec, barrier=None,
                barrier_type="down-in", american=True, return_surface=False,
                axis_name=None, exercise_steps=None, antithetic=False):
     reject_axis_name(axis_name, "backward_induction_fused")
@@ -151,16 +153,17 @@ def _induction(moments, apply_, paths_tm, r, dt, K, phi, spec, barrier=None,
     surface = (torch.zeros((n_steps + 1, n_paths), dtype=dtype, device=device)
                if return_surface else None)
     common = dict(K=K, phi=phi, basis=spec.basis, degree=degree)
+    # European without a surface: the regression runs (Q6) and nothing
+    # reads its fit
+    apply_ = (apply_launcher(stats, paths, cf, tau, knocked, select=american, surface=surface,
+                             **common) if american or return_surface else None)
     for t in range(n_steps - 1, -1, -1):
         kn_t = None if knocked is None else knocked[t]
         packed = moments(stats, t, paths[t], cf, tau, kn_t, rdt=rdt, itm_weights=itm, **common)
         G, b = unpack_moments(packed, degree + 1)
         coeffs = pinv_solve(G, b, spec.rcond)
-        # European without a surface: the regression runs (Q6) and nothing
-        # reads its fit
-        if american or return_surface:
-            apply_(stats, t, coeffs, paths[t], cf, tau, kn_t, select=american,
-                   surface=None if surface is None else surface[t], **common)
+        if apply_ is not None:
+            apply_(t, coeffs)
 
     discounted = cf * torch.exp(-rdt * tau)
     if antithetic:

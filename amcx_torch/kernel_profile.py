@@ -3,7 +3,8 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 -m amcx_torch.kernel_profile
-        [--route put|book|ma-step|ma-mega|swing|step|fusedpath|qmc] [--reps 20] [--label NAME]
+        [--route put|book|ma-step|ma-apply|ma-mega|swing|step|fusedpath|qmc] [--reps 20]
+        [--label NAME]
 
 Routes, each on fixed inputs made from fixed seeds:
 
@@ -21,6 +22,10 @@ Routes, each on fixed inputs made from fixed seeds:
   q = 10%, sigma = 20%, T = 3, sorted degree-2 basis: m = 21, P = 252)
   through ``ma_step_moments``, all-paths and ITM-weighted; the hash covers
   both packed moment vectors.
+- ``ma-apply`` (kernel 9): one exercise step (t = 5) of the same max-call
+  through ``ma_step_apply`` on coefficients solved once on the CPU from the
+  all-paths moments of the maturity carry; the hash covers cf and tau after
+  one apply on fresh copies of the carry.
 - ``ma-mega`` (kernel 7): the whole induction of the 5-asset Bermudan
   max-call of ``ma-step`` (maxcall-5-1M: 1,048,576 paths, 9 dates, sorted
   degree-2 basis, m = 21, all-paths fit, exercise from date 1) through
@@ -49,7 +54,7 @@ Routes, each on fixed inputs made from fixed seeds:
 
 Every route also prints the wrappers' host time per run (enqueue, no
 sync) and the CUDA-event time minus the device time; a ``step`` run is
-three wrapper calls (two moments, one apply).
+three wrapper calls (two moments, one apply), an ``ma-apply`` run one.
 
 Each prints one JSON line: the median ms per call by CUDA events, the
 device microseconds per call of each kernel by name (``torch.profiler``)
@@ -124,6 +129,37 @@ def _ma_step(torch, amcx_torch, dev):
 
     outs = (run(), run(itm=True))
     return run, outs, {"price": outs[0][0]}
+
+
+def _ma_apply(torch, amcx_torch, dev):
+    from amcx_torch.ops import maxcall_pallas as ma
+    from amcx_torch.ops.lsmc_pallas import unpack_moments
+
+    n_paths, n_dates, S0, K, r, q, sigma, T, t = 1_048_576, 9, 100.0, 100.0, 0.05, 0.1, 0.2, \
+        3.0, 5
+    sim = amcx_torch.SimConfig(n_paths=n_paths, n_steps=n_dates)
+    paths = amcx_torch.simulate_gbm_multi(20261018, [S0] * 5, r, sigma, T, sim, q=q, device=dev)
+    planes, stats = ma.ma_inputs(paths, r, T / n_dates, sorted_basis=True, exercise_from_step=1)
+    del paths
+    rdt = float(torch.tensor(r) * torch.tensor(T / n_dates))
+    cf0 = ma._payoff_for(list(planes[n_dates]), K, "maxcall")
+    tau0 = torch.full((n_paths,), float(n_dates), device=dev)
+    kw = dict(K=K, basis="chebyshev", degree=2, mode="total", sorted_basis=True)
+    step = planes[t]
+    packed = ma.ma_step_moments(stats, t, step, cf0, tau0, rdt=rdt, **kw)
+    # solved on the CPU, so the coefficients (and the apply's bits) do not
+    # depend on the card's eigh
+    coeffs = amcx_torch.pinv_solve(*unpack_moments(packed.cpu(), 21)).to(dev)
+    cf, tau = cf0.clone(), tau0.clone()
+    ma.ma_step_apply(stats, t, coeffs, step, cf, tau, **kw)
+    cf_run, tau_run = cf0.clone(), tau0.clone()
+
+    def run():
+        # the carry converges after the first call: each timed apply
+        # rewrites the same exercised paths
+        ma.ma_step_apply(stats, t, coeffs, step, cf_run, tau_run, **kw)
+
+    return run, (cf, tau), {"price": packed[0]}
 
 
 def _ma_mega(torch, amcx_torch, dev):
@@ -232,8 +268,9 @@ def _qmc(torch, amcx_torch, dev):
     return run, outs, {"price": outs[1][-1].mean()}
 
 
-ROUTES = {"put": _put, "book": _book, "ma-step": _ma_step, "ma-mega": _ma_mega, "swing": _swing,
-          "step": _step, "fusedpath": _fusedpath, "qmc": _qmc}
+ROUTES = {"put": _put, "book": _book, "ma-step": _ma_step, "ma-apply": _ma_apply,
+          "ma-mega": _ma_mega, "swing": _swing, "step": _step, "fusedpath": _fusedpath,
+          "qmc": _qmc}
 
 
 def _device_us(torch, profile, activity, fn, reps):

@@ -35,7 +35,7 @@ import torch
 from ..basis import multi_asset_design_matrix, n_multi_terms
 from ..engine import LSMCResult, backward_induction
 from ..ops.lsmc_pallas import unpack_moments
-from ..ops.maxcall_pallas import (_payoff_for, ma_inputs, ma_step_apply, ma_step_apply_reference,
+from ..ops.maxcall_pallas import (_payoff_for, ma_inputs, ma_step_apply_launcher,
                                   ma_step_moments, ma_step_moments_reference,
                                   maxcall_standardization)
 from ..paths import simulate_gbm_multi
@@ -107,8 +107,9 @@ def _xla_pricing(seed, S0, r, q, sigma, corr, K, T, spec, sim, basis_mode, retur
     return res, paths
 
 
-def _fused_maxcall(moments, apply_, paths_tm, K, r, dt, spec=_BENCH_SPEC, basis_mode="sorted",
-                   exercise_from_step=1, payoff_kind="maxcall", phi=1.0, weights=None):
+def _fused_maxcall(moments, apply_launcher, paths_tm, K, r, dt, spec=_BENCH_SPEC,
+                   basis_mode="sorted", exercise_from_step=1, payoff_kind="maxcall", phi=1.0,
+                   weights=None):
     sorted_basis = basis_mode == "sorted"
     mode = "total" if sorted_basis else basis_mode
     planes, stats = ma_inputs(paths_tm, r, dt, sorted_basis=sorted_basis, mode=mode,
@@ -123,11 +124,12 @@ def _fused_maxcall(moments, apply_, paths_tm, K, r, dt, spec=_BENCH_SPEC, basis_
     cf = _payoff_for(list(torch.unbind(planes[n_steps], 0)), float(K), payoff_kind, float(phi),
                      weights)
     tau = torch.full((n_paths,), float(n_steps), dtype=f32, device=dev)
+    apply_ = apply_launcher(stats, planes, cf, tau, **kw)
     for t in range(n_steps - 1, -1, -1):
         packed = moments(stats, t, planes[t], cf, tau, rdt=rdt,
                          itm_weights=spec.regress_on == "itm", **kw)
         coeffs = pinv_solve(*unpack_moments(packed, m), spec.rcond)
-        apply_(stats, t, coeffs, planes[t], cf, tau, **kw)
+        apply_(t, coeffs)
     discounted = cf * torch.exp(-rdt * tau)
     price = torch.mean(discounted)
     var = torch.mean(torch.square(discounted - price))
@@ -155,16 +157,17 @@ def backward_induction_fused_maxcall(
     Returns ``LSMCResult(price, stderr, cashflows, exercise_times, None)``.
     On a CPU tensor the kernels' plain versions run.
     """
-    return _fused_maxcall(ma_step_moments, ma_step_apply, paths_tm, K, r, dt, spec, basis_mode,
-                          exercise_from_step, payoff_kind, phi, weights)
+    return _fused_maxcall(ma_step_moments, ma_step_apply_launcher, paths_tm, K, r, dt, spec,
+                          basis_mode, exercise_from_step, payoff_kind, phi, weights)
 
 
 def backward_induction_fused_maxcall_reference(paths_tm: torch.Tensor, *args,
                                                **kwargs) -> LSMCResult:
     """:func:`backward_induction_fused_maxcall` on the step kernels' plain
     versions, on any device."""
-    return _fused_maxcall(ma_step_moments_reference, ma_step_apply_reference, paths_tm,
-                          *args, **kwargs)
+    return _fused_maxcall(ma_step_moments_reference,
+                          partial(ma_step_apply_launcher, reference=True), paths_tm, *args,
+                          **kwargs)
 
 
 def price_max_call(

@@ -23,6 +23,10 @@ Deviations from amcx, none of which changes a value:
 - :func:`step_apply` updates ``cf``/``tau`` in place, as amcx donates them
   (``input_output_aliases``), and writes the clamped continuation into a
   caller's surface row in place of returning it.
+
+A fused loop launches the apply through :func:`step_apply_launcher`: its
+tensors are validated once an induction, then each step passes only ``t``
+and the coefficients.
 """
 
 from __future__ import annotations
@@ -37,10 +41,11 @@ from ..basis import BASIS_IDS, basis_cols
 from .lsmc_megakernel import MAX_DEGREE, _pairs, _sum_once_rounded
 
 __all__ = ["pack_dim", "unpack_moments", "step_stats", "step_moments",
-           "step_moments_reference", "step_apply", "step_apply_reference"]
+           "step_moments_reference", "step_apply", "step_apply_reference",
+           "step_apply_launcher"]
 
 _THREADS = 256  # csrc/lsmc_common.cuh kThreads
-_MAX_BLOCKS = 1024  # the apply's grid
+_APPLY_BLOCKS_PER_SM = 8  # the apply's grid: 2,048 threads a SM
 
 
 def pack_dim(k: int) -> int:
@@ -117,35 +122,55 @@ def step_apply_reference(stats, t: int, coeffs, S, cf, tau, knocked=None, *, K: 
     return (cf, tau) if surface is None else (cf, tau, surface)
 
 
-def _check_cuda(stats, t, basis, degree, rows, knocked):
+def _basis_id(basis: str) -> int:
+    bid = BASIS_IDS.get(basis)
+    if bid is None:
+        bid = BASIS_IDS.get(basis.strip().lower())
+        if bid is None:
+            raise ValueError(f"Unknown basis type {basis!r}")
+    return bid
+
+
+def _check_cuda(stats, t, degree, rows, knocked, planes=()):
+    """Validate the kernels' inputs on the card in one pass: ``stats`` a
+    contiguous ``(4, n_steps+1)`` f32 array, ``t`` a step, each of ``rows``
+    a contiguous ``(n_paths,)`` f32 row and each of ``planes`` a contiguous
+    ``(n_steps+1, n_paths)`` f32 plane on its device, and ``knocked`` a bool
+    row (a plane when ``planes`` are given). Returns ``(n_steps, n_paths)``."""
     dev = stats.device
-    if basis not in BASIS_IDS:
-        raise ValueError(f"Unknown basis type {basis!r}")
+    f32 = torch.float32
     if not 0 <= degree <= MAX_DEGREE:
         raise ValueError(f"degree must lie in 0..{MAX_DEGREE}, got {degree}")
-    if stats.dtype != torch.float32 or stats.ndim != 2 or stats.shape[0] != 4 \
+    if stats.dtype is not f32 or stats.ndim != 2 or stats.shape[0] != 4 \
             or not stats.is_contiguous():
         raise ValueError(f"stats must be contiguous (4, n_steps+1) float32, got "
                          f"{tuple(stats.shape)} {stats.dtype}")
     n_steps = stats.shape[1] - 1
     if not 0 <= t < n_steps:
         raise ValueError(f"step t must lie in 0..{n_steps - 1}, got {t}")
-    n_paths = rows[0].shape[0]
+    n_paths = rows[0].shape[-1]
     if n_paths < 1 or n_paths >= 2 ** 31:
         raise ValueError(f"n_paths must lie in 1..2^31-1, got {n_paths}")
-    for x in rows:
-        if x.device != dev or x.dtype != torch.float32 or x.shape != (n_paths,) \
-                or not x.is_contiguous():
-            raise ValueError(f"rows must be contiguous ({n_paths},) float32 on {dev}, got "
+    row, plane = (n_paths,), (n_steps + 1, n_paths)
+    for x, want in [(x, row) for x in rows] + [(x, plane) for x in planes]:
+        if x.dtype is not f32 or x.shape != want or x.device != dev or not x.is_contiguous():
+            raise ValueError(f"rows must be contiguous {want} float32 on {dev}, got "
                              f"{tuple(x.shape)} {x.dtype} on {x.device}")
-    if knocked is not None and (knocked.device != dev or knocked.dtype != torch.bool
-                                or knocked.shape != (n_paths,) or not knocked.is_contiguous()):
-        raise ValueError(f"knocked must be a contiguous ({n_paths},) bool row on {dev}")
-    return n_steps, n_paths, max(1, min(_MAX_BLOCKS, -(-n_paths // _THREADS)))
+    want = plane if planes else row
+    if knocked is not None and (knocked.dtype is not torch.bool or knocked.shape != want
+                                or knocked.device != dev or not knocked.is_contiguous()):
+        raise ValueError(f"knocked must be a contiguous {want} bool tensor on {dev}")
+    return n_steps, n_paths
 
 
 def _ptr(x):
     return None if x is None else x.data_ptr()
+
+
+def apply_blocks(n_paths: int, n_sm: int) -> int:
+    """Blocks of the apply's persistent grid: 8 a SM (2,048 threads), fewer
+    when the paths fill fewer blocks of 4 paths a thread."""
+    return max(1, min(_APPLY_BLOCKS_PER_SM * n_sm, -(-n_paths // (4 * _THREADS))))
 
 
 def step_blocks(n_paths: int, n_sm: int) -> int:
@@ -187,6 +212,26 @@ def _apply_fn():
     return _build.function("amcx_step_apply", [V, V, V, V, V, V, V, I, I, I, I, F, F, I, I, I, V])
 
 
+@functools.lru_cache(maxsize=None)
+def _apply_planes_fn():
+    from . import _build
+
+    V, I = ctypes.c_void_p, ctypes.c_int
+    return _build.function("amcx_step_apply_planes", [V, I, V, V])
+
+
+class _ApplyPlan(ctypes.Structure):
+    """``struct StepApplyPlan`` of ``csrc/lsmc_step.cu``: a fused loop's
+    apply, validated once."""
+
+    _fields_ = [("paths", ctypes.c_void_p), ("cf", ctypes.c_void_p), ("tau", ctypes.c_void_p),
+                ("knocked", ctypes.c_void_p), ("stats", ctypes.c_void_p),
+                ("surface", ctypes.c_void_p), ("n_steps", ctypes.c_int),
+                ("n_paths", ctypes.c_int), ("n_blocks", ctypes.c_int), ("basis", ctypes.c_int),
+                ("degree", ctypes.c_int), ("select", ctypes.c_int), ("strike", ctypes.c_float),
+                ("phi", ctypes.c_float)]
+
+
 def step_moments(stats, t: int, S, cf, tau, knocked=None, *, rdt: float, K: float, phi: float,
                  basis: str = "chebyshev", degree: int = 4,
                  itm_weights: bool = False) -> torch.Tensor:
@@ -207,17 +252,17 @@ def step_moments(stats, t: int, S, cf, tau, knocked=None, *, rdt: float, K: floa
         raise ValueError(f"step_moments runs on 'cpu' or 'cuda', got {stats.device}")
     from . import _build
 
-    basis = basis.strip().lower()
-    n_steps, n_paths, _ = _check_cuda(stats, t, basis, degree, (S, cf, tau), knocked)
+    bid = _basis_id(basis)
+    n_steps, n_paths = _check_cuda(stats, t, degree, (S, cf, tau), knocked)
     dev = stats.device
     n_sm = _build.sm_count(dev)
     n_blocks = step_blocks(n_paths, n_sm)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)  # current_stream's handle, cheaper
     scratch = _moments_scratch(dev, stream, n_sm)
     packed = torch.empty(pack_dim(degree + 1), dtype=torch.float32, device=dev)
     rc = _moments_fn()(S.data_ptr(), cf.data_ptr(), tau.data_ptr(), _ptr(knocked),
                        stats.data_ptr(), scratch.data_ptr(), packed.data_ptr(), t, n_steps,
-                       n_paths, n_blocks, rdt, float(K), float(phi), BASIS_IDS[basis], degree,
+                       n_paths, n_blocks, rdt, float(K), float(phi), bid, degree,
                        int(itm_weights), stream)
     step_moments.launches += 1
     _build.check(rc, "amcx_step_moments")
@@ -250,20 +295,73 @@ def step_apply(stats, t: int, coeffs, S, cf, tau, knocked=None, *, K: float, phi
         raise ValueError(f"step_apply runs on 'cpu' or 'cuda', got {stats.device}")
     from . import _build
 
-    basis = basis.strip().lower()
-    rows = (S, cf, tau) + (() if surface is None else (surface,))
-    n_steps, n_paths, n_blocks = _check_cuda(stats, t, basis, degree, rows, knocked)
-    if coeffs.device != stats.device or coeffs.dtype != torch.float32 \
-            or coeffs.shape != (degree + 1,) or not coeffs.is_contiguous():
-        raise ValueError(f"coeffs must be contiguous ({degree + 1},) float32 on {stats.device}")
-    stream = torch.cuda.current_stream(stats.device).cuda_stream
+    bid = _basis_id(basis)
+    rows = (S, cf, tau) if surface is None else (S, cf, tau, surface)
+    n_steps, n_paths = _check_cuda(stats, t, degree, rows, knocked)
+    dev = stats.device
+    if coeffs.dtype is not torch.float32 or coeffs.shape != (degree + 1,) \
+            or coeffs.device != dev or not coeffs.is_contiguous():
+        raise ValueError(f"coeffs must be contiguous ({degree + 1},) float32 on {dev}")
     rc = _apply_fn()(S.data_ptr(), cf.data_ptr(), tau.data_ptr(), _ptr(knocked),
                      stats.data_ptr(), coeffs.data_ptr(), _ptr(surface), t, n_steps, n_paths,
-                     n_blocks, float(K), float(phi), BASIS_IDS[basis], degree, int(select),
-                     stream)
+                     apply_blocks(n_paths, _build.sm_count(dev)), float(K), float(phi), bid,
+                     degree, int(select), torch._C._cuda_getCurrentRawStream(dev.index))
     step_apply.launches += 1
-    _build.check(rc, "amcx_step_apply")
+    if rc:
+        _build.check(rc, "amcx_step_apply")
     return (cf, tau) if surface is None else (cf, tau, surface)
 
 
 step_apply.launches = 0
+
+
+def _apply_plan(stats, paths, cf, tau, knocked, surface, *, K, phi, basis, degree, select,
+                n_sm) -> _ApplyPlan:
+    """Validate a fused loop's tensors once and pack :class:`_ApplyPlan`:
+    the planes' bases, the grid (:func:`apply_blocks` for ``n_sm`` SMs) and
+    the product."""
+    planes = (paths,) if surface is None else (paths, surface)
+    n_steps, n_paths = _check_cuda(stats, 0, degree, (cf, tau), knocked, planes)
+    return _ApplyPlan(paths.data_ptr(), cf.data_ptr(), tau.data_ptr(), _ptr(knocked),
+                      stats.data_ptr(), _ptr(surface), n_steps, n_paths,
+                      apply_blocks(n_paths, n_sm), _basis_id(basis), degree, int(select),
+                      float(K), float(phi))
+
+
+def step_apply_launcher(stats, paths, cf, tau, knocked=None, *, K: float, phi: float,
+                        basis: str = "chebyshev", degree: int = 4, select: bool = True,
+                        surface: Optional[torch.Tensor] = None, reference: bool = False):
+    """:func:`step_apply` for a fused loop: the whole ``(n_steps+1,
+    n_paths)`` paths, knocked plane and surface, validated once here; the
+    returned ``launch(t, coeffs)`` applies step ``t`` in place (row t of
+    each plane), as ``step_apply(stats, t, coeffs, paths[t], cf, tau,
+    knocked[t], surface=surface[t], ...)`` would. ``coeffs`` must be a
+    contiguous ``(degree+1,)`` f32 tensor on the card (``pinv_solve``'s
+    result); the loop owns it, so it is not checked again. On a CPU tensor,
+    or with ``reference``, each launch runs :func:`step_apply_reference`.
+    """
+    kw = dict(K=K, phi=phi, basis=basis, degree=degree, select=select)
+    if reference or stats.device.type == "cpu":
+        def launch_plain(t: int, coeffs):
+            step_apply_reference(stats, t, coeffs, paths[t], cf, tau,
+                                 None if knocked is None else knocked[t],
+                                 surface=None if surface is None else surface[t], **kw)
+        return launch_plain
+    if stats.device.type != "cuda":
+        raise ValueError(f"step_apply runs on 'cpu' or 'cuda', got {stats.device}")
+    from . import _build
+
+    dev = stats.device
+    plan = _apply_plan(stats, paths, cf, tau, knocked, surface, n_sm=_build.sm_count(dev), **kw)
+    fn, addr = _apply_planes_fn(), ctypes.addressof(plan)
+    stream_of, index = torch._C._cuda_getCurrentRawStream, dev.index
+
+    def launch(t: int, coeffs):
+        rc = fn(addr, t, coeffs.data_ptr(), stream_of(index))
+        step_apply.launches += 1
+        if rc:
+            _build.check(rc, "amcx_step_apply_planes")
+
+    # the plan and the tensors it points into live as long as the launcher
+    launch.keep = (plan, paths, cf, tau, knocked, surface, stats)
+    return launch

@@ -28,6 +28,10 @@ Deviations from amcx, none of which changes a value:
   loop never reads a value back. The two induction engines share it.
 - :func:`ma_step_apply` updates ``cf``/``tau`` in place, as amcx donates
   them.
+
+A fused loop launches the apply through :func:`ma_step_apply_launcher`: its
+tensors are validated once an induction, then each step passes only ``t``
+and the coefficients.
 """
 
 from __future__ import annotations
@@ -44,14 +48,12 @@ from .lsmc_megakernel import _pairs, _sum_once_rounded
 
 __all__ = ["ma_pack_dim", "ma_stats", "ma_inputs", "maxcall_standardization", "ma_step_moments",
            "ma_step_moments_reference", "ma_step_apply", "ma_step_apply_reference",
-           "PAYOFF_KINDS"]
+           "ma_step_apply_launcher", "ma_factor_words", "PAYOFF_KINDS"]
 
 # limits of csrc/ma_common.cuh
 MAX_ASSETS = 8
 MAX_COLS = 32
 MAX_DEGREE = 4
-_THREADS = 256
-_MAX_BLOCKS = 1024
 _MAX_TASK_WARPS = 21  # csrc/ma_step.cu kMaxTaskWarps
 
 PAYOFF_KINDS = {"maxcall": 0, "first": 1, "second": 2, "spread": 3, "spreadk": 4,
@@ -272,13 +274,55 @@ def ma_params(n_assets: int, basis: str, degree: int, mode: str, sorted_basis: b
     return p
 
 
+def ma_factor_words(n_assets: int, degree: int, mode: str) -> list:
+    """Column c's factor slots for kernel 9, one word a column of
+    amcx's multi-index table (``_multi_index_set``): the slot ``a·degree +
+    d − 1`` of each asset ``a`` with ``alpha_a = d > 0``, in asset order, a
+    byte each from the low byte, ``0xff`` past the last. The column is
+    their univariate columns multiplied left to right (1 for none)."""
+    words = []
+    for alpha in _multi_index_set(n_assets, degree, mode):
+        slots = [a * degree + d - 1 for a, d in enumerate(alpha) if d > 0]
+        if len(slots) > MAX_DEGREE:
+            raise ValueError(f"a column of {len(slots)} factors exceeds {MAX_DEGREE}")
+        slots += [0xff] * (MAX_DEGREE - len(slots))
+        words.append(sum(f << (8 * k) for k, f in enumerate(slots)))
+    return words
+
+
+class MaApply(ctypes.Structure):
+    """``struct MaApply`` of ``csrc/ma_step.cu``: :class:`MaParams` and the
+    columns' :func:`ma_factor_words`, handed to kernel 9 by value."""
+
+    _fields_ = [("params", MaParams), ("factors", ctypes.c_uint * MAX_COLS)]
+
+
+@functools.lru_cache(maxsize=64)
+def ma_apply_params(n_assets: int, basis: str, degree: int, mode: str, sorted_basis: bool,
+                    payoff_kind: str, K: float, phi: float,
+                    weights: Optional[tuple] = None) -> MaApply:
+    """:func:`ma_params` with the factor words (cached like it)."""
+    q = MaApply(params=ma_params(n_assets, basis, degree, mode, sorted_basis, payoff_kind, K,
+                                 phi, weights))
+    for c, w in enumerate(ma_factor_words(n_assets, degree, mode)):
+        q.factors[c] = w
+    return q
+
+
 def _tuple(weights):
     return None if weights is None else tuple(float(w) for w in weights)
 
 
-def _check_cuda(stats, t, planes, rows, n_assets):
+def _check_cuda(stats, t, planes, rows, n_assets, steps=False):
+    """Validate the kernels' inputs on the card in one pass: ``stats`` a
+    contiguous ``(2A+3, n_steps+1)`` f32 array, ``t`` a step, ``planes``
+    the step's contiguous ``(A, n_paths)`` f32 planes (with ``steps``: all
+    ``(n_steps+1, A, n_paths)`` of them) and each of ``rows`` a contiguous
+    ``(n_paths,)`` f32 row on the same device. Returns ``(n_steps,
+    n_paths)``."""
     dev = stats.device
-    if stats.dtype != torch.float32 or stats.ndim != 2 or stats.shape[0] != 2 * n_assets + 3 \
+    f32 = torch.float32
+    if stats.dtype is not f32 or stats.ndim != 2 or stats.shape[0] != 2 * n_assets + 3 \
             or not stats.is_contiguous():
         raise ValueError(f"stats must be contiguous ({2 * n_assets + 3}, n_steps+1) float32, "
                          f"got {tuple(stats.shape)} {stats.dtype}")
@@ -288,16 +332,17 @@ def _check_cuda(stats, t, planes, rows, n_assets):
     n_paths = planes.shape[-1]
     if n_paths < 1 or n_paths >= 2 ** 31:
         raise ValueError(f"n_paths must lie in 1..2^31-1, got {n_paths}")
-    if planes.device != dev or planes.dtype != torch.float32 \
-            or planes.shape != (n_assets, n_paths) or not planes.is_contiguous():
-        raise ValueError(f"planes must be contiguous ({n_assets}, n_paths) float32 on {dev}, "
+    want = (n_steps + 1, n_assets, n_paths) if steps else (n_assets, n_paths)
+    if planes.dtype is not f32 or planes.shape != want or planes.device != dev \
+            or not planes.is_contiguous():
+        raise ValueError(f"planes must be contiguous {want} float32 on {dev}, "
                          f"got {tuple(planes.shape)} {planes.dtype} on {planes.device}")
     for x in rows:
-        if x.device != dev or x.dtype != torch.float32 or x.shape != (n_paths,) \
+        if x.dtype is not f32 or x.shape != (n_paths,) or x.device != dev \
                 or not x.is_contiguous():
             raise ValueError(f"rows must be contiguous ({n_paths},) float32 on {dev}, got "
                              f"{tuple(x.shape)} {x.dtype} on {x.device}")
-    return n_steps, n_paths, max(1, min(_MAX_BLOCKS, -(-n_paths // _THREADS)))
+    return n_steps, n_paths
 
 
 def ma_step_moments(stats, t: int, planes, cf, tau, *, rdt: float, K: float, phi: float = 1.0,
@@ -328,7 +373,7 @@ def ma_step_moments(stats, t: int, planes, cf, tau, *, rdt: float, K: float, phi
     n_assets = planes.shape[0]
     params = ma_params(n_assets, basis, degree, mode, sorted_basis, payoff_kind, float(K),
                        float(phi), _tuple(weights))
-    n_steps, n_paths, _ = _check_cuda(stats, t, planes, (cf, tau), n_assets)
+    n_steps, n_paths = _check_cuda(stats, t, planes, (cf, tau), n_assets)
     P = ma_pack_dim(params.n_cols)
     n_blocks = ma_moments_blocks(n_paths, params.n_cols, _build.sm_count(stats.device))
     # one allocation: the (n_blocks, P) f64 partial rows, then the (P,) f32
@@ -339,7 +384,7 @@ def ma_step_moments(stats, t: int, planes, cf, tau, *, rdt: float, K: float, phi
     rc = _moments_fn()(planes.data_ptr(), cf.data_ptr(), tau.data_ptr(), stats.data_ptr(),
                        scratch.data_ptr(), packed.data_ptr(), t, n_steps, n_paths, n_blocks, rdt,
                        int(itm_weights), int(direct_y), ctypes.byref(params),
-                       torch.cuda.current_stream(stats.device).cuda_stream)
+                       torch._C._cuda_getCurrentRawStream(stats.device.index))
     ma_step_moments.launches += 1
     _build.check(rc, "amcx_ma_step_moments")
     return packed
@@ -395,22 +440,101 @@ def ma_step_apply(stats, t: int, coeffs, planes, cf, tau, *, K: float, phi: floa
     from . import _build
 
     n_assets = planes.shape[0]
-    params = ma_params(n_assets, basis, degree, mode, sorted_basis, payoff_kind, float(K),
-                       float(phi), _tuple(weights))
-    n_steps, n_paths, n_blocks = _check_cuda(stats, t, planes, (cf, tau), n_assets)
-    m = params.n_cols
-    if coeffs.device != stats.device or coeffs.dtype != torch.float32 \
-            or coeffs.shape != (m,) or not coeffs.is_contiguous():
-        raise ValueError(f"coeffs must be contiguous ({m},) float32 on {stats.device}")
-    V, I = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("amcx_ma_step_apply",
-                         [V, V, V, V, V, I, I, I, I, ctypes.POINTER(MaParams), V])
-    stream = torch.cuda.current_stream(stats.device).cuda_stream
-    rc = fn(planes.data_ptr(), cf.data_ptr(), tau.data_ptr(), stats.data_ptr(),
-            coeffs.data_ptr(), t, n_steps, n_paths, n_blocks, ctypes.byref(params), stream)
+    q = ma_apply_params(n_assets, basis, degree, mode, sorted_basis, payoff_kind, float(K),
+                        float(phi), _tuple(weights))
+    n_steps, n_paths = _check_cuda(stats, t, planes, (cf, tau), n_assets)
+    dev = stats.device
+    m = q.params.n_cols
+    if coeffs.dtype is not torch.float32 or coeffs.shape != (m,) or coeffs.device != dev \
+            or not coeffs.is_contiguous():
+        raise ValueError(f"coeffs must be contiguous ({m},) float32 on {dev}")
+    rc = _apply_fn()(planes.data_ptr(), cf.data_ptr(), tau.data_ptr(), stats.data_ptr(),
+                     coeffs.data_ptr(), t, n_steps, n_paths, _build.sm_count(dev),
+                     ctypes.byref(q), torch._C._cuda_getCurrentRawStream(dev.index))
     ma_step_apply.launches += 1
-    _build.check(rc, "amcx_ma_step_apply")
+    if rc:
+        _build.check(rc, "amcx_ma_step_apply")
     return cf, tau
 
 
+@functools.lru_cache(maxsize=None)
+def _apply_fn():
+    from . import _build
+
+    V, I = ctypes.c_void_p, ctypes.c_int
+    return _build.function("amcx_ma_step_apply",
+                           [V, V, V, V, V, I, I, I, I, ctypes.POINTER(MaApply), V])
+
+
+@functools.lru_cache(maxsize=None)
+def _apply_planes_fn():
+    from . import _build
+
+    V, I = ctypes.c_void_p, ctypes.c_int
+    return _build.function("amcx_ma_step_apply_planes", [V, I, V, V])
+
+
+class _MaApplyPlan(ctypes.Structure):
+    """``struct MaApplyPlan`` of ``csrc/ma_step.cu``: a fused loop's apply,
+    validated once."""
+
+    _fields_ = [("planes", ctypes.c_void_p), ("cf", ctypes.c_void_p), ("tau", ctypes.c_void_p),
+                ("stats", ctypes.c_void_p), ("n_steps", ctypes.c_int), ("n_paths", ctypes.c_int),
+                ("n_sm", ctypes.c_int), ("q", MaApply)]
+
+
 ma_step_apply.launches = 0
+
+
+def _ma_apply_plan(stats, planes, cf, tau, *, K, phi, basis, degree, mode, sorted_basis,
+                   payoff_kind, weights, n_sm) -> _MaApplyPlan:
+    """Validate a fused loop's tensors once and pack :class:`_MaApplyPlan`:
+    all the steps' planes, the carry, the SM count and the product with its
+    factor words."""
+    if planes.ndim != 3:
+        raise ValueError(f"planes must be (n_steps+1, n_assets, n_paths), got "
+                         f"{tuple(planes.shape)}")
+    n_assets = planes.shape[1]
+    q = ma_apply_params(n_assets, basis, degree, mode, sorted_basis, payoff_kind, float(K),
+                        float(phi), _tuple(weights))
+    n_steps, n_paths = _check_cuda(stats, 0, planes, (cf, tau), n_assets, steps=True)
+    return _MaApplyPlan(planes.data_ptr(), cf.data_ptr(), tau.data_ptr(), stats.data_ptr(),
+                        n_steps, n_paths, n_sm, q)
+
+
+def ma_step_apply_launcher(stats, planes, cf, tau, *, K: float, phi: float = 1.0,
+                           basis: str = "chebyshev", degree: int = 2, mode: str = "total",
+                           sorted_basis: bool = True, payoff_kind: str = "maxcall",
+                           weights: Optional[tuple] = None, reference: bool = False):
+    """:func:`ma_step_apply` for a fused loop: all ``(n_steps+1, n_assets,
+    n_paths)`` planes, validated once here; the returned ``launch(t,
+    coeffs)`` applies step ``t`` in place, as ``ma_step_apply(stats, t,
+    coeffs, planes[t], cf, tau, ...)`` would. ``coeffs`` must be a
+    contiguous ``(m,)`` f32 tensor on the card (``pinv_solve``'s result);
+    the loop owns it, so it is not checked again. On a CPU tensor, or with
+    ``reference``, each launch runs :func:`ma_step_apply_reference`.
+    """
+    kw = dict(K=K, phi=phi, basis=basis, degree=degree, mode=mode, sorted_basis=sorted_basis,
+              payoff_kind=payoff_kind, weights=weights)
+    if reference or stats.device.type == "cpu":
+        def launch_plain(t: int, coeffs):
+            ma_step_apply_reference(stats, t, coeffs, planes[t], cf, tau, **kw)
+        return launch_plain
+    if stats.device.type != "cuda":
+        raise ValueError(f"ma_step_apply runs on 'cpu' or 'cuda', got {stats.device}")
+    from . import _build
+
+    dev = stats.device
+    plan = _ma_apply_plan(stats, planes, cf, tau, n_sm=_build.sm_count(dev), **kw)
+    fn, addr = _apply_planes_fn(), ctypes.addressof(plan)
+    stream_of, index = torch._C._cuda_getCurrentRawStream, dev.index
+
+    def launch(t: int, coeffs):
+        rc = fn(addr, t, coeffs.data_ptr(), stream_of(index))
+        ma_step_apply.launches += 1
+        if rc:
+            _build.check(rc, "amcx_ma_step_apply_planes")
+
+    # the plan and the tensors it points into live as long as the launcher
+    launch.keep = (plan, planes, cf, tau, stats)
+    return launch

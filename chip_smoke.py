@@ -59,11 +59,13 @@ It times the pricings, each kernel, each plain version and, where one
 PyTorch call computes the same function, that call, with CUDA events, and
 computes each kernel's bound: the larger of the bytes it must move over the
 card's memory rate and its arithmetic over the card's peak rates. For
-kernels 2, 4, 5, 8, 7, 3, 6 and 10 (phases 4, 5, 8, 9, 11, 12, 14, 15) it
-also prints the device time and launches by kernel (``torch.profiler``)
+kernels 2, 4, 5, 8, 9, 7, 3, 6 and 10 (phases 4, 5, 8, 9, 11, 12, 14, 15)
+it also prints the device time and launches by kernel (``torch.profiler``)
 beside their design floors: the bytes they must move and their f32 -> f64
-conversions at 16 a clock a SM. Kernels 2 and 7 are held to their plain
-versions bit for bit (phases 3, 6 and 9).
+conversions at 16 a clock a SM; for kernel 5 also the wrapper's host time a
+call (phase 5), and for the fused put route the host time of a step by part
+(phase 7). Kernels 2 and 7 are held to their plain versions bit for bit
+(phases 3, 6 and 9).
 Any failed phase raises (non-zero exit). Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 
@@ -144,6 +146,20 @@ def _time_ms(torch, fn, reps, warm):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _host_us(torch, fn, calls):
+    """Host microseconds a call of ``fn`` (its enqueue: no sync between the
+    calls), after a warm-up."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls / 1e3
 
 
 def _profile(torch, fn, reps):
@@ -491,6 +507,8 @@ def main():
     import amcx_torch
     from amcx_torch.engine_pallas import (backward_induction_fused,
                                           backward_induction_fused_reference)
+    from amcx_torch import engine_pallas
+    from amcx_torch.host_profile import route_split
     from amcx_torch.ops import _build
     from amcx_torch.ops.gbm import gbm_paths, gbm_paths_reference
     from amcx_torch.ops.lsmc_megakernel import (lsmc_book_mega_reference,
@@ -739,11 +757,24 @@ def main():
     prof5 = _profile(torch, lambda: step_apply(stats, t_mid, coeffs, S_t, cf_k, tau_k,
                                                surface=row_k, **akw), 50)
     floor4_us = N_PATHS * 20 / F64_CONVERSIONS_PER_S * 1e6
+    host5_us = _host_us(torch, lambda: step_apply(stats, t_mid, coeffs, S_t, cf_k, tau_k,
+                                                  surface=row_k, **akw), 200)
+    # a step that is no exercise date and takes no surface row: the kernel
+    # returns before reading a path
+    stats_off = step_stats(mean_t, inv_std_t, ones, torch.zeros_like(ones))
+    cf_o, tau_o = cf0.clone(), tau0.clone()
+    prof5_off = _profile(torch, lambda: step_apply(stats_off, t_mid, coeffs, S_t, cf_o, tau_o,
+                                                   **akw), 50)
+    torch.cuda.synchronize()
+    _require(torch.equal(cf_o, cf0) and torch.equal(tau_o, tau0),
+             "step apply on a non-exercise date leaves cf/tau untouched")
     print(f"phase 5 device time per call: kernel 4 (moments) "
           f"{prof4 or 'no device activity recorded'} | kernel 5 (apply) "
-          f"{prof5 or 'no device activity recorded'} | kernel 4 design floor (conversions) "
-          f"{floor4_us:.2f} us", flush=True)
-    del cf_k, tau_k, row_k, cf_p, tau_p, row_p
+          f"{prof5 or 'no device activity recorded'} | kernel 5 host enqueue {host5_us:.2f} us "
+          f"a call | kernel 5 on a non-exercise date, no surface row: "
+          f"{prof5_off and round(prof5_off['device_us_per_call'], 3)} us | kernel 4 design "
+          f"floor (conversions) {floor4_us:.2f} us", flush=True)
+    del cf_k, tau_k, row_k, cf_p, tau_p, row_p, cf_o, tau_o
 
     # ---- phase 6: kernel 2's cf/tau planes vs its plain version ----------
     ckw = dict(basis="chebyshev", degree=4, itm_weights=True, mean_t=mean_t,
@@ -852,6 +883,14 @@ def main():
           f"{N_PATHS * N_STEPS / (ms_fused / 1e3):.4e} path-steps/s | mean of 10 timed "
           f"pricings {mean10:.5f} |err| {abs(mean10 - crr):.5f} | Greeks ms {greeks_ms}",
           flush=True)
+    # a step of the route by part (host clock; pinv_solve waits for the card
+    # inside eigh): the route with its step functions wrapped in timers
+    split, per_pricing = route_split(engine_pallas, {
+        "step_moments": "moments_call", "unpack_moments": "unpack_moments",
+        "pinv_solve": "pinv_solve", "step_apply_launcher": "apply_launch"}, fused_pricing)
+    _require(per_pricing.get("apply_launch") == N_STEPS, f"split counted {per_pricing}")
+    print(f"phase 7 fused path, host us a step by part (median of 2 pricings x {N_STEPS} "
+          f"steps): { {k: round(v, 2) for k, v in split.items()} }", flush=True)
 
     # ---- phase 8: kernels 8+9 (multi-asset step kernels) vs their plain ---
     # ---- versions, at the full-width 5-asset max-call ------------------------
@@ -886,6 +925,16 @@ def main():
     ma_apply_err = max(float(torch.max(torch.abs(cf_k - cf_p))),
                        float(torch.max(torch.abs(tau_k - tau_p))))
     n_ex5 = int((tau_k == t_ma).sum())
+    # a step that is no exercise date: the kernel returns before reading a
+    # path, cf and tau stay as they were
+    stats5_off = stats5.clone()
+    stats5_off[-1, t_ma] = 0.0
+    cf_o, tau_o = cf5.clone(), tau5.clone()
+    ma_step_apply(stats5_off, t_ma, coeffs5, planes5[t_ma], cf_o, tau_o, **makw)
+    torch.cuda.synchronize()
+    _require(torch.equal(cf_o, cf5) and torch.equal(tau_o, tau5),
+             "ma apply on a non-exercise date leaves cf/tau untouched")
+    del cf_o, tau_o, stats5_off
     _require(tuple(packed5.shape) == (252,), "packed moments P = 252")
     _require(ma_moments_err == 0.0, f"ma moments kernel vs plain max|d| {ma_moments_err:.3e} == 0")
     _require(ma_apply_err == 0.0 and n_ex5 > 0,
@@ -908,6 +957,15 @@ def main():
     del design5, cf_k, tau_k, cf_p, tau_p
     prof8 = _profile(torch, lambda: ma_step_moments(stats5, t_ma, planes5[t_ma], cf5, tau5,
                                                     rdt=mc_rdt, **makw), 20)
+    cf_k, tau_k = cf5.clone(), tau5.clone()
+    prof9 = _profile(torch, lambda: ma_step_apply(stats5, t_ma, coeffs5, planes5[t_ma], cf_k,
+                                                  tau_k, **makw), 50)
+    host9_us = _host_us(torch, lambda: ma_step_apply(stats5, t_ma, coeffs5, planes5[t_ma], cf_k,
+                                                     tau_k, **makw), 200)
+    del cf_k, tau_k
+    # kernel 9's bound: the step's 5 planes read once, cf/tau written where
+    # a path exercises, the 2m-1 operations of the fit
+    bound9 = _bound(5 * N_PATHS * 4 + 8 * n_ex5, f32_ops=N_PATHS * (2 * m5 - 1))
     # the design's floors: the 28 MB it reads, and one f32 -> f64 conversion
     # of each of the 252 products a path
     floor8 = {"bytes_us": 7 * N_PATHS * 4 / HBM_BYTES_PER_S * 1e6,
@@ -920,6 +978,9 @@ def main():
           f"{ms_ma_apply_plain:.4f} ms", flush=True)
     print(f"phase 8 kernel 8 device time per call: {prof8 or 'no device activity recorded'} | "
           f"design floors (us): {floor8}", flush=True)
+    print(f"phase 8 kernel 9 device time per call: {prof9 or 'no device activity recorded'} | "
+          f"host enqueue {host9_us:.2f} us a call | bound {bound9[0] * 1e3:.2f} us "
+          f"({bound9[1]}) | non-exercise date: cf/tau untouched", flush=True)
 
     before = (ma_step_moments.launches, ma_step_apply.launches)
     ker = backward_induction_fused_maxcall(paths5, STRIKE, MC_R, mc_dt, mc_spec)
@@ -1410,8 +1471,8 @@ def main():
         # reads the step's 5 planes, cf and tau; 252 products and f64 sums
         "ma_step_moments": _bound(7 * row, f32_ops=N_PATHS * P21, f64_ops=N_PATHS * P21),
         # reads the step's 5 planes (never cf or tau), writes cf/tau of the
-        # exercised paths
-        "ma_step_apply": _bound(5 * row + 8 * n_ex5, f32_ops=N_PATHS * (2 * m5 - 1)),
+        # exercised paths (phase 8)
+        "ma_step_apply": bound9,
         # reads the paths once; per path-step the P_book products (f32) and
         # their f64 sums, and 16 fitted continuations of 2k-1 operations
         "lsmc_book": _bound((N_STEPS + 1) * row + 4 * (N_STEPS + 1) * 4,
@@ -1439,7 +1500,8 @@ def main():
         {"name": "lsmc_step_apply", "route": "cuda", "source": "amcx_torch/csrc/lsmc_step.cu",
          "replaces": "amcx/ops/lsmc_pallas.py:249", "launches": fused_launches["lsmc_step_apply"],
          "max_abs_err": max(apply_err, fused_err), "ms": ms_apply, "plain_ms": ms_apply_plain,
-         "library_ms": None},
+         "library_ms": None, "device_us": prof5 and prof5["device_us_per_call"],
+         "host_us": host5_us},
         {"name": "ma_mega", "route": "cuda", "source": "amcx_torch/csrc/lsmc_ma_mega.cu",
          "replaces": "amcx/ops/lsmc_ma_mega.py:94",
          "launches": mc_launches[("mega", 5)]["ma_mega"], "max_abs_err": ma_mega_err,
@@ -1453,7 +1515,8 @@ def main():
          "replaces": "amcx/ops/maxcall_pallas.py:239",
          "launches": mc_launches[("fused", 5)]["ma_step_apply"],
          "max_abs_err": max(ma_apply_err, ma_fused_err), "ms": ms_ma_apply,
-         "plain_ms": ms_ma_apply_plain, "library_ms": None},
+         "plain_ms": ms_ma_apply_plain, "library_ms": None,
+         "device_us": prof9 and prof9["device_us_per_call"], "host_us": host9_us},
         {"name": "lsmc_book", "route": "cuda", "source": "amcx_torch/csrc/lsmc_book.cu",
          "replaces": "amcx/ops/lsmc_megakernel.py:485",
          "launches": book_launches["lsmc_book_megakernel"], "max_abs_err": book_err,

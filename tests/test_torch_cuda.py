@@ -331,10 +331,10 @@ RDT_MC = float(torch.tensor(0.05 / 3.0))  # r * dt, an f32 value
 
 def _offset_row(x, offset):
     """``x`` copied into a fresh buffer at element ``offset``: a contiguous
-    row whose base pointer is not 16-byte aligned for an offset not a
-    multiple of 16 bytes."""
+    tensor of its shape whose base pointer is not 16-byte aligned for an
+    offset not a multiple of 16 bytes."""
     buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
-    row = buf[offset:]
+    row = buf[offset:].view(x.shape)
     row.copy_(x)
     return row
 
@@ -383,6 +383,100 @@ def test_step_kernels_shapes_match_plain(cuda_device, basis, degree, n):
             torch.cuda.synchronize()
             for a, b in zip(out_k, out_p):
                 assert torch.equal(a, b)
+
+
+# kernel 5 on its edges: every row (S_t, cf, tau, knocked, surface) offset
+# by one element from a 16-byte base and n_paths no multiple of 4 (the
+# one-access-a-path fallback and the masked tail), a step that is no
+# exercise date with and without a surface row (the early return: cf and
+# tau untouched), the surface alone (select=False) and NaN coefficients (no
+# path exercises, the surface NaN); each against the plain version, to the
+# bit
+STEP_APPLY_CASES = {
+    # (n_paths, row offset, allow_t at t, select, surface, NaN coefficients)
+    "unaligned-rows": (131_071, 1, 1.0, True, True, False),
+    "ragged-aligned": (131_073, 0, 1.0, True, True, False),
+    "off-date-surface": (131_072, 0, 0.0, True, True, False),
+    "off-date-no-surface": (131_072, 0, 0.0, True, False, False),
+    "surface-only": (131_071, 1, 1.0, False, True, False),
+    "nan-coefficients": (131_072, 0, 1.0, True, True, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEP_APPLY_CASES))
+def test_step_apply_cases_match_plain(cuda_device, case):
+    n, offset, allow, select, with_surface, nan = STEP_APPLY_CASES[case]
+    T, t = 20, 7
+    paths = tgbm.gbm_paths(23, S0, R, SIGMA, 0.0, 1.0, T, n, device=cuda_device)
+    mean_t, inv_std_t = at.gbm_standardization(at.MarketParams(S0, R, SIGMA), 1.0, T,
+                                               device=cuda_device)
+    ones = torch.ones(T + 1, device=cuda_device)
+    allow_t = ones.clone()
+    allow_t[t] = allow
+    stats = tstep.step_stats(mean_t, inv_std_t, ones, allow_t)
+    cf = torch.clamp_min(K - paths[-1], 0.0)
+    tau = torch.full((n,), float(T), device=cuda_device)
+    knocked = paths[: t + 1].min(dim=0).values < 95.0
+    coeffs = torch.tensor([4.0, -3.0, 1.0, 0.5, -0.25], device=cuda_device)
+    if nan:
+        coeffs[2] = float("nan")
+    S_t = _offset_row(paths[t], offset)
+    kn = _offset_row(knocked, offset)
+    assert offset == 0 or S_t.data_ptr() % 16 != 0
+    outs = []
+    for apply_ in (tstep.step_apply, tstep.step_apply_reference):
+        cf_x, tau_x = _offset_row(cf, offset), _offset_row(tau, offset)
+        row = _offset_row(torch.full((n,), -1.0, device=cuda_device), offset)
+        apply_(stats, t, coeffs, S_t, cf_x, tau_x, kn, K=K, phi=-1.0, select=select,
+               surface=row if with_surface else None)
+        outs.append((cf_x, tau_x, row))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+    cf_k, tau_k, row_k = outs[0]
+    exercised = int((tau_k == t).sum())
+    if allow == 0.0 or not select or nan:
+        assert torch.equal(cf_k, cf) and torch.equal(tau_k, tau) and exercised == 0
+    else:
+        assert exercised > 0
+    if not with_surface:
+        assert bool((row_k == -1.0).all())
+    elif nan:
+        assert bool(row_k.isnan().all())
+    else:
+        assert bool(torch.isfinite(row_k).all()) and bool((row_k >= 0).all())
+
+
+@pytest.mark.parametrize("n", [131_071, 131_072])
+def test_fused_launcher_matches_public_wrapper(cuda_device, n):
+    # the fused loop's launcher (a plan of whole planes, then t and the
+    # coefficients) against the public wrapper on each step's rows, on a
+    # Bermudan down-in put with a surface: at n = 131,071 the rows past the
+    # first are not 16-byte aligned, so alignment is decided each launch
+    T = 50
+    paths = tgbm.gbm_paths(29, S0, R, SIGMA, 0.0, 1.0, T, n, device=cuda_device)
+    spec = at.RegressionSpec(degree=4, regress_on="itm")
+    kw = dict(barrier=95.0, barrier_type="down-in", exercise_steps=tuple(range(0, T, 5)),
+              return_surface=True)
+    before = tstep.step_apply.launches
+    ker = at.backward_induction_fused(paths, R, 1.0 / T, K, -1.0, spec, **kw)
+    torch.cuda.synchronize()
+    assert tstep.step_apply.launches == before + T
+
+    def public(stats, paths_, cf, tau, knocked, *, surface, **akw):
+        def launch(t, coeffs):
+            tstep.step_apply(stats, t, coeffs, paths_[t], cf, tau, knocked[t],
+                             surface=surface[t], **akw)
+        return launch
+
+    rows = tfused._induction(tstep.step_moments, public, paths, R, 1.0 / T, K, -1.0, spec,
+                             95.0, "down-in", True, True, None, tuple(range(0, T, 5)), False)
+    ref = tfused.backward_induction_fused_reference(paths, R, 1.0 / T, K, -1.0, spec, **kw)
+    torch.cuda.synchronize()
+    assert int((ker.exercise_times < T).sum()) > 0
+    for out in (rows, ref):
+        for a, b in zip(ker[:5], out[:5]):
+            assert torch.equal(a, b)
 
 
 def test_step_moments_on_two_streams(cuda_device):
@@ -448,6 +542,88 @@ def test_ma_step_kernels_match_plain(cuda_device, n, itm):
                                                                 spec)
     torch.cuda.synchronize()
     for out in (again, plain):
+        for a, b in zip(ker[:4], out[:4]):
+            assert torch.equal(a, b)
+
+
+# kernel 9 on its edges: 1, 2, 3, 5, 6, 7 and 8 assets, every payoff kind,
+# m from 4 to 29, the sorted and plain bases and every basis family; each
+# at aligned planes (the 16-byte loads), planes offset by one element and a
+# ragged n_paths (one load a path, the masked tail), and on a step that is
+# no exercise date (cf and tau untouched); each against the plain version,
+# to the bit
+MA_APPLY_CASES = {
+    # (n_assets, payoff_kind, basis, degree, mode, sorted_basis, phi, strike)
+    "1-asset-first": (1, "first", "laguerre", 4, "total", False, 1.0, 100.0),
+    "2-assets-second": (2, "second", "power", 3, "total", False, 1.0, 100.0),
+    "2-assets-spread": (2, "spread", "hermite", 4, "total", False, 1.0, 100.0),
+    "3-assets-spreadk": (3, "spreadk", "legendre", 2, "total", False, 1.0, 2.0),
+    "3-assets-geobasket-separable": (3, "geobasket", "chebyshev", 3, "separable", False, 1.0,
+                                     100.0),
+    "5-assets-maxcall-m21": (5, "maxcall", "chebyshev", 2, "total", True, 1.0, 100.0),
+    # a put exercised early despite q > r: deep in the money
+    "5-assets-basket-put": (5, "basket", "chebyshev", 2, "total", False, -1.0, 200.0),
+    "6-assets-maxcall-m28": (6, "maxcall", "chebyshev", 2, "total", True, 1.0, 100.0),
+    "7-assets-basket-m29": (7, "basket", "legendre", 4, "separable", False, 1.0, 100.0),
+    "8-assets-maxcall-m25": (8, "maxcall", "chebyshev", 3, "separable", True, 1.0, 100.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MA_APPLY_CASES))
+def test_ma_step_apply_cases_match_plain(cuda_device, case):
+    n_assets, kind, basis, degree, mode, sorted_basis, phi, strike = MA_APPLY_CASES[case]
+    t = 4
+    kw = dict(K=strike, phi=phi, basis=basis, degree=degree, mode=mode,
+              sorted_basis=sorted_basis, payoff_kind=kind)
+    m = tma.ma_params(n_assets, basis, degree, mode, sorted_basis, kind, strike, phi).n_cols
+    for n, offset, allow in ((131_072, 0, 1.0), (131_072, 1, 1.0), (131_069, 0, 1.0),
+                             (131_072, 0, 0.0)):
+        paths = _basket_paths(cuda_device, n, n_assets, 37)
+        mean_t, inv_std_t = tma.maxcall_standardization(paths, "sorted" if sorted_basis else mode)
+        allow_t = torch.ones(10, device=cuda_device)
+        allow_t[t] = allow
+        stats = tma.ma_stats(mean_t, inv_std_t, MC["r"], 1.0 / 3.0, allow_t)
+        planes = paths.permute(0, 2, 1).contiguous()
+        cf = tma._payoff_for(list(planes[9]), strike, kind, phi)
+        tau = torch.full((n,), 9.0, device=cuda_device)
+        packed = tma.ma_step_moments_reference(stats, t, planes[t], cf, tau, rdt=RDT_MC, **kw)
+        coeffs = at.pinv_solve(*tstep.unpack_moments(packed, m))
+        step = _offset_row(planes[t], offset)
+        assert offset == 0 or step.data_ptr() % 16 != 0
+        cf_k, tau_k, cf_p, tau_p = cf.clone(), tau.clone(), cf.clone(), tau.clone()
+        before = tma.ma_step_apply.launches
+        tma.ma_step_apply(stats, t, coeffs, step, cf_k, tau_k, **kw)
+        tma.ma_step_apply_reference(stats, t, coeffs, step, cf_p, tau_p, **kw)
+        torch.cuda.synchronize()
+        assert tma.ma_step_apply.launches == before + 1
+        assert torch.equal(cf_k, cf_p) and torch.equal(tau_k, tau_p)
+        exercised = int((tau_k == t).sum())
+        assert exercised == 0 if allow == 0.0 else exercised > 0, (n, offset, allow, exercised)
+
+
+def test_ma_step_apply_launcher_matches_public_wrapper(cuda_device):
+    # the fused max-call loop's launcher (t and the coefficients) against
+    # the public wrapper on each step's planes: 3-asset basket put, ragged
+    # n_paths, so every step's planes are unaligned
+    n = 131_069
+    paths = _basket_paths(cuda_device, n, 3, 41)
+    spec = at.RegressionSpec(basis="chebyshev", degree=3, regress_on="itm")
+    args = (paths, 100.0, MC["r"], 1.0 / 3.0, spec, "total", 1, "basket", -1.0)
+
+    def public(stats, planes, cf, tau, **akw):
+        def launch(t, coeffs):
+            tma.ma_step_apply(stats, t, coeffs, planes[t], cf, tau, **akw)
+        return launch
+
+    before = tma.ma_step_apply.launches
+    ker = tmaxcall.backward_induction_fused_maxcall(*args)
+    torch.cuda.synchronize()
+    assert tma.ma_step_apply.launches == before + 9
+    rows = tmaxcall._fused_maxcall(tma.ma_step_moments, public, *args)
+    ref = tmaxcall.backward_induction_fused_maxcall_reference(*args)
+    torch.cuda.synchronize()
+    assert int((ker.exercise_times < 9).sum()) > 0
+    for out in (rows, ref):
         for a, b in zip(ker[:4], out[:4]):
             assert torch.equal(a, b)
 
