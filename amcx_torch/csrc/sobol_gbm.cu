@@ -9,8 +9,8 @@
 // Computes, for path p and step j (Sobol dimension j):
 //   u     = u_hi[j, p >> 9] ^ u_lo[j, p & 511]   (30-bit digital-net point)
 //   f     = bitcast(((u >> 7) & 0x7FFFFF) | 0x3F800000) - (1 - 2^-24)
-//   z_j   = Acklam's inverse normal CDF of f (branchless central and tail
-//           forms, the select at |f - 1/2| <= f32(0.5 - 0.02425))
+//   z_j   = Acklam's inverse normal CDF of f (its central form where
+//           |f - 1/2| <= f32(0.5 - 0.02425), else its tail form)
 //   increment mode: cum_t = sum_{j<t} (drift_dt + vol z_j)
 //   bridge mode:    cum_t = drift_dt t + vol W_t, W_t = sum_s B[t-1, s] z_s
 //                   with B the (n_steps, n_steps) bridge matrix carrying
@@ -26,12 +26,21 @@
 // MB), with ~60 f32 operations per path-step (the inverse CDF's two
 // rational forms, a log and a sqrt) and, in bridge mode, the 2 nnz(B) /
 // n_steps operations of the bridge product (B is sparse: 673 of its
-// 10,000 entries are nonzero at 100 steps, at most 8 a row). Design: one
-// thread per path, neighbouring threads on neighbouring paths, so every
-// store of row t is coalesced; the u_hi word is uniform over a 512-path
-// group (a broadcast load) and u_lo's 512 words per step stay in L2. The
-// increment mode walks the steps with a running sum in a register (amcx's
-// log-step doubling scan was a TPU layout choice).
+// 10,000 entries are nonzero at 100 steps, at most 8 a row). The
+// branchless inverse CDF made one path a thread 145 SASS instructions a
+// path-step, an issue floor (0.455 ms) far above that bound, and its tail
+// form (a log, a sqrt, two polynomials and a division) is half of it
+// though only 4.85% of the points select it. The increment kernel below
+// takes 82 (amcx_torch/pathgen_probe.py).
+// The u_hi word is uniform over a 512-path group (a broadcast load) and
+// u_lo's 512 words per step stay in L2.
+//
+// The increment mode evaluates the tail form only where it is selected:
+// a warp compacts its tail points of a chunk of steps into shared memory
+// and evaluates them densely (sobol_increment_kernel). A thread runs 4
+// consecutive paths, so a row's store is one 16-byte access and u_lo's
+// words one 16-byte load, and walks its steps with a running sum in a
+// register (amcx's log-step doubling scan was a TPU layout choice).
 //
 // The bridge mode walks the rows of B in time order over its nonzeros
 // only (the host's schedule, ops/sobol_pallas.py _bridge_schedule): row t
@@ -62,28 +71,17 @@ namespace {
 
 constexpr int kLanes = 512;  // paths per u_hi column (the low 9 index bits)
 constexpr int kLowBits = 9;
-constexpr int kIncrementThreads = 256;
+// the increment kernel's chunk of steps and consecutive paths a thread:
+// chunks of 4 steps timed 0.290 ms at 1M x 100 against 0.300 for 8
+// (amcx_torch/pathgen_probe.py, NVIDIA H100 80GB HBM3, 700 W)
+constexpr int kIncSteps = 4;
+constexpr int kIncPaths = 4;
+constexpr int kIncThreads = kLanes / kIncPaths;
 constexpr int kBridgePaths = 4;  // paths a thread in bridge mode
 constexpr int kBridgeThreads = kLanes / kBridgePaths;
 // A schedule entry's first word: the column s (bits 8..30), its slot (bits
 // 0..7) and, in bit 31, born: the first row that uses column s
 constexpr int kSlotBits = 8;
-
-// Acklam's coefficients, rounded from double to float as amcx rounds its
-// Python floats.
-#define F(x) static_cast<float>(x)
-__constant__ float kA[6] = {F(-3.969683028665376e+01), F(2.209460984245205e+02),
-                            F(-2.759285104469687e+02), F(1.383577518672690e+02),
-                            F(-3.066479806614716e+01), F(2.506628277459239e+00)};
-__constant__ float kB[5] = {F(-5.447609879822406e+01), F(1.615858368580409e+02),
-                            F(-1.556989798598866e+02), F(6.680131188771972e+01),
-                            F(-1.328068155288572e+01)};
-__constant__ float kC[6] = {F(-7.784894002430293e-03), F(-3.223964580411365e-01),
-                            F(-2.400758277161838e+00), F(-2.549732539343734e+00),
-                            F(4.374664141464968e+00), F(2.938163982698783e+00)};
-__constant__ float kD[4] = {F(7.784695709041462e-03), F(3.224671290700398e-01),
-                            F(2.445134137142996e+00), F(3.754408661907416e+00)};
-#undef F
 
 __device__ __forceinline__ float bits_to_uniform(uint32_t u) {
   const uint32_t mant = (u >> 7) & 0x007FFFFFu;
@@ -91,30 +89,64 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t u) {
   return __uint_as_float(mant | 0x3F800000u) - __uint_as_float(0x3F7FFFFFu);
 }
 
-// amcx's norm_ppf, operation for operation.
-__device__ __forceinline__ float norm_ppf(float p) {
+// amcx's norm_ppf, operation for operation, in its two forms, with Acklam's
+// coefficients rounded from double to float as amcx rounds its Python
+// floats (as immediates: no constant-bank loads). Each form is an
+// independent computation of p and the select keeps one of them, so
+// evaluating only the selected form gives the same bits (the increment
+// kernel does; tests/test_torch_qmc.py holds the split against norm_ppf on
+// every uniform bits_to_uniform can produce).
+#define F(x) static_cast<float>(x)
+__device__ __forceinline__ float norm_ppf_central(float p) {
+  constexpr float a[6] = {F(-3.969683028665376e+01), F(2.209460984245205e+02),
+                          F(-2.759285104469687e+02), F(1.383577518672690e+02),
+                          F(-3.066479806614716e+01), F(2.506628277459239e+00)};
+  constexpr float b[5] = {F(-5.447609879822406e+01), F(1.615858368580409e+02),
+                          F(-1.556989798598866e+02), F(6.680131188771972e+01),
+                          F(-1.328068155288572e+01)};
   const float half = p - 0.5f;
   const float r = half * half;
-  float num = kA[0];
+  float num = a[0];
 #pragma unroll
-  for (int i = 1; i < 6; ++i) num = num * r + kA[i];
-  float den = kB[0];
+  for (int i = 1; i < 6; ++i) num = num * r + a[i];
+  float den = b[0];
 #pragma unroll
-  for (int i = 1; i < 5; ++i) den = den * r + kB[i];
+  for (int i = 1; i < 5; ++i) den = den * r + b[i];
   den = den * r + 1.0f;
-  const float x_c = num * half / den;
+  return num * half / den;
+}
+
+__device__ __forceinline__ float norm_ppf_tail(float p) {
+  constexpr float c[6] = {F(-7.784894002430293e-03), F(-3.223964580411365e-01),
+                          F(-2.400758277161838e+00), F(-2.549732539343734e+00),
+                          F(4.374664141464968e+00), F(2.938163982698783e+00)};
+  constexpr float d[4] = {F(7.784695709041462e-03), F(3.224671290700398e-01),
+                          F(2.445134137142996e+00), F(3.754408661907416e+00)};
+  const float half = p - 0.5f;
   const float pt = fminf(p, 1.0f - p);
   const float qt = sqrtf(-2.0f * logf(fmaxf(pt, static_cast<float>(1e-38))));
-  num = kC[0];
+  float num = c[0];
 #pragma unroll
-  for (int i = 1; i < 6; ++i) num = num * qt + kC[i];
-  den = kD[0];
+  for (int i = 1; i < 6; ++i) num = num * qt + c[i];
+  float den = d[0];
 #pragma unroll
-  for (int i = 1; i < 4; ++i) den = den * qt + kD[i];
+  for (int i = 1; i < 4; ++i) den = den * qt + d[i];
   den = den * qt + 1.0f;
-  float x_t = num / den;  // the lower-tail form
-  x_t = half < 0.0f ? x_t : -x_t;
-  return fabsf(half) <= static_cast<float>(0.5 - 0.02425) ? x_c : x_t;
+  const float x_t = num / den;  // the lower-tail form
+  return half < 0.0f ? x_t : -x_t;
+}
+#undef F
+
+// |p - 1/2| > f32(0.5 - 0.02425): 4.85% of the points
+__device__ __forceinline__ bool norm_ppf_in_tail(float p) {
+  return !(fabsf(p - 0.5f) <= static_cast<float>(0.5 - 0.02425));
+}
+
+// The branchless select of both forms (the bridge kernel).
+__device__ __forceinline__ float norm_ppf(float p) {
+  const float x_c = norm_ppf_central(p);
+  const float x_t = norm_ppf_tail(p);
+  return norm_ppf_in_tail(p) ? x_t : x_c;
 }
 
 __device__ __forceinline__ float sobol_normal(const uint32_t* __restrict__ u_hi,
@@ -125,19 +157,111 @@ __device__ __forceinline__ float sobol_normal(const uint32_t* __restrict__ u_hi,
   return norm_ppf(bits_to_uniform(u));
 }
 
-__global__ void __launch_bounds__(kIncrementThreads)
+// One chunk of kIncSteps steps (n_used of them when !kFull) for the
+// thread's kIncPaths paths, in three phases:
+//   1. each (step, path) gets the central form, into the block's tile in
+//      shared memory (one 16-byte store a step); a tail point keeps its
+//      uniform there and sets its bit of the thread's mask;
+//   2. the warp lists the tile offsets of its tail points (an exclusive
+//      scan of the per-thread counts, then each thread's set bits), and
+//      its 32 lanes evaluate the list densely with the tail form, in place;
+//   3. each thread walks its paths' steps from the tile: the running sum in
+//      step order, expf, one 16-byte store a row.
+// A warp meets ~25 tail points in a chunk of 4 steps x 128 paths, so the
+// tail form runs in ~1 dense round where the branchless select ran it for
+// all 4 x 4 points of every thread.
+template <bool kFull>
+__device__ __forceinline__ void increment_chunk(
+    const uint32_t*& hi, const uint4*& lo, float*& dst, float* tile, uint16_t* list,
+    float (&cum)[kIncPaths], int n_used, int n_blocks, size_t row, float S0, float drift_dt,
+    float vol) {
+  const int lane = threadIdx.x & 31;
+  float4* mine = reinterpret_cast<float4*>(tile) + threadIdx.x;  // step s at mine[s kIncThreads]
+  uint32_t tail = 0u;
+#pragma unroll
+  for (int s = 0; s < kIncSteps; ++s) {
+    if (kFull || s < n_used) {
+      const uint32_t h = __ldg(hi);
+      const uint4 l = __ldg(lo);
+      hi += n_blocks;
+      lo += kIncThreads;
+      const uint32_t w[kIncPaths] = {h ^ l.x, h ^ l.y, h ^ l.z, h ^ l.w};
+      float v[kIncPaths];
+#pragma unroll
+      for (int k = 0; k < kIncPaths; ++k) {
+        const float p = bits_to_uniform(w[k]);
+        const bool in_tail = norm_ppf_in_tail(p);
+        const float x_c = norm_ppf_central(p);
+        v[k] = in_tail ? p : x_c;
+        tail |= static_cast<uint32_t>(in_tail) << (s * kIncPaths + k);
+      }
+      mine[s * kIncThreads] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  const int n_mine = __popc(tail);
+  int incl = n_mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  const int total = __shfl_sync(0xFFFFFFFFu, incl, 31);
+  if (total > 0) {  // warp-uniform
+    for (int pos = incl - n_mine; tail != 0u; tail &= tail - 1u, ++pos) {
+      const int b = __ffs(static_cast<int>(tail)) - 1;  // step b / 4, path b % 4
+      list[pos] = static_cast<uint16_t>((b >> 2) * kLanes + kIncPaths * threadIdx.x + (b & 3));
+    }
+    __syncwarp();
+    for (int i = lane; i < total; i += 32) {
+      const int o = list[i];
+      tile[o] = norm_ppf_tail(tile[o]);
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int s = 0; s < kIncSteps; ++s) {
+    if (kFull || s < n_used) {
+      const float4 z4 = mine[s * kIncThreads];
+      const float z[kIncPaths] = {z4.x, z4.y, z4.z, z4.w};
+      float v[kIncPaths];
+#pragma unroll
+      for (int k = 0; k < kIncPaths; ++k) {
+        cum[k] = cum[k] + (drift_dt + vol * z[k]);
+        v[k] = S0 * expf(cum[k]);
+      }
+      dst += row;
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// A block is one 512-path group (one u_hi column), each thread kIncPaths
+// consecutive paths; full chunks of kIncSteps steps, then the rest.
+__global__ void __launch_bounds__(kIncThreads)
 sobol_increment_kernel(const uint32_t* __restrict__ u_hi, const uint32_t* __restrict__ u_lo,
                        float* __restrict__ out, int n_steps, int n_paths, float S0,
                        float drift_dt, float vol) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_paths) return;
-  const size_t row = static_cast<size_t>(n_paths);
+  static_assert(kIncSteps * kIncPaths <= 32 && kIncPaths == 4, "one 32-bit tail mask, float4s");
+  __shared__ __align__(16) float tile[kIncSteps * kLanes];
+  __shared__ uint16_t lists[kIncThreads / 32][32 * kIncSteps * kIncPaths];
+  uint16_t* list = lists[threadIdx.x >> 5];
   const int n_blocks = n_paths / kLanes;
-  out[p] = S0;
-  float cum = 0.0f;
-  for (int j = 0; j < n_steps; ++j) {
-    cum = cum + (drift_dt + vol * sobol_normal(u_hi, u_lo, j, n_blocks, p));
-    out[(static_cast<size_t>(j) + 1) * row + p] = S0 * expf(cum);
+  const size_t row = static_cast<size_t>(n_paths);
+  float* dst = out + static_cast<size_t>(blockIdx.x) * kLanes + kIncPaths * threadIdx.x;
+  const uint32_t* hi = u_hi + blockIdx.x;  // step j at hi[j n_blocks]
+  const uint4* lo = reinterpret_cast<const uint4*>(u_lo) + threadIdx.x;  // at lo[j kIncThreads]
+  float cum[kIncPaths];
+#pragma unroll
+  for (int k = 0; k < kIncPaths; ++k) cum[k] = 0.0f;
+  *reinterpret_cast<float4*>(dst) = make_float4(S0, S0, S0, S0);
+  const int n_full = n_steps / kIncSteps;
+  for (int c = 0; c < n_full; ++c) {
+    increment_chunk<true>(hi, lo, dst, tile, list, cum, kIncSteps, n_blocks, row, S0, drift_dt,
+                          vol);
+  }
+  if (n_steps > n_full * kIncSteps) {
+    increment_chunk<false>(hi, lo, dst, tile, list, cum, n_steps - n_full * kIncSteps, n_blocks,
+                           row, S0, drift_dt, vol);
   }
 }
 
@@ -195,20 +319,27 @@ sobol_bridge_kernel(const uint32_t* __restrict__ u_hi, const uint32_t* __restric
 // u_hi (n_steps, n_paths / 512) and u_lo (n_steps, 512) uint32 tables;
 // row_ptr and entries: the bridge schedule (see sobol_bridge_kernel), or
 // both null (increment mode); n_slots its live normals a path; out
-// (n_steps+1, n_paths) f32. n_paths a multiple of 512. Returns a
+// (n_steps+1, n_paths) f32. n_paths a multiple of 512. The increment mode
+// reads u_lo and writes out in 16-byte accesses, the bridge mode reads
+// entries in 8-byte ones: a base not aligned to them is refused. Returns a
 // cudaError_t.
 extern "C" int amcx_sobol_gbm_paths(const unsigned int* u_hi, const unsigned int* u_lo,
                                     const int* row_ptr, const int* entries, float* out,
                                     int n_steps, int n_paths, float S0, float drift_dt, float vol,
                                     int n_slots, void* stream) {
+  const auto misaligned = [](const void* p, uintptr_t bytes) {
+    return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) != 0;
+  };
   if (n_steps < 1 || n_paths < kLanes || n_paths % kLanes != 0 ||
-      (row_ptr == nullptr) != (entries == nullptr)) {
+      (row_ptr == nullptr) != (entries == nullptr) || misaligned(u_hi, 4) ||
+      misaligned(u_lo, row_ptr == nullptr ? 16 : 4) ||
+      misaligned(out, row_ptr == nullptr ? 16 : 4) || misaligned(entries, 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (row_ptr == nullptr) {
-    sobol_increment_kernel<<<n_paths / kIncrementThreads, kIncrementThreads, 0, s>>>(
-        u_hi, u_lo, out, n_steps, n_paths, S0, drift_dt, vol);
+    sobol_increment_kernel<<<n_paths / kLanes, kIncThreads, 0, s>>>(u_hi, u_lo, out, n_steps,
+                                                                   n_paths, S0, drift_dt, vol);
     return static_cast<int>(cudaGetLastError());
   }
   if (n_slots < 1 || n_slots > (1 << kSlotBits)) return static_cast<int>(cudaErrorInvalidValue);

@@ -3,7 +3,8 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 -m amcx_torch.kernel_profile
-        [--route put|book|ma-step|ma-apply|ma-mega|swing|step|fusedpath|qmc] [--reps 20]
+        [--route put|gbm|book|ma-step|ma-apply|ma-mega|swing|step|fusedpath|qmc]
+        [--reps 20]
         [--label NAME]
 
 Routes, each on fixed inputs made from fixed seeds:
@@ -12,6 +13,9 @@ Routes, each on fixed inputs made from fixed seeds:
   paths x 100 steps, S0 = K = 100, r = 1%, sigma = 20%, T = 1, Chebyshev
   degree 4, ITM fit) through ``lsmc_price_megakernel``; the hash covers
   the price, stderr and coefficient bits.
+- ``gbm`` (kernel 1): the flagship put's Philox paths alone (1,048,576 x
+  100 steps, seed 20261016) through ``gbm_paths``; the hash covers the
+  path array.
 - ``book`` (kernel 3): book-16-1M (16 American puts K = 80..120, S0 = 95,
   r = 1%, sigma = 20%, T = 1, 1,048,576 Philox paths x 100 steps,
   all-paths degree 4, the closed-form frame) through
@@ -50,7 +54,11 @@ Routes, each on fixed inputs made from fixed seeds:
 - ``qmc`` (kernel 11): scrambled-Sobol paths of the flagship market at
   1,048,576 paths x 100 steps through ``sobol_gbm_paths``, increment and
   then bridge order (one run is both arrays); the hash covers the path
-  bits of each order.
+  bits of each order. It also prints each order on its own: ms by CUDA
+  events, the wrapper's host time, and the device time by name, so the
+  kernel's time stands apart from any host-to-device copy, and a new
+  seed's host work by part (scipy's engine, the direction tables, their
+  copy to the card).
 
 Every route also prints the wrappers' host time per run (enqueue, no
 sync) and the CUDA-event time minus the device time; a ``step`` run is
@@ -89,6 +97,18 @@ def _put(torch, amcx_torch, dev):
 
     res = run()
     return run, (res.price, res.stderr, res.coeffs), {"price": res.price}
+
+
+def _gbm(torch, amcx_torch, dev):
+    from amcx_torch.ops.gbm import gbm_paths
+
+    args = (20261016, 100.0, 0.01, 0.2, 0.0, 1.0, 100, 1_048_576)
+
+    def run():
+        return gbm_paths(*args, device=dev)
+
+    paths = run()
+    return run, (paths,), {"price": paths[-1].mean()}
 
 
 def _book(torch, amcx_torch, dev):
@@ -264,11 +284,39 @@ def _qmc(torch, amcx_torch, dev):
         return tuple(sobol_gbm_paths(*args, brownian_bridge=bridge, device=dev)
                      for bridge in (False, True))
 
+    def tables():
+        # a new seed's host work by part, medians over 5 seeds: scipy's
+        # engine, the tables (engine included), the copy of both to the card
+        import numpy as np
+        from scipy.stats import qmc
+
+        from amcx_torch.ops.sobol_pallas import _direction_tables
+
+        parts = {"engine_ms": [], "tables_ms": [], "copy_ms": []}
+        for seed in range(7001, 7006):
+            t0 = time.perf_counter()
+            qmc.Sobol(d=args[6], scramble=True, seed=seed)
+            t1 = time.perf_counter()
+            u_hi, u_lo = _direction_tables.__wrapped__(seed, args[6], args[7])
+            t2 = time.perf_counter()
+            for u in (u_hi, u_lo):
+                torch.from_numpy(u.view(np.int32).copy()).to(dev)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[key].append(dt * 1e3)
+        return {k: statistics.median(v) for k, v in parts.items()}
+
+    def by_order(split):
+        return {("bridge" if bridge else "increment"): split(
+            lambda b=bridge: sobol_gbm_paths(*args, brownian_bridge=b, device=dev))
+            for bridge in (False, True)}
+
     outs = run()
-    return run, outs, {"price": outs[1][-1].mean()}
+    return run, outs, {"price": outs[1][-1].mean(), "by_order": by_order, "tables": tables}
 
 
-ROUTES = {"put": _put, "book": _book, "ma-step": _ma_step, "ma-apply": _ma_apply,
+ROUTES = {"put": _put, "gbm": _gbm, "book": _book, "ma-step": _ma_step, "ma-apply": _ma_apply,
           "ma-mega": _ma_mega, "swing": _swing, "step": _step, "fusedpath": _fusedpath,
           "qmc": _qmc}
 
@@ -283,6 +331,46 @@ def _device_us(torch, profile, activity, fn, reps):
         torch.cuda.synchronize()
     return sum(e.time_range.end - e.time_range.start for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA) / reps
+
+
+def _split(torch, profile, activity, fn, reps):
+    """One call of ``fn`` on its own: ms by CUDA events (median), the host
+    enqueue µs a call, and device µs and launches a call by name
+    (kernels and copies apart)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[activity.CPU, activity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per_name, count = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = _short(e.name)
+            per_name[name] = per_name.get(name, 0.0) + e.time_range.end - e.time_range.start
+            count[name] = count.get(name, 0) + 1
+    return {"ms_median": statistics.median(times), "host_enqueue_us": host_us,
+            "device_us": {k: v / reps for k, v in per_name.items()},
+            "device_launches": {k: v / reps for k, v in count.items()}}
+
+
+def _short(name):
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0][:60] if "Memcpy" not in name else name[:60]
 
 
 def main(argv=None):
@@ -328,8 +416,7 @@ def main(argv=None):
     per_name, count = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
-            name = name.split("(")[0][:60]
+            name = _short(e.name)
             per_name[name] = per_name.get(name, 0.0) + e.time_range.end - e.time_range.start
             count[name] = count.get(name, 0) + 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -345,6 +432,11 @@ def main(argv=None):
     if "by_degree" in extra:
         line["moments_device_us_by_degree"] = extra["by_degree"](
             lambda fn: _device_us(torch, profile, ProfilerActivity, fn, args.reps))
+    if "by_order" in extra:
+        line["by_order"] = extra["by_order"](
+            lambda fn: _split(torch, profile, ProfilerActivity, fn, args.reps))
+    if "tables" in extra:
+        line["new_seed_tables"] = extra["tables"]()
     device_us = sum(per_name.values()) / args.reps
     line.update(route=args.route, device_us_per_call=device_us, host_enqueue_us_per_call=host_us,
                 wall_minus_device_us=statistics.median(times) * 1e3 - device_us)

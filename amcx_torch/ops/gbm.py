@@ -15,11 +15,16 @@ gives the normals of steps 4j … 4j+3; a tail quad drops its surplus.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["gbm_paths", "gbm_paths_reference", "philox4x32_10", "philox_normals"]
+__all__ = ["gbm_paths", "gbm_paths_reference", "philox4x32_10", "philox_normals", "GBM_PATHS"]
+
+GBM_PATHS = 4  # consecutive paths a thread (csrc/gbm.cu kGbmPaths)
+_GBM_THREADS = 256
 
 _M32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -108,6 +113,40 @@ def gbm_paths_reference(seed: int, S0, r, sigma, q, T, n_steps: int, n_paths: in
     return torch.cat([first, S0 * torch.exp(cum)], dim=0)
 
 
+class GbmPlan(NamedTuple):
+    """Kernel 1's launch: ``grid`` blocks of ``threads``; thread g runs the
+    ``GBM_PATHS`` consecutive paths from ``GBM_PATHS g`` (the last of the
+    ``n_groups`` groups holds ``n_paths - GBM_PATHS (n_groups - 1)``; on a
+    smaller grid thread t runs g = t, t + grid threads, ...) and writes
+    their row 0, then ``full_quads`` quads of 4 rows, then ``tail`` rows.
+    ``scalar``: rows are not 16-byte aligned (``n_paths % 4 != 0``), so each
+    path is stored alone. Every field is an argument of the C entry."""
+
+    scalar: bool
+    threads: int
+    grid: int
+    n_groups: int
+    full_quads: int
+    tail: int
+
+
+def _gbm_plan(n_paths: int, n_steps: int) -> GbmPlan:
+    """The launch plan: a thread a group of paths, blocks enough for all."""
+    n_groups = -(-n_paths // GBM_PATHS)
+    return GbmPlan(n_paths % GBM_PATHS != 0, _GBM_THREADS, -(-n_groups // _GBM_THREADS),
+                   n_groups, n_steps // 4, n_steps % 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _gbm_fn():
+    from . import _build
+
+    I, F = ctypes.c_int, ctypes.c_float
+    return _build.function("amcx_gbm_paths", [
+        ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint, I, I, I, I, I, I, I, F, F, F,
+        ctypes.c_void_p])
+
+
 def gbm_paths(seed: int, S0, r, sigma, q, T, n_steps: int, n_paths: int,
               device="cuda") -> torch.Tensor:
     """Time-major ``(n_steps+1, n_paths)`` f32 GBM paths on ``device``.
@@ -130,11 +169,11 @@ def gbm_paths(seed: int, S0, r, sigma, q, T, n_steps: int, n_paths: int,
     key_lo, key_hi = _seed_key(seed)
     S0, drift_dt, vol_sdt = _increments(S0, r, sigma, q, T, n_steps)
     out = torch.empty((n_steps + 1, n_paths), dtype=torch.float32, device=device)
-    fn = _build.function("amcx_gbm_paths", [
-        ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(out.data_ptr(), key_lo, key_hi, n_steps, n_paths, S0, drift_dt, vol_sdt, stream)
+    plan = _gbm_plan(n_paths, n_steps)
+    stream = torch._C._cuda_getCurrentRawStream(out.device.index)  # current_stream's handle
+    rc = _gbm_fn()(out.data_ptr(), key_lo, key_hi, n_paths, plan.n_groups, plan.full_quads,
+                   plan.tail, int(plan.scalar), plan.threads, plan.grid, S0, drift_dt, vol_sdt,
+                   stream)
     gbm_paths.launches += 1
     _build.check(rc, "amcx_gbm_paths")
     return out

@@ -33,8 +33,8 @@ import torch
 
 from ..types import MarketParams, SimConfig
 
-__all__ = ["sobol_gbm_paths", "sobol_gbm_paths_reference", "simulate_gbm_qmc_device",
-           "norm_ppf", "BRIDGE_MAX_STEPS"]
+__all__ = ["sobol_gbm_paths", "sobol_gbm_paths_reference", "paths_from_tables_reference",
+           "simulate_gbm_qmc_device", "norm_ppf", "BRIDGE_MAX_STEPS"]
 
 LANES = 512  # paths per u_hi column: the low 9 bits of the path index
 _LOW_BITS = 9
@@ -55,9 +55,8 @@ _D = (7.784695709041462e-03, 3.224671290700398e-01, 2.445134137142996e+00,
 _P_LOW = 0.02425
 
 
-def norm_ppf(p: torch.Tensor) -> torch.Tensor:
-    """Branchless Acklam Φ⁻¹ of f32 ``p ∈ (0, 1)``, in amcx's f32 operation
-    order (each Python coefficient rounded to f32)."""
+def _ppf_central(p: torch.Tensor) -> torch.Tensor:
+    """Acklam's central form of Φ⁻¹ (the kernel's ``norm_ppf_central``)."""
     half = p - 0.5
     r = half * half
     num = torch.full_like(p, _A[0])
@@ -67,7 +66,12 @@ def norm_ppf(p: torch.Tensor) -> torch.Tensor:
     for b in _B[1:]:
         den = den * r + b
     den = den * r + 1.0
-    x_c = num * half / den
+    return num * half / den
+
+
+def _ppf_tail(p: torch.Tensor) -> torch.Tensor:
+    """Acklam's tail form of Φ⁻¹ (the kernel's ``norm_ppf_tail``)."""
+    half = p - 0.5
     pt = torch.minimum(p, 1.0 - p)
     qt = torch.sqrt(-2.0 * torch.log(torch.clamp_min(pt, 1e-38)))
     num = torch.full_like(p, _C[0])
@@ -78,9 +82,18 @@ def norm_ppf(p: torch.Tensor) -> torch.Tensor:
         den = den * qt + d
     den = den * qt + 1.0
     x_t = num / den  # the lower-tail form
-    x_t = torch.where(half < 0, x_t, -x_t)
+    return torch.where(half < 0, x_t, -x_t)
+
+
+def _in_tail(p: torch.Tensor) -> torch.Tensor:
     select = torch.tensor(0.5 - _P_LOW, dtype=p.dtype, device=p.device)
-    return torch.where(torch.abs(half) <= select, x_c, x_t)
+    return ~(torch.abs(p - 0.5) <= select)
+
+
+def norm_ppf(p: torch.Tensor) -> torch.Tensor:
+    """Branchless Acklam Φ⁻¹ of f32 ``p ∈ (0, 1)``, in amcx's f32 operation
+    order (each Python coefficient rounded to f32)."""
+    return torch.where(_in_tail(p), _ppf_tail(p), _ppf_central(p))
 
 
 def _bits_to_uniform(u: torch.Tensor) -> torch.Tensor:
@@ -107,15 +120,21 @@ def _direction_tables(seed: int, n_steps: int, n_paths: int):
     if n_paths > 1 << bits:
         raise ValueError(f"n_paths exceeds the {bits}-bit Sobol period")
 
-    def xor_table(indices: np.ndarray) -> np.ndarray:
-        acc = np.zeros((n_steps, indices.size), dtype=np.uint32)
-        for j in range(bits):
-            mask = ((indices >> j) & 1).astype(bool)
-            acc[:, mask] ^= sv[:, j:j + 1]
+    def xor_table(n: int, low_bit: int) -> np.ndarray:
+        # column i: the XOR of sv[:, low_bit + b] over the set bits b of i,
+        # built by doubling: columns 2^k + i are columns i ^ sv[:, low_bit + k]
+        acc = np.zeros((n_steps, n), dtype=np.uint32)
+        k = 0
+        while 1 << k < n:
+            size = 1 << k
+            end = min(2 * size, n)
+            np.bitwise_xor(acc[:, :end - size], sv[:, low_bit + k:low_bit + k + 1],
+                           out=acc[:, size:end])
+            k += 1
         return acc
 
-    u_lo = xor_table(np.arange(LANES, dtype=np.uint64))
-    u_hi = xor_table(np.arange(n_paths // LANES, dtype=np.uint64) << _LOW_BITS)
+    u_lo = xor_table(LANES, 0)
+    u_hi = xor_table(n_paths // LANES, _LOW_BITS)
     u_hi ^= shift[:, None]
     if bits < 30:  # the uniform conversion reads bits 29..7
         u_hi <<= 30 - bits
@@ -190,23 +209,24 @@ def _check(n_steps, n_paths, bridge):
                          f"version's dense B), got {n_steps}")
 
 
-def sobol_gbm_paths_reference(seed, S0, r, sigma, q, T, n_steps: int, n_paths: int,
-                              brownian_bridge: bool = False, device="cpu") -> torch.Tensor:
-    """Plain-torch version of the kernel: time-major ``(n_steps+1,
+def paths_from_tables_reference(u_hi, u_lo, S0: float, drift_dt: float, vol: float,
+                                n_steps: int, n_paths: int, B=None, device="cpu"):
+    """Plain-torch version of the kernel on given tables (``u_hi``
+    ``(n_steps, n_paths/512)`` and ``u_lo`` ``(n_steps, 512)`` as int32
+    tensors or uint32 arrays) and f32 scalars: increment order, or bridge
+    order on the f32 bridge matrix ``B``. Time-major ``(n_steps+1,
     n_paths)`` f32 on ``device``."""
-    _check(n_steps, n_paths, brownian_bridge)
-    u_hi, u_lo = _direction_tables(int(seed), n_steps, n_paths)
-    S0, drift_dt, vol = _params(S0, r, sigma, q, T, n_steps, brownian_bridge)
-    hi = torch.from_numpy(u_hi.view(np.int32).copy()).to(device)
-    lo = torch.from_numpy(u_lo.view(np.int32).copy()).to(device)
+    hi, lo = (torch.from_numpy(t.view(np.int32).copy()) if isinstance(t, np.ndarray) else t
+              for t in (u_hi, u_lo))
+    hi, lo = hi.to(device), lo.to(device)
     p = torch.arange(n_paths, device=device)
     z = norm_ppf(_bits_to_uniform(torch.bitwise_xor(hi[:, p >> _LOW_BITS],
                                                     lo[:, p & (LANES - 1)])))
     del hi, lo, p
     out = torch.empty((n_steps + 1, n_paths), dtype=torch.float32, device=device)
     out[0] = S0
-    if brownian_bridge:
-        B = torch.from_numpy(_bridge_matrix(n_steps, T)).to(device)
+    if B is not None:
+        B = torch.as_tensor(B).to(device)
         W = torch.zeros((n_steps, n_paths), dtype=torch.float32, device=device)
         for s in range(n_steps):  # ascending s, as the kernel sums
             W = W + B[:, s:s + 1] * z[s]
@@ -220,17 +240,64 @@ def sobol_gbm_paths_reference(seed, S0, r, sigma, q, T, n_steps: int, n_paths: i
     return out
 
 
+def sobol_gbm_paths_reference(seed, S0, r, sigma, q, T, n_steps: int, n_paths: int,
+                              brownian_bridge: bool = False, device="cpu") -> torch.Tensor:
+    """Plain-torch version of the kernel: time-major ``(n_steps+1,
+    n_paths)`` f32 on ``device``."""
+    _check(n_steps, n_paths, brownian_bridge)
+    u_hi, u_lo = _direction_tables(int(seed), n_steps, n_paths)
+    S0, drift_dt, vol = _params(S0, r, sigma, q, T, n_steps, brownian_bridge)
+    B = _bridge_matrix(n_steps, T) if brownian_bridge else None
+    return paths_from_tables_reference(u_hi, u_lo, S0, drift_dt, vol, n_steps, n_paths, B,
+                                       device)
+
+
+def _cuda_device(device) -> torch.device:
+    """``device`` with its index (the caches and the stream handle need it)."""
+    return device if device.index is not None else torch.device(
+        "cuda", torch.cuda.current_device())
+
+
 @functools.lru_cache(maxsize=8)
-def _device_tables(seed: int, n_steps: int, n_paths: int, bridge: bool, T: float,
-                   device: torch.device):
+def _device_tables(seed: int, n_steps: int, n_paths: int, device: torch.device):
+    """The direction tables on the card, uploaded once per (seed, n_steps,
+    n_paths, device): a call with a cached seed copies nothing."""
     u_hi, u_lo = _direction_tables(seed, n_steps, n_paths)
-    hi = torch.from_numpy(u_hi.view(np.int32).copy()).to(device)
-    lo = torch.from_numpy(u_lo.view(np.int32).copy()).to(device)
-    if not bridge:
-        return hi, lo, None, None, 0
+    return (torch.from_numpy(u_hi.view(np.int32).copy()).to(device),
+            torch.from_numpy(u_lo.view(np.int32).copy()).to(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _device_schedule(n_steps: int, T: float, device: torch.device):
+    """The bridge schedule on the card, once per (n_steps, T, device)."""
     row_ptr, entries, n_slots = _bridge_schedule(n_steps, T)
-    return (hi, lo, torch.from_numpy(row_ptr.copy()).to(device),
+    return (torch.from_numpy(row_ptr.copy()).to(device),
             torch.from_numpy(entries.copy()).to(device), n_slots)
+
+
+@functools.lru_cache(maxsize=None)
+def _sobol_fn():
+    from . import _build
+
+    Vp, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.function("amcx_sobol_gbm_paths", [Vp, Vp, Vp, Vp, Vp, I, I, F, F, F, I, Vp])
+
+
+def _launch(hi, lo, schedule, out, n_steps: int, n_paths: int, S0: float, drift_dt: float,
+            vol: float) -> None:
+    """One kernel launch on given device tables (int32, contiguous) into
+    ``out``; ``schedule`` is ``(row_ptr, entries, n_slots)`` for the bridge
+    order or None for the increment order."""
+    from . import _build
+
+    row_ptr, entries, n_slots = schedule if schedule is not None else (None, None, 0)
+    stream = torch._C._cuda_getCurrentRawStream(out.device.index)  # current_stream's handle
+    rc = _sobol_fn()(hi.data_ptr(), lo.data_ptr(),
+                     None if row_ptr is None else row_ptr.data_ptr(),
+                     None if entries is None else entries.data_ptr(), out.data_ptr(), n_steps,
+                     n_paths, S0, drift_dt, vol, n_slots, stream)
+    sobol_gbm_paths.launches += 1
+    _build.check(rc, "amcx_sobol_gbm_paths")
 
 
 def sobol_gbm_paths(seed, S0, r, sigma, q, T, n_steps: int, n_paths: int,
@@ -245,7 +312,8 @@ def sobol_gbm_paths(seed, S0, r, sigma, q, T, n_steps: int, n_paths: int,
     :data:`BRIDGE_MAX_STEPS` steps). On a CUDA device this launches the
     kernel (``csrc/sobol_gbm.cu``) on the current stream, or raises; on the
     CPU it runs :func:`sobol_gbm_paths_reference`. The tables are built on
-    the host once per (seed, n_steps, n_paths) and cached.
+    the host once per (seed, n_steps, n_paths) and kept on the card per
+    device, the bridge schedule once per (n_steps, T).
     ``sobol_gbm_paths.launches`` counts the kernel launches.
     """
     device = torch.device(device)
@@ -255,20 +323,12 @@ def sobol_gbm_paths(seed, S0, r, sigma, q, T, n_steps: int, n_paths: int,
     if device.type != "cuda":
         raise ValueError(f"sobol_gbm_paths runs on 'cpu' or 'cuda', got {device}")
     _check(n_steps, n_paths, brownian_bridge)
-    from . import _build
-
-    hi, lo, row_ptr, entries, n_slots = _device_tables(int(seed), n_steps, n_paths,
-                                                       bool(brownian_bridge), float(T), device)
+    device = _cuda_device(device)
+    hi, lo = _device_tables(int(seed), n_steps, n_paths, device)
+    schedule = _device_schedule(n_steps, float(T), device) if brownian_bridge else None
     S0, drift_dt, vol = _params(S0, r, sigma, q, T, n_steps, brownian_bridge)
     out = torch.empty((n_steps + 1, n_paths), dtype=torch.float32, device=device)
-    Vp, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _build.function("amcx_sobol_gbm_paths", [Vp, Vp, Vp, Vp, Vp, I, I, F, F, F, I, Vp])
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(hi.data_ptr(), lo.data_ptr(), None if row_ptr is None else row_ptr.data_ptr(),
-            None if entries is None else entries.data_ptr(), out.data_ptr(), n_steps, n_paths,
-            S0, drift_dt, vol, n_slots, stream)
-    sobol_gbm_paths.launches += 1
-    _build.check(rc, "amcx_sobol_gbm_paths")
+    _launch(hi, lo, schedule, out, n_steps, n_paths, S0, drift_dt, vol)
     return out
 
 

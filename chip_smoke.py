@@ -62,7 +62,9 @@ card's memory rate and its arithmetic over the card's peak rates. For
 kernels 2, 4, 5, 8, 9, 7, 3, 6 and 10 (phases 4, 5, 8, 9, 11, 12, 14, 15)
 it also prints the device time and launches by kernel (``torch.profiler``)
 beside their design floors: the bytes they must move and their f32 -> f64
-conversions at 16 a clock a SM; for kernel 5 also the wrapper's host time a
+conversions at 16 a clock a SM; for kernels 1 and 11 (phases 2 and 17) the
+device time beside their issue floor, SASS instructions a path-step (as
+this run built them, by cuobjdump) at 4 a clock a SM; for kernel 5 also the wrapper's host time a
 call (phase 5), and for the fused put route the host time of a step by part
 (phase 7). Kernels 2 and 7 are held to their plain versions bit for bit
 (phases 3, 6 and 9).
@@ -115,6 +117,21 @@ F64_OPS_PER_S = 34e12
 # arithmetic throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz
 # boost clock; kernels 3 and 8 convert every f32 product before its f64 add
 F64_CONVERSIONS_PER_S = 16 * 132 * 1.98e9
+# instruction issue: 4 warp instructions a clock a SM (32 threads each) x
+# 132 SMs x the 1.98 GHz boost clock (the SM clock nvidia-smi reads under
+# load). The pathgen kernels' design floor is their SASS instructions a
+# path-step at that rate. This run counts them in the libraries it built
+# (cuobjdump beside nvcc, amcx_torch/pathgen_probe.py issue_model: kernel
+# 1's step quad; kernel 11's increment chunk with its compaction and dense
+# tail-form loops, its bridge row with a born and an other entry) and
+# weighs the loops that depend on the data by this run's data (phases 2
+# and 17)
+THREAD_INSTR_PER_S = 4 * 32 * 132 * 1.98e9
+# paths a thread and steps a pass of the pathgen kernels' loops
+# (csrc/gbm.cu kGbmPaths and its quad; csrc/sobol_gbm.cu kIncPaths,
+# kIncSteps and kBridgePaths)
+GBM_QUAD_PATH_STEPS = 4 * 4
+INC_CHUNK_STEPS, INC_PATHS, BRIDGE_PATHS = 4, 4, 4
 
 
 def _bound(n_bytes, f32_ops=0.0, f64_ops=0.0):
@@ -123,6 +140,41 @@ def _bound(n_bytes, f32_ops=0.0, f64_ops=0.0):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = (f32_ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _sass_model(build_paths):
+    """The pathgen kernels' loop counts in the SASS of the libraries this run
+    built (``pathgen_probe.issue_model``), or ``{}`` where the toolkit has
+    no cuobjdump."""
+    from pathlib import Path
+
+    from amcx_torch.ops import _build
+    from amcx_torch.pathgen_probe import issue_model
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    model = {}
+    for path in build_paths if cuobjdump.is_file() else ():
+        if Path(path).name.startswith(("libgbm_", "libsobol_gbm_")):
+            proc = subprocess.run([str(cuobjdump), "-sass", path], capture_output=True,
+                                  text=True, timeout=300)
+            if proc.returncode == 0:
+                model.update(issue_model(proc.stdout))
+    return model
+
+
+def _issue_floor_ms(per_path_step, path_steps):
+    """A pathgen kernel's design floor (ms): its SASS instructions over the
+    card's issue rate (None where they were not counted)."""
+    if per_path_step is None:
+        return None
+    return per_path_step * path_steps / THREAD_INSTR_PER_S * 1e3
+
+
+def _floor_text(floor_ms, per_path_step):
+    if floor_ms is None:
+        return "not measured (no SASS count: no cuobjdump, or loops not found)"
+    return (f"{floor_ms:.4f} ms ({per_path_step:.2f} SASS instructions a path-step, "
+            f"counted in this run's build)")
 
 
 def _require(cond, what):
@@ -196,6 +248,29 @@ def _profile(torch, fn, reps):
             "idle_share": 1.0 - busy / (spans[-1][1] - spans[0][0]),
             "top_us_per_call": {name[:60]: us / reps for name, us in top},
             "launches_per_call": {name[:60]: count[name] / reps for name, _ in top}}
+
+
+def _kernel_us(torch, fn, reps, name):
+    """Device µs a launch of the kernel whose name holds ``name`` over
+    ``reps`` calls of ``fn`` under torch.profiler, and the launches a call
+    the profiler recorded; None when it recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return (sum(spans) / len(spans), len(spans) / reps) if spans else None
+
+
+def _launch_text(prof):
+    if prof is None:
+        return "no device activity recorded"
+    return f"{prof[0]:.1f} us a launch, {prof[1]:.1f} launches a call (profiler)"
 
 
 def _swing_phases(torch, dev, amcx_torch):
@@ -358,7 +433,7 @@ def _swing_phases(torch, dev, amcx_torch):
                 bound=bound)
 
 
-def _qmc_phases(torch, dev, amcx_torch):
+def _qmc_phases(torch, dev, amcx_torch, sass):
     """Phases 17-18: kernel 11 (``sobol_gbm``) against its plain version and
     scipy's point set, then the QMC route into kernel 2 on the flagship put.
     Returns the kernel's row numbers and bound in each order."""
@@ -367,12 +442,12 @@ def _qmc_phases(torch, dev, amcx_torch):
 
     from amcx_torch.ops.lsmc_megakernel import lsmc_price_megakernel
     from amcx_torch.ops.sobol_pallas import (BRIDGE_MAX_STEPS, _bits_to_uniform,
-                                             _bridge_schedule, _direction_tables,
+                                             _bridge_schedule, _direction_tables, _in_tail,
                                              sobol_gbm_paths, sobol_gbm_paths_reference)
 
     seed = 2026
     args = (seed, S0, R, SIGMA, 0.0, T, N_STEPS, N_PATHS)
-    err, ms, plain_ms = {}, {}, {}
+    err, ms, plain_ms, device_us = {}, {}, {}, {}
     # the main path's shape in both orders, then the bridge order at 20 steps
     # and at its cap (131,072 paths: the plain version's dense product)
     for mode, bridge, n_steps, n_paths in (("increment", False, N_STEPS, N_PATHS),
@@ -425,7 +500,12 @@ def _qmc_phases(torch, dev, amcx_torch):
                 *args, brownian_bridge=b, device=dev), 20, 3)
             plain_ms[mode] = _time_ms(torch, lambda b=bridge: sobol_gbm_paths_reference(
                 *args, brownian_bridge=b, device=dev), 3, 1)
-            timing = f" | {ms[mode]:.3f} ms, plain {plain_ms[mode]:.3f} ms"
+            prof = _kernel_us(torch, lambda b=bridge: sobol_gbm_paths(
+                *args, brownian_bridge=b, device=dev), 10,
+                "sobol_bridge_kernel" if bridge else "sobol_increment_kernel")
+            device_us[mode] = prof and prof[0]
+            timing = (f" | {ms[mode]:.3f} ms, plain {plain_ms[mode]:.3f} ms | device "
+                      f"{_launch_text(prof)}")
         print(f"phase 17 Sobol kernel {case}: kernel vs plain max|dS| {d:.3e} | equal to plain "
               f"{same} | bit-identical rerun {rerun} | launches {n_launch}{timing}", flush=True)
         del ker, again, ref
@@ -489,12 +569,46 @@ def _qmc_phases(torch, dev, amcx_torch):
                                  f32_ops=62 * N_STEPS * N_PATHS),
              "bridge": _bound((N_STEPS + 1) * N_PATHS * 4 + table_bytes + nnz * 8
                               + (N_STEPS + 1) * 4, f32_ops=(62 * N_STEPS + 2 * nnz) * N_PATHS)}
+    per, weights = {"increment": None, "bridge": None}, ""
+    inc, br = sass.get("sobol_gbm"), sass.get("sobol_gbm_bridge")
+    if inc is not None and N_STEPS % INC_CHUNK_STEPS == 0:
+        # this run's tail points (seed, N_STEPS x N_PATHS), per thread and
+        # chunk: thread `lane` of warp w of block b runs the paths b*512 +
+        # 128 w + 4 lane + k. A warp passes through the compaction loop as
+        # often as its busiest lane has tail points, and through the dense
+        # loop floor(ceil(tail points / 32) / tail_points) times
+        n_blocks = N_PATHS // 512
+        u_hi, u_lo = (torch.from_numpy(t.view(np.int32).copy()).to(dev)
+                      for t in _direction_tables(seed, N_STEPS, N_PATHS))
+        tail = _in_tail(_bits_to_uniform(torch.bitwise_xor(
+            u_hi.repeat_interleave(512, dim=1), u_lo.repeat(1, n_blocks))))
+        per_thread = tail.view(N_STEPS // INC_CHUNK_STEPS, INC_CHUNK_STEPS, n_blocks, 4, 32,
+                               INC_PATHS).sum(dim=(1, 5))
+        passes = float(per_thread.amax(dim=-1).double().mean())
+        rounds = float((((per_thread.sum(dim=-1) + 31) // 32) // inc["tail_points"])
+                       .double().mean())
+        per["increment"] = (inc["chunk"] + inc["compaction"] * passes + inc["tail"] * rounds) / (
+            INC_CHUNK_STEPS * INC_PATHS)
+        weights += (f"increment: tail points {float(tail.double().mean()):.5f} of all, "
+                    f"compaction passes {passes:.4f} and dense passes {rounds:.5f} a warp-chunk")
+        del u_hi, u_lo, tail, per_thread
+    if br is not None:
+        # each row's loop once, its born entries (one a Sobol dimension) and
+        # the other nonzeros of B, for the 4 paths of a thread
+        n_born = int((entries[:, 0] < 0).sum())
+        per["bridge"] = (br["row"] * N_STEPS + br["born"] * n_born
+                         + br["other"] * (nnz - n_born)) / (N_STEPS * BRIDGE_PATHS)
+        weights += f"; bridge: {n_born} born of {nnz} entries"
+    floor = {mode: _issue_floor_ms(per[mode], N_STEPS * N_PATHS) for mode in bound}
     print(f"phase 17 bounds: increment {bound['increment'][0]:.4f} ms "
           f"({bound['increment'][1]}), bridge {bound['bridge'][0]:.4f} ms "
-          f"({bound['bridge'][1]}; nnz(B) {nnz} of {N_STEPS ** 2}) | kernel ms {ms} plain ms "
-          f"{plain_ms}", flush=True)
+          f"({bound['bridge'][1]}; nnz(B) {nnz} of {N_STEPS ** 2}) | design floors (issue) "
+          f"increment {_floor_text(floor['increment'], per['increment'])}, bridge "
+          f"{_floor_text(floor['bridge'], per['bridge'])} | this run's data ({weights}) | "
+          f"kernel ms {ms} device us {device_us} plain ms {plain_ms}", flush=True)
     return {mode: dict(launches=launches[mode == "bridge"]["sobol_gbm"], max_abs_err=err[mode],
-                       ms=ms[mode], plain_ms=plain_ms[mode], bound=bound[mode])
+                       ms=ms[mode], plain_ms=plain_ms[mode], bound=bound[mode],
+                       device_us=device_us[mode], design_floor_ms=floor[mode])
             for mode in ("increment", "bridge")}
 
 
@@ -544,12 +658,13 @@ def main():
     t0 = time.perf_counter()
     _build.libraries()
     build_s = time.perf_counter() - t0
+    sass = _sass_model(_build.build_info["paths"])
     print(f"phase 1 env: python {sys.version.split()[0]} torch {torch.__version__} "
           f"scipy {scipy.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} | {smi} | "
           f"kernels built in "
-          f"{build_s:.1f} s ({'compiled' if _build.build_info['built'] else 'cached'})",
-          flush=True)
+          f"{build_s:.1f} s ({'compiled' if _build.build_info['built'] else 'cached'}) | "
+          f"pathgen SASS loop counts {sass}", flush=True)
 
     market = amcx_torch.MarketParams(S0, R, SIGMA)
     dt = T / N_STEPS
@@ -585,6 +700,18 @@ def main():
           f"max rel {gbm_rel:.3e} | E[e^-rT S_T] {m_T:.5f} "
           f"(se {se_T:.5f}), inc mean {inc_mean:.4e} (want {drift_dt:.4e}, se {se_mean:.2e}), "
           f"inc var {inc_var:.6e} (want {vol_sdt ** 2:.6e}, se {se_var:.2e})", flush=True)
+    prof1 = _kernel_us(torch, lambda: gbm_paths(SEED, S0, R, SIGMA, 0.0, T, N_STEPS, N_PATHS,
+                                                device=dev), 10, "gbm_paths_kernel")
+    device1_us = prof1 and prof1[0]
+    # writes the (T+1, n) paths; ~6 f32 operations per path-step (Box-
+    # Muller's share, the log-increment multiply-add, the exp)
+    bound1 = _bound((N_STEPS + 1) * N_PATHS * 4, f32_ops=6 * N_STEPS * N_PATHS)
+    # the step-quad loop runs N_STEPS / 4 times for each 4 paths
+    per1 = sass["gbm_paths"]["quad"] / GBM_QUAD_PATH_STEPS if (
+        "gbm_paths" in sass and N_STEPS % 4 == 0) else None
+    floor1_ms = _issue_floor_ms(per1, N_STEPS * N_PATHS)
+    print(f"phase 2 kernel 1 device time {_launch_text(prof1)} | bound {bound1[0]:.4f} ms "
+          f"({bound1[1]}) | design floor (issue) {_floor_text(floor1_ms, per1)}", flush=True)
 
     # ---- phase 3: kernel 2 (LSMC induction) vs its plain version, on the --
     # ---- main path's (n_steps+1, n_paths) paths ------------------------------
@@ -1429,7 +1556,7 @@ def main():
           f"{floor6_ms:.4f} ms", flush=True)
 
     sw = _swing_phases(torch, dev, amcx_torch)
-    qmc = _qmc_phases(torch, dev, amcx_torch)
+    qmc = _qmc_phases(torch, dev, amcx_torch, sass)
 
     # ---- bounds: bytes each kernel must move and its arithmetic ----------
     P4, k4 = 20, 5  # step kernels and mega induction: Chebyshev degree 4
@@ -1449,9 +1576,7 @@ def main():
         "lsmc_fusedpath": _bound(4 * (N_STEPS + 1) * 4 + 2 * 4,
                                  f32_ops=N_STEPS * N_PATHS * fp_f32,
                                  f64_ops=N_STEPS * N_PATHS * P4),
-        # writes the (T+1, n) paths; ~6 f32 operations per path-step (Box-
-        # Muller's share, the log-increment multiply-add, the exp)
-        "gbm_paths": _bound((N_STEPS + 1) * row, f32_ops=6 * N_STEPS * N_PATHS),
+        "gbm_paths": bound1,
         # reads the paths once; per path-step the P pair products (f32) and
         # their f64 sums, and the 2k-1 operations of the fitted continuation
         "lsmc_mega": _bound((N_STEPS + 1) * row + 4 * (N_STEPS + 1) * 4,
@@ -1488,7 +1613,8 @@ def main():
                                        bound_by=bounds[k["name"]][1]) for k in [
         {"name": "gbm_paths", "route": "cuda", "source": "amcx_torch/csrc/gbm.cu",
          "replaces": "amcx/ops/gbm_pallas.py:115", "launches": launches["gbm_paths"],
-         "max_abs_err": gbm_err, "ms": ms_gbm, "plain_ms": ms_gbm_plain, "library_ms": None},
+         "max_abs_err": gbm_err, "ms": ms_gbm, "plain_ms": ms_gbm_plain, "library_ms": None,
+         "device_us": device1_us, "design_floor_ms": floor1_ms},
         {"name": "lsmc_mega", "route": "cuda", "source": "amcx_torch/csrc/lsmc_mega.cu",
          "replaces": "amcx/ops/lsmc_megakernel.py:282", "launches": launches["lsmc_mega"],
          "max_abs_err": mega_err, "ms": ms_mega, "plain_ms": ms_mega_plain, "library_ms": None},
@@ -1532,7 +1658,8 @@ def main():
         *({"name": name, "route": "cuda", "source": "amcx_torch/csrc/sobol_gbm.cu",
            "replaces": "amcx/ops/sobol_pallas.py:92", "launches": row["launches"],
            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
-           "library_ms": None}
+           "library_ms": None, "device_us": row["device_us"],
+           "design_floor_ms": row["design_floor_ms"]}
           for name, row in (("sobol_gbm", qmc["increment"]),
                             ("sobol_gbm_bridge", qmc["bridge"]))),
     ]]}))

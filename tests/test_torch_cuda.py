@@ -7,8 +7,10 @@ a card and without jax it runs on its own:
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest -p no:cacheprovider
 """
 
+import hashlib
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -47,6 +49,69 @@ def test_pathgen_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert tgbm.gbm_paths.launches == before + 1
     torch.testing.assert_close(k, p, rtol=1e-5, atol=0)
+
+
+# sha256 of kernel 1's path array at seed 20261016, 65,536 x 100 (S0 = 100,
+# r = 1%, sigma = 20%, T = 1), written by the one-path-a-thread kernel that
+# the redesign replaced, on an NVIDIA H100 80GB HBM3: the redesign keeps its
+# bits
+PATHGEN_SHA256_65536x100 = "5c85fb24ec8457c2038ec1df78c029e1a67c42d0833a5b20e6ae6140591a3675"
+
+
+def test_pathgen_kernel_keeps_its_bits(cuda_device):
+    paths = tgbm.gbm_paths(20261016, S0, R, SIGMA, 0.0, 1.0, 100, 65_536, device=cuda_device)
+    again = tgbm.gbm_paths(20261016, S0, R, SIGMA, 0.0, 1.0, 100, 65_536, device=cuda_device)
+    torch.cuda.synchronize()
+    assert torch.equal(paths, again)
+    digest = hashlib.sha256(paths.cpu().numpy().tobytes()).hexdigest()
+    assert digest == PATHGEN_SHA256_65536x100
+
+
+# odd shapes: 1, 3 and 5 paths (the scalar instance, a masked last group),
+# 65,537 paths (one path past a group), a tail quad of 1 or 3 steps and 1,000
+# steps; the rtol of test_pathgen_kernel_matches_plain (the plain version's
+# cumsum order), measured within it at 1,000 steps
+@pytest.mark.parametrize("n_paths", [1, 3, 5, 65_537])
+@pytest.mark.parametrize("n_steps", [1, 3, 5, 1000])
+def test_pathgen_kernel_odd_shapes_match_plain(cuda_device, n_paths, n_steps):
+    k = tgbm.gbm_paths(12, S0, R, SIGMA, 0.0, 1.0, n_steps, n_paths, device=cuda_device)
+    p = tgbm.gbm_paths_reference(12, S0, R, SIGMA, 0.0, 1.0, n_steps, n_paths,
+                                 device=cuda_device)
+    torch.cuda.synchronize()
+    assert k.shape == (n_steps + 1, n_paths)
+    torch.testing.assert_close(k, p, rtol=1e-5, atol=0)
+
+
+def test_pathgen_entry_refuses_a_plan_that_misses_or_overruns(cuda_device):
+    # the C entry takes the launch plan's fields: a group too many or too
+    # few, the 16-byte instance on unaligned rows, a tail of 4 steps or
+    # another block size is refused (cudaErrorInvalidValue) before any
+    # launch; one block, each thread striding over the groups, writes the
+    # plan's bits
+    n_paths, n_steps = 4097, 5
+    plan = tgbm._gbm_plan(n_paths, n_steps)
+    out = torch.empty((n_steps + 1, n_paths), dtype=torch.float32, device=cuda_device)
+    S0_, drift_dt, vol_sdt = tgbm._increments(100.0, 0.01, 0.2, 0.0, 1.0, n_steps)
+
+    def call(p):
+        return tgbm._gbm_fn()(out.data_ptr(), 7, 0, n_paths, p.n_groups, p.full_quads, p.tail,
+                              int(p.scalar), p.threads, p.grid, S0_, drift_dt, vol_sdt, None)
+
+    for bad in (plan._replace(n_groups=plan.n_groups + 1),
+                plan._replace(n_groups=plan.n_groups - 1), plan._replace(scalar=False),
+                plan._replace(tail=4), plan._replace(threads=128)):
+        assert call(bad) == 1, bad
+    assert call(plan) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, tgbm.gbm_paths_reference(7, 100.0, 0.01, 0.2, 0.0, 1.0,
+                                                             n_steps, n_paths,
+                                                             device=cuda_device),
+                               rtol=1e-5, atol=0)
+    first = out.clone()
+    out.fill_(float("nan"))
+    assert call(plan._replace(grid=1)) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
 
 
 @pytest.mark.parametrize("itm,american", [(True, True), (False, True), (True, False)])
@@ -1114,3 +1179,79 @@ def test_sobol_kernel_matches_plain(cuda_device, bridge):
     assert tsp.sobol_gbm_paths.launches == before + 1
     assert ker.shape == (101, 262_144) and bool(torch.isfinite(ker).all())
     assert torch.equal(ker, ref)
+
+
+# kernel 11's increment order (the tail form only where selected) at step
+# counts that fill no chunk of 4 steps, some chunks and a partial one, and
+# many
+@pytest.mark.parametrize("n_steps", [1, 7, 20, 225, 1000])
+def test_sobol_increment_kernel_step_counts_match_plain(cuda_device, n_steps):
+    args = (10, 100.0, 0.01, 0.2, 0.0, 1.0, n_steps, 65_536)
+    ker = tsp.sobol_gbm_paths(*args, device=cuda_device)
+    again = tsp.sobol_gbm_paths(*args, device=cuda_device)
+    ref = tsp.sobol_gbm_paths_reference(*args, device=cuda_device)
+    torch.cuda.synchronize()
+    assert ker.shape == (n_steps + 1, 65_536) and bool(torch.isfinite(ker).all())
+    assert torch.equal(ker, ref) and torch.equal(ker, again)
+
+
+def test_sobol_increment_kernel_every_mantissa(cuda_device):
+    # tables whose points cover all 2^23 mantissas the uniform reads
+    # (u = g << 16 | i << 7 over 16,384 columns g and 512 lanes i), one
+    # step, 2^23 paths: every tail point and every central point the kernel
+    # can meet, against the plain version on the same tables
+    n = 1 << 23
+    u_hi = torch.from_numpy((np.arange(n // 512, dtype=np.uint32) << 16)[None].view(np.int32))
+    u_lo = torch.from_numpy((np.arange(512, dtype=np.uint32) << 7)[None].view(np.int32))
+    S0_, drift, vol = 100.0, -1e-4, 0.02
+    hi, lo = u_hi.to(cuda_device), u_lo.to(cuda_device)
+    ker = torch.empty((2, n), dtype=torch.float32, device=cuda_device)
+    before = tsp.sobol_gbm_paths.launches
+    tsp._launch(hi, lo, None, ker, 1, n, S0_, drift, vol)
+    ref = tsp.paths_from_tables_reference(u_hi, u_lo, S0_, drift, vol, 1, n, device=cuda_device)
+    torch.cuda.synchronize()
+    assert tsp.sobol_gbm_paths.launches == before + 1
+    assert torch.equal(ker, ref)
+
+
+@pytest.mark.parametrize("offset", ["out", "u_lo"])
+def test_sobol_increment_kernel_refuses_unaligned_bases(cuda_device, offset):
+    # the increment order reads u_lo and writes out in 16-byte accesses: a
+    # base one float past an aligned one is refused before any launch, and
+    # the next call on aligned tensors still runs and agrees with the plain
+    # version (no fault was left on the context)
+    n_steps, n_paths = 4, 1024
+    hi, lo = tsp._device_tables(5, n_steps, n_paths, cuda_device)
+    out = torch.empty((n_steps + 1, n_paths), dtype=torch.float32, device=cuda_device)
+    bad_out = torch.empty(out.numel() + 1, dtype=torch.float32, device=cuda_device)[1:]
+    bad_lo = torch.empty(lo.numel() + 1, dtype=torch.int32, device=cuda_device)[1:]
+    bad_lo.copy_(lo.flatten())
+    args = (hi, bad_lo.view_as(lo), None, out) if offset == "u_lo" else \
+        (hi, lo, None, bad_out.view_as(out))
+    before = tsp.sobol_gbm_paths.launches
+    with pytest.raises(RuntimeError, match="amcx_sobol_gbm_paths: CUDA error"):
+        tsp._launch(*args, n_steps, n_paths, 100.0, -1e-4, 0.02)
+    tsp._launch(hi, lo, None, out, n_steps, n_paths, 100.0, -1e-4, 0.02)
+    ref = tsp.paths_from_tables_reference(hi, lo, 100.0, -1e-4, 0.02, n_steps, n_paths,
+                                          device=cuda_device)
+    torch.cuda.synchronize()
+    assert tsp.sobol_gbm_paths.launches == before + 2
+    assert torch.equal(out, ref)
+
+
+def test_sobol_kernel_cached_seed_copies_nothing(cuda_device):
+    # a second call with the same seed finds its tables (and, in bridge
+    # order, its schedule) on the card: no host-to-device copy
+    from torch.profiler import ProfilerActivity, profile
+
+    args = (31, 100.0, 0.01, 0.2, 0.0, 1.0, 20, 65_536)
+    for bridge in (False, True):
+        first = tsp.sobol_gbm_paths(*args, brownian_bridge=bridge, device=cuda_device)
+        torch.cuda.synchronize()
+        hits = tsp._device_tables.cache_info().hits
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            second = tsp.sobol_gbm_paths(*args, brownian_bridge=bridge, device=cuda_device)
+            torch.cuda.synchronize()
+        assert tsp._device_tables.cache_info().hits == hits + 1
+        assert not [e.name for e in prof.events() if "HtoD" in e.name]
+        assert torch.equal(first, second)

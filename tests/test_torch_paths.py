@@ -128,6 +128,34 @@ def test_cpu_pathgen_never_launches_the_kernel():
     assert gbm.gbm_paths.launches == before
 
 
+@pytest.mark.parametrize("n_paths", [1, 3, 4, 5, 511, 4097])
+@pytest.mark.parametrize("n_steps", [1, 3, 4, 5, 100])
+def test_gbm_launch_plan_covers_every_path_step_once(n_paths, n_steps):
+    # the kernel's walk (csrc/gbm.cu) over the plan, whose every field is an
+    # argument of the C entry: thread t of grid x threads runs the groups g =
+    # t, t + grid x threads, ... below n_groups (each group the GBM_PATHS
+    # consecutive paths from GBM_PATHS g) and writes row 0, then full_quads
+    # quads of 4 rows, then the tail rows
+    plan = gbm._gbm_plan(n_paths, n_steps)
+    assert plan.scalar == (n_paths % gbm.GBM_PATHS != 0)
+    assert plan.threads == 256 and 0 <= plan.tail < 4
+    stride = plan.grid * plan.threads
+    visits = np.zeros(n_paths + gbm.GBM_PATHS, dtype=np.int64)
+    for t in range(stride):
+        for g in range(t, plan.n_groups, stride):
+            visits[gbm.GBM_PATHS * g:gbm.GBM_PATHS * (g + 1)] += 1
+    rows = [0] + [4 * j + i + 1 for j in range(plan.full_quads) for i in range(4)] + \
+        [4 * plan.full_quads + i + 1 for i in range(plan.tail)]
+    assert sorted(rows) == list(range(n_steps + 1))
+    # paths past n_paths in the last group are masked by the kernel, and no
+    # group starts past them
+    assert (visits[:n_paths] == 1).all()
+    assert gbm.GBM_PATHS * (plan.n_groups - 1) < n_paths
+    # a thread a group: each thread runs one pass, and a block fewer would
+    # make some run two
+    assert (plan.grid - 1) * plan.threads < plan.n_groups <= stride
+
+
 def test_simulate_gbm_is_differentiable_in_market_inputs():
     # tensor market inputs keep their autograd graph through the torch
     # simulator. S_T is linear in S0, so d mean(S_T)/dS0 = mean(S_T/S0) up

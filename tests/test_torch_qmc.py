@@ -66,6 +66,65 @@ def test_direction_tables_match_amcx():
         assert np.array_equal(j_lo, t_lo)
 
 
+def _mask_pass_tables(seed, n_steps, n_paths):
+    # the tables as the port first built them: one boolean-mask XOR pass
+    # over the columns per index bit
+    from scipy.stats import qmc
+
+    eng = qmc.Sobol(d=n_steps, scramble=True, seed=seed)
+    sv = np.asarray(eng._sv, dtype=np.uint32)
+    bits = int(eng.bits)
+
+    def xor_table(indices):
+        acc = np.zeros((n_steps, indices.size), dtype=np.uint32)
+        for j in range(bits):
+            mask = ((indices >> j) & 1).astype(bool)
+            acc[:, mask] ^= sv[:, j:j + 1]
+        return acc
+
+    u_lo = xor_table(np.arange(512, dtype=np.uint64))
+    u_hi = xor_table(np.arange(n_paths // 512, dtype=np.uint64) << 9)
+    u_hi ^= np.asarray(eng._shift, dtype=np.uint32)[:, None]
+    return u_hi << (30 - bits), u_lo << (30 - bits)
+
+
+# powers of two and not (3 and 5 columns of u_hi), one step to a thousand
+@pytest.mark.parametrize("seed,n_steps,n_paths", [(7, 8, 1024), (3, 100, 1 << 20),
+                                                  (11, 1, 512), (5, 33, 1536),
+                                                  (2026, 1000, 2560)])
+def test_direction_tables_by_doubling_equal_mask_passes(seed, n_steps, n_paths):
+    want_hi, want_lo = _mask_pass_tables(seed, n_steps, n_paths)
+    got_hi, got_lo = tsp._direction_tables.__wrapped__(seed, n_steps, n_paths)
+    assert np.array_equal(got_hi, want_hi) and np.array_equal(got_lo, want_lo)
+
+
+def _norm_ppf_split(p):
+    # norm_ppf as the increment kernel evaluates it: the central form
+    # everywhere, the tail form only on the compacted points that select it.
+    # The compacted list is padded to a multiple of 64 points, so that
+    # torch's CPU log takes its vectorised loop on every point, as it does
+    # on the full tensor
+    out = tsp._ppf_central(p)
+    tail = tsp._in_tail(p)
+    pts = p[tail]
+    pad = -pts.numel() % 64
+    pts = torch.cat([pts, torch.full((pad,), 0.5, dtype=p.dtype)])
+    out[tail] = tsp._ppf_tail(pts)[:pts.numel() - pad]
+    return out
+
+
+def test_norm_ppf_split_equals_branchless_on_every_uniform():
+    # the increment kernel evaluates the central form everywhere and the
+    # tail form only on the compacted points that select it: on each of the
+    # 2^23 uniforms that _bits_to_uniform can produce (every mantissa) the
+    # split gives norm_ppf's bits
+    p = tsp._bits_to_uniform(torch.arange(1 << 23, dtype=torch.int32) << 7)
+    assert float(p.min()) == 2.0 ** -24 and float(p.max()) == 1 - 2.0 ** -24
+    split = _norm_ppf_split(p)
+    assert torch.equal(split.view(torch.int32), tsp.norm_ppf(p).view(torch.int32))
+    assert int(tsp._in_tail(p).sum()) == 406_848  # 4.85% of the points
+
+
 def test_point_set_matches_scipy():
     # natural-order point i of the tables is scipy's Gray-code point k with
     # i = k ^ (k >> 1): exactly the same 30-bit integers, and the f32
