@@ -1,0 +1,4 @@
+"""The benchmark of the PyTorch/CUDA port ``amcx_torch`` on one H100.
+
+``python3 -m perfbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>``
+runs one cell of ``BENCHMARK.json`` once and prints one JSON line."""
