@@ -29,6 +29,7 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
+from . import tracing
 from .exposures import _profile, step_exposures
 from .payoff import barrier_gate, exercise_allow_row, payoff_fn_for
 from .regress import fit_continuation_with_coeffs, reject_axis_name
@@ -207,16 +208,17 @@ def lsmc_option_pricing(
     dt = product.T / n_steps
     spec = resolve_regression_spec(spec, product,
                                    for_surface=return_surface or surface_stats)
-    knocked = barrier_gate(paths_tm, product.barrier, product.barrier_type)
-    return backward_induction(
-        paths_tm, knocked, r, dt, payoff_fn_for(product), spec,
-        american=product.is_american,
-        return_surface=return_surface,
-        return_coeffs=return_coeffs,
-        exercise_steps=exercise_steps,
-        antithetic=antithetic,
-        surface_stats=surface_stats,
-    )
+    with tracing.span("induction"):
+        knocked = barrier_gate(paths_tm, product.barrier, product.barrier_type)
+        return backward_induction(
+            paths_tm, knocked, r, dt, payoff_fn_for(product), spec,
+            american=product.is_american,
+            return_surface=return_surface,
+            return_coeffs=return_coeffs,
+            exercise_steps=exercise_steps,
+            antithetic=antithetic,
+            surface_stats=surface_stats,
+        )
 
 
 def q0_call_advisory(market: MarketParams, product: ProductSpec,
@@ -262,12 +264,19 @@ def price_option(
     ``return_cf_tau`` fills ``cashflows``/``exercise_times`` for "mega" and
     "fusedpath" ("xla" and "fused" always return them).
     """
+    with tracing.span("entry", engine=engine, n_paths=sim.n_paths, n_steps=sim.n_steps):
+        return _price_option(seed, market, product, spec, sim, return_surface, engine,
+                             exercise_steps, return_cf_tau, return_coeffs, device)
+
+
+def _price_option(seed, market, product, spec, sim, return_surface, engine, exercise_steps,
+                  return_cf_tau, return_coeffs, device) -> LSMCResult:
     from .paths import gbm_standardization, simulate_gbm
 
     spec = resolve_regression_spec(spec, product, q=market.q, for_surface=return_surface)
     advisory = q0_call_advisory(market, product, spec)
     if advisory is not None:
-        warnings.warn(advisory, stacklevel=2)
+        warnings.warn(advisory, stacklevel=3)  # the caller of price_option
     if exercise_steps is not None:
         exercise_steps = tuple(int(i) for i in exercise_steps)
     if engine == "fused":
@@ -307,7 +316,8 @@ def price_option(
             raise ValueError(
                 "engine='mega' is price-only for dense surfaces; use 'fused' or 'xla'")
         n_steps = sim.n_steps
-        mean_t, inv_std_t = gbm_standardization(market, product.T, n_steps, device=device)
+        with tracing.span("entry.frame"):
+            mean_t, inv_std_t = gbm_standardization(market, product.T, n_steps, device=device)
         paths = simulate_gbm(seed, market, product.T, sim, device)
         out = lsmc_price_megakernel(
             paths, product.K, market.r, product.T / n_steps,

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from . import tracing
 from .engine import LSMCResult, resolve_regression_spec
 from .ops.lsmc_pallas import (
     step_apply_launcher,
@@ -192,9 +193,10 @@ def lsmc_option_pricing_fused(
     reject_axis_name(axis_name, "lsmc_option_pricing_fused")
     n_steps = paths_tm.shape[0] - 1
     spec = resolve_regression_spec(spec, product, for_surface=return_surface)
-    return backward_induction_fused(
-        paths_tm, r, product.T / n_steps, product.K,
-        1.0 if product.option_type == "call" else -1.0, spec,
-        barrier=product.barrier, barrier_type=product.barrier_type,
-        american=product.is_american, return_surface=return_surface,
-        exercise_steps=exercise_steps, antithetic=antithetic)
+    with tracing.span("induction"):
+        return backward_induction_fused(
+            paths_tm, r, product.T / n_steps, product.K,
+            1.0 if product.option_type == "call" else -1.0, spec,
+            barrier=product.barrier, barrier_type=product.barrier_type,
+            american=product.is_american, return_surface=return_surface,
+            exercise_steps=exercise_steps, antithetic=antithetic)

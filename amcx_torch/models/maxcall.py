@@ -32,6 +32,7 @@ from typing import Union
 
 import torch
 
+from .. import tracing
 from ..basis import multi_asset_design_matrix, n_multi_terms
 from ..engine import LSMCResult, backward_induction
 from ..ops.lsmc_pallas import unpack_moments
@@ -96,14 +97,15 @@ def max_call_fit_values(X, y, spec: RegressionSpec, weights=None, axis_name=None
 def _xla_pricing(seed, S0, r, q, sigma, corr, K, T, spec, sim, basis_mode, return_surface,
                  return_coeffs, device):
     paths = simulate_gbm_multi(seed, S0, r, sigma, T, sim, q=q, corr=corr, device=device)
-    knocked = torch.ones(paths.shape[:2], dtype=torch.bool, device=paths.device)
-    res = backward_induction(
-        paths, knocked, r, T / sim.n_steps, lambda S: max_call_payoff(S, K), spec,
-        american=True, return_surface=return_surface,
-        fit_fn=partial(max_call_fit, mode=basis_mode), fit_fn_returns_coeffs=True,
-        return_coeffs=return_coeffs,
-        # Bermudan convention: the first exercise date is T/n, not inception
-        exercise_from_step=1)
+    with tracing.span("induction"):
+        knocked = torch.ones(paths.shape[:2], dtype=torch.bool, device=paths.device)
+        res = backward_induction(
+            paths, knocked, r, T / sim.n_steps, lambda S: max_call_payoff(S, K), spec,
+            american=True, return_surface=return_surface,
+            fit_fn=partial(max_call_fit, mode=basis_mode), fit_fn_returns_coeffs=True,
+            return_coeffs=return_coeffs,
+            # Bermudan convention: the first exercise date is T/n, not inception
+            exercise_from_step=1)
     return res, paths
 
 
@@ -157,8 +159,9 @@ def backward_induction_fused_maxcall(
     Returns ``LSMCResult(price, stderr, cashflows, exercise_times, None)``.
     On a CPU tensor the kernels' plain versions run.
     """
-    return _fused_maxcall(ma_step_moments, ma_step_apply_launcher, paths_tm, K, r, dt, spec,
-                          basis_mode, exercise_from_step, payoff_kind, phi, weights)
+    with tracing.span("induction"):
+        return _fused_maxcall(ma_step_moments, ma_step_apply_launcher, paths_tm, K, r, dt, spec,
+                              basis_mode, exercise_from_step, payoff_kind, phi, weights)
 
 
 def backward_induction_fused_maxcall_reference(paths_tm: torch.Tensor, *args,
@@ -200,37 +203,38 @@ def price_max_call(
     an integer or a ``torch.Generator`` on ``device``. ``return_paths``
     returns ``(result, paths)``.
     """
-    sim = SimConfig(n_paths=n_paths, n_steps=n_exercise_dates)
-    device = torch.device(device)
-    S0 = torch.atleast_1d(torch.as_tensor(S0, dtype=torch.float32))
-    n_assets = S0.shape[0]
-    # corr=None is the identity: the paths skip the correlation products
-    if corr is not None and torch.as_tensor(corr).shape != (n_assets, n_assets):
-        raise ValueError(f"corr must be ({n_assets}, {n_assets}) to match the {n_assets}-asset "
-                         f"basket, got {tuple(torch.as_tensor(corr).shape)}")
-    if engine in ("fused", "mega"):
-        if return_surface or return_coeffs:
-            raise ValueError(f"engine={engine!r} max-call is price-only")
-        paths = simulate_gbm_multi(seed, S0, r, sigma, T, sim, q=q, corr=corr, device=device)
-        dt = T / sim.n_steps
-        if engine == "fused":
-            res = backward_induction_fused_maxcall(paths, K, r, dt, spec, basis_mode)
-        else:
-            from ..ops.lsmc_ma_mega import lsmc_price_ma_mega
+    with tracing.span("entry", engine=engine, n_paths=n_paths, n_steps=n_exercise_dates):
+        sim = SimConfig(n_paths=n_paths, n_steps=n_exercise_dates)
+        device = torch.device(device)
+        S0 = torch.atleast_1d(torch.as_tensor(S0, dtype=torch.float32))
+        n_assets = S0.shape[0]
+        # corr=None is the identity: the paths skip the correlation products
+        if corr is not None and torch.as_tensor(corr).shape != (n_assets, n_assets):
+            raise ValueError(f"corr must be ({n_assets}, {n_assets}) to match the {n_assets}-asset "
+                             f"basket, got {tuple(torch.as_tensor(corr).shape)}")
+        if engine in ("fused", "mega"):
+            if return_surface or return_coeffs:
+                raise ValueError(f"engine={engine!r} max-call is price-only")
+            paths = simulate_gbm_multi(seed, S0, r, sigma, T, sim, q=q, corr=corr, device=device)
+            dt = T / sim.n_steps
+            if engine == "fused":
+                res = backward_induction_fused_maxcall(paths, K, r, dt, spec, basis_mode)
+            else:
+                from ..ops.lsmc_ma_mega import lsmc_price_ma_mega
 
-            price, stderr = lsmc_price_ma_mega(
-                paths, K, r, dt, phi=1.0, payoff_kind="maxcall", basis=spec.basis,
-                degree=spec.degree, mode="total" if basis_mode == "sorted" else basis_mode,
-                sorted_basis=basis_mode == "sorted", rcond=spec.rcond,
-                itm_weights=spec.regress_on == "itm", exercise_from_step=1,
-                antithetic=sim.antithetic)
-            res = LSMCResult(price, stderr, None, None, None)
+                price, stderr = lsmc_price_ma_mega(
+                    paths, K, r, dt, phi=1.0, payoff_kind="maxcall", basis=spec.basis,
+                    degree=spec.degree, mode="total" if basis_mode == "sorted" else basis_mode,
+                    sorted_basis=basis_mode == "sorted", rcond=spec.rcond,
+                    itm_weights=spec.regress_on == "itm", exercise_from_step=1,
+                    antithetic=sim.antithetic)
+                res = LSMCResult(price, stderr, None, None, None)
+            return (res, paths) if return_paths else res
+        if engine != "xla":
+            raise ValueError(f"engine must be 'xla', 'fused', or 'mega', got {engine!r}")
+        res, paths = _xla_pricing(seed, S0, r, q, sigma, corr, K, T, spec, sim, basis_mode,
+                                  return_surface, return_coeffs, device)
         return (res, paths) if return_paths else res
-    if engine != "xla":
-        raise ValueError(f"engine must be 'xla', 'fused', or 'mega', got {engine!r}")
-    res, paths = _xla_pricing(seed, S0, r, q, sigma, corr, K, T, spec, sim, basis_mode,
-                              return_surface, return_coeffs, device)
-    return (res, paths) if return_paths else res
 
 
 def reprice_max_call_with_coeffs(

@@ -45,6 +45,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from .. import tracing
 from ..basis import BASIS_IDS, basis_cols
 from ..paths import gbm_standardization
 from ..payoff import exercise_allow_row
@@ -395,14 +396,15 @@ def _price_fusedpath(run, seed, S0, K, r, sigma, dt, n_steps, n_paths, phi, q=0.
     allow = [True] * (n_steps + 1)
     if exercise_steps is not None:
         allow = exercise_allow_row(exercise_steps, n_steps).tolist()
-    stats = _frame(float(S0), r, sigma, q, float(dt), n_steps, dev)
-    cfg = _Config(seed=seed, n_steps=n_steps, n_paths=n_paths, K=_f32(K), phi=_f32(phi),
-                  rcond=_f32(rcond), sigma=_f32(sigma),
-                  drift_dt=_f32((r - q - 0.5 * sigma ** 2) * dt), dt=_f32(dt), S0=_f32(S0),
-                  basis=basis, degree=degree, american=bool(american),
-                  itm_weights=bool(itm_weights), antithetic=bool(antithetic),
-                  barrier=None if barrier is None else _f32(barrier), barrier_down=barrier_down,
-                  barrier_in=barrier_in)
+    with tracing.span("induction.prepare"):
+        stats = _frame(float(S0), r, sigma, q, float(dt), n_steps, dev)
+        cfg = _Config(seed=seed, n_steps=n_steps, n_paths=n_paths, K=_f32(K), phi=_f32(phi),
+                      rcond=_f32(rcond), sigma=_f32(sigma),
+                      drift_dt=_f32((r - q - 0.5 * sigma ** 2) * dt), dt=_f32(dt), S0=_f32(S0),
+                      basis=basis, degree=degree, american=bool(american),
+                      itm_weights=bool(itm_weights), antithetic=bool(antithetic),
+                      barrier=None if barrier is None else _f32(barrier),
+                      barrier_down=barrier_down, barrier_in=barrier_in)
     sums, coeffs, cf, tau = run(cfg, stats, replay_coeffs, allow, bool(return_cf_tau), **run_kw)
     price = sums[0] / n_paths
     # antithetic: ΣV² was summed over the n/2 pair means (honest stderr)
@@ -452,10 +454,11 @@ def lsmc_price_fusedpath(seed, S0, K, r, sigma, dt, n_steps: int, n_paths: int, 
     """
     dev = torch.device(device)
     run = _fusedpath_cuda if dev.type == "cuda" else _fusedpath_reference
-    return _price_fusedpath(run, seed, S0, K, r, sigma, dt, n_steps, n_paths, phi, q, basis,
-                            degree, rcond, american, itm_weights, antithetic, return_stats,
-                            exercise_steps, axis_name, axis_size, return_cf_tau, return_coeffs,
-                            replay_coeffs, barrier, barrier_type, device)
+    with tracing.span("induction"):
+        return _price_fusedpath(run, seed, S0, K, r, sigma, dt, n_steps, n_paths, phi, q, basis,
+                                degree, rcond, american, itm_weights, antithetic, return_stats,
+                                exercise_steps, axis_name, axis_size, return_cf_tau,
+                                return_coeffs, replay_coeffs, barrier, barrier_type, device)
 
 
 lsmc_price_fusedpath.launches = 0

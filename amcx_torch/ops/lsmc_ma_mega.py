@@ -34,6 +34,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from .lsmc_megakernel import _not_ported, _solve_equilibrated_ridge, _sum_once_rounded
 from .maxcall_pallas import (MaParams, _columns, _fitted, _moments_from_cols, _payoff_for,
                              _tuple, ma_inputs, ma_moments_blocks, ma_pack_dim, ma_params)
@@ -161,11 +162,12 @@ def lsmc_price_ma_mega(
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"lsmc_price_ma_mega runs on 'cpu' or 'cuda', got {dev}")
     run = _ma_mega_cuda if dev.type == "cuda" else _ma_mega_reference
-    return _price(run, paths_tm, K, r, dt, phi, payoff_kind, basis, degree, mode, sorted_basis,
-                  weights, rcond, itm_weights, exercise_from_step, exercise_steps,
-                  antithetic=antithetic, return_cf_tau=return_cf_tau,
-                  discount_planes=discount_planes, barrier=barrier, barrier_type=barrier_type,
-                  axis_name=axis_name, axis_size=axis_size)
+    with tracing.span("induction"):
+        return _price(run, paths_tm, K, r, dt, phi, payoff_kind, basis, degree, mode,
+                      sorted_basis, weights, rcond, itm_weights, exercise_from_step,
+                      exercise_steps, antithetic=antithetic, return_cf_tau=return_cf_tau,
+                      discount_planes=discount_planes, barrier=barrier,
+                      barrier_type=barrier_type, axis_name=axis_name, axis_size=axis_size)
 
 
 lsmc_price_ma_mega.launches = 0
@@ -179,7 +181,8 @@ def lsmc_price_ma_mega_reference(paths_tm: torch.Tensor, *args, **kwargs):
 
 def _price(run, paths_tm, *args, return_cf_tau=False, antithetic=False, **kwargs):
     n_paths = paths_tm.shape[1]
-    planes, stats, cfg = prepare(paths_tm, *args, antithetic=antithetic, **kwargs)
+    with tracing.span("induction.prepare"):
+        planes, stats, cfg = prepare(paths_tm, *args, antithetic=antithetic, **kwargs)
     sums, cf, tau = run(planes, stats, cfg, bool(return_cf_tau), bool(antithetic))
     price = sums[0] / n_paths
     n_eff = n_paths // 2 if antithetic else n_paths

@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from .. import tracing
 from ..basis import BASIS_IDS, basis_cols
 from ..payoff import barrier_gate
 
@@ -384,10 +385,11 @@ def lsmc_price_megakernel(
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"lsmc_price_megakernel runs on 'cpu' or 'cuda', got {dev}")
     run = _mega_cuda if dev.type == "cuda" else _mega_reference
-    return _price(run, paths_tm, K, r, dt, phi, basis, degree, rcond, american, barrier,
-                  barrier_type, itm_weights, mean_t, inv_std_t, return_stats, axis_name,
-                  axis_size, exercise_steps, return_cf_tau, return_coeffs, antithetic,
-                  replay_coeffs)
+    with tracing.span("induction"):
+        return _price(run, paths_tm, K, r, dt, phi, basis, degree, rcond, american, barrier,
+                      barrier_type, itm_weights, mean_t, inv_std_t, return_stats, axis_name,
+                      axis_size, exercise_steps, return_cf_tau, return_coeffs, antithetic,
+                      replay_coeffs)
 
 
 lsmc_price_megakernel.launches = 0
@@ -430,9 +432,10 @@ def _price(run, paths_tm, K, r, dt, phi, basis="chebyshev", degree=4, rcond=1e-6
     if n_paths >= 2 ** 31:
         raise ValueError(f"n_paths must be < 2^31, got {n_paths}")
     K, phi = float(K), float(phi)
-    if mean_t is None or inv_std_t is None:
-        mean_t, inv_std_t = _data_standardization(paths, K, phi, itm_weights)
-    stats = mega_stats(mean_t, inv_std_t, r, dt, n_steps, paths.device)
+    with tracing.span("induction.prepare"):
+        if mean_t is None or inv_std_t is None:
+            mean_t, inv_std_t = _data_standardization(paths, K, phi, itm_weights)
+        stats = mega_stats(mean_t, inv_std_t, r, dt, n_steps, paths.device)
     sums, coeffs, _, cf, tau = run(paths, stats, K, phi, float(rcond), basis, degree,
                                    bool(american), bool(itm_weights), bool(return_cf_tau))
     price = sums[0] / n_paths

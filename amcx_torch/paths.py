@@ -22,6 +22,7 @@ from typing import Union
 
 import torch
 
+from . import tracing
 from .types import MarketParams, SimConfig
 
 __all__ = [
@@ -97,20 +98,21 @@ def simulate_gbm(
     ``seed``: an integer in [0, 2⁶⁴) for either backend, or (``"torch"``
     backend only) a ``torch.Generator`` on ``device``.
     """
-    device = torch.device(device)
-    if sim.backend == "philox":
-        from .ops.gbm import gbm_paths
+    with tracing.span("pathgen"):
+        device = torch.device(device)
+        if sim.backend == "philox":
+            from .ops.gbm import gbm_paths
 
-        if isinstance(seed, torch.Generator):
-            raise TypeError("the philox backend takes an integer seed, not a Generator")
-        if sim.antithetic:
-            raise NotImplementedError(
-                "antithetic philox paths are not ported yet (ROADMAP B1 options)")
-        if sim.dtype != "float32":
-            raise ValueError("the philox pathgen emits float32 paths")
-        return gbm_paths(seed, market.S0, market.r, market.sigma, market.q, T,
-                         sim.n_steps, sim.n_paths, device=device)
-    return _simulate_gbm_torch(_generator(seed, device), market, T, sim, device)
+            if isinstance(seed, torch.Generator):
+                raise TypeError("the philox backend takes an integer seed, not a Generator")
+            if sim.antithetic:
+                raise NotImplementedError(
+                    "antithetic philox paths are not ported yet (ROADMAP B1 options)")
+            if sim.dtype != "float32":
+                raise ValueError("the philox pathgen emits float32 paths")
+            return gbm_paths(seed, market.S0, market.r, market.sigma, market.q, T,
+                             sim.n_steps, sim.n_paths, device=device)
+        return _simulate_gbm_torch(_generator(seed, device), market, T, sim, device)
 
 
 def _generator(seed, device) -> torch.Generator:
@@ -144,37 +146,38 @@ def simulate_gbm_multi(
     (S0, r, sigma, q, T). ``sim.antithetic`` mirrors path i into path
     i + n_paths/2.
     """
-    device = torch.device(device)
-    dtype = sim.torch_dtype
-    S0 = torch.atleast_1d(torch.as_tensor(S0, dtype=dtype, device=device))
-    n_assets = S0.shape[0]
-    n_steps, n_paths = sim.n_steps, sim.n_paths
+    with tracing.span("pathgen"):
+        device = torch.device(device)
+        dtype = sim.torch_dtype
+        S0 = torch.atleast_1d(torch.as_tensor(S0, dtype=dtype, device=device))
+        n_assets = S0.shape[0]
+        n_steps, n_paths = sim.n_steps, sim.n_paths
 
-    def vec(x):
-        return torch.broadcast_to(torch.as_tensor(x, dtype=dtype, device=device), (n_assets,))
+        def vec(x):
+            return torch.broadcast_to(torch.as_tensor(x, dtype=dtype, device=device), (n_assets,))
 
-    generator = _generator(seed, device)
-    if sim.antithetic:
-        half = torch.randn((n_steps, n_paths // 2, n_assets), generator=generator, dtype=dtype,
-                           device=device)
-        Z = torch.cat([half, -half], dim=1)
-    else:
-        Z = torch.randn((n_steps, n_paths, n_assets), generator=generator, dtype=dtype,
-                        device=device)
-    W = Z
-    if corr is not None:
-        L = torch.linalg.cholesky(torch.as_tensor(corr, dtype=dtype, device=device))
-        cols = []
-        for b in range(n_assets):
-            w_b = Z[..., 0] * L[b, 0]
-            for a in range(1, b + 1):
-                w_b = w_b + Z[..., a] * L[b, a]
-            cols.append(w_b)
-        W = torch.stack(cols, dim=-1)
-    r, sigma, q = vec(r), vec(sigma), vec(0.0 if q is None else q)
-    dt = torch.as_tensor(T, dtype=dtype, device=device) / n_steps
-    drift = (r - q - 0.5 * sigma ** 2) * dt
-    log_inc = drift + (sigma * torch.sqrt(dt)) * W
-    log_rel = torch.cat([torch.zeros((1, n_paths, n_assets), dtype=dtype, device=device),
-                         torch.cumsum(log_inc, dim=0)], dim=0)
-    return S0 * torch.exp(log_rel)
+        generator = _generator(seed, device)
+        if sim.antithetic:
+            half = torch.randn((n_steps, n_paths // 2, n_assets), generator=generator, dtype=dtype,
+                               device=device)
+            Z = torch.cat([half, -half], dim=1)
+        else:
+            Z = torch.randn((n_steps, n_paths, n_assets), generator=generator, dtype=dtype,
+                            device=device)
+        W = Z
+        if corr is not None:
+            L = torch.linalg.cholesky(torch.as_tensor(corr, dtype=dtype, device=device))
+            cols = []
+            for b in range(n_assets):
+                w_b = Z[..., 0] * L[b, 0]
+                for a in range(1, b + 1):
+                    w_b = w_b + Z[..., a] * L[b, a]
+                cols.append(w_b)
+            W = torch.stack(cols, dim=-1)
+        r, sigma, q = vec(r), vec(sigma), vec(0.0 if q is None else q)
+        dt = torch.as_tensor(T, dtype=dtype, device=device) / n_steps
+        drift = (r - q - 0.5 * sigma ** 2) * dt
+        log_inc = drift + (sigma * torch.sqrt(dt)) * W
+        log_rel = torch.cat([torch.zeros((1, n_paths, n_assets), dtype=dtype, device=device),
+                             torch.cumsum(log_inc, dim=0)], dim=0)
+        return S0 * torch.exp(log_rel)

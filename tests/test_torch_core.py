@@ -243,7 +243,7 @@ def test_port_imports_without_jax():
         "amcx_torch.ops.lsmc_ma_mega, amcx_torch.kernel_profile, amcx_torch.book, "
         "amcx_torch.exposures, amcx_torch.ops.lsmc_fusedpath, amcx_torch.policy, "
         "amcx_torch.swing, amcx_torch.qmc, amcx_torch.ops.lsmc_swing, "
-        "amcx_torch.ops.sobol_pallas\n"
+        "amcx_torch.ops.sobol_pallas, amcx_torch.tracing\n"
         "from amcx_torch.ops._build import build_info\n"
         "assert build_info['paths'] is None\n"
         "assert 'scipy' not in sys.modules\n"
