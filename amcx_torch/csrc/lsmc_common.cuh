@@ -1,12 +1,13 @@
 // Device helpers shared by the LSMC kernels (lsmc_mega.cu, lsmc_step.cu,
 // lsmc_book.cu, lsmc_swing.cu, lsmc_fusedpath.cu, and through ma_common.cuh
-// ma_step.cu and lsmc_ma_mega.cu): the packed moment layout, the basis
-// recurrences, a four-path row load, the fixed-order f64 block and
-// cross-block reductions that make the moments independent of the grid
-// (and the one-block kernel that sums the partial rows), the one-thread
-// equilibrated ridge-Cholesky solve - a factor step and a refined solve per
-// right-hand side - with its one-block kernel for one shared factor and
-// many right-hand sides, and the same solve on the lanes of one warp.
+// ma_step.cu, lsmc_ma_mega.cu and ma_prepare.cu): the packed moment layout,
+// the basis recurrences, a four-path row load, the fixed-order f64 block
+// and cross-block reductions that make the moments independent of the grid
+// (the last-block ticket, and the one-block kernel that sums the partial
+// rows), the one-thread equilibrated ridge-Cholesky solve - a factor step
+// and a refined solve per right-hand side - with its one-block kernel for
+// one shared factor and many right-hand sides, and the same solve on the
+// lanes of one warp.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -129,6 +130,18 @@ __device__ __forceinline__ void sum_partials(const double* __restrict__ partials
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) out[p] = static_cast<float>(v);
   }
+}
+
+// The block that takes the last of `total` tickets returns true (every
+// block's row fenced before its ticket); the counter wraps back to 0.
+__device__ __forceinline__ bool last_ticket(unsigned* ticket, unsigned total) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicInc(ticket, total - 1) == total - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
 }
 
 // sum_partials' order on the warps of ONE block, for rows that blocks of

@@ -81,18 +81,6 @@ struct StepIn {
   float v;
 };
 
-// The block that takes the last of `total` tickets returns true (every
-// block's row fenced before its ticket); the counter wraps back to 0.
-__device__ __forceinline__ bool last_ticket(unsigned* ticket, unsigned total) {
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicInc(ticket, total - 1) == total - 1;
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
-}
-
 // The fixed-order sum of one step's (n_rows, P) partial rows (P up to 560
 // sums) on the threads of ONE block, read through L2 and rounded once to
 // f32: thread p adds sum p's rows in row order, sixteen loads issued at a

@@ -1,6 +1,7 @@
 // Device code shared by the multi-asset kernels (ma_step.cu: kernels 8/9,
-// lsmc_ma_mega.cu: kernel 7): the product/basis description, the payoff
-// kinds, the sorted and standardized features, the cross-term columns and
+// lsmc_ma_mega.cu: kernel 7, ma_prepare.cu: their inputs): the
+// product/basis description, the payoff kinds, the sorting network, the
+// sorted and standardized features, the cross-term columns and
 // the fitted continuation. The register-blocked moments of both inductions
 // are ma_moments.cuh's.
 //
@@ -100,6 +101,22 @@ __device__ __forceinline__ float ma_payoff(const float (&s)[A], const MaParams& 
   }
 }
 
+// amcx's bubble compare-exchange network: one path's A values sorted
+// descending in place (amcx/ops/maxcall_pallas.py _sort_desc).
+template <int A>
+__device__ __forceinline__ void sort_desc(float (&f)[A]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+#pragma unroll
+    for (int j = 0; j < A - 1 - i; ++j) {
+      const float hi = fmaxf(f[j], f[j + 1]);
+      const float lo = fminf(f[j], f[j + 1]);
+      f[j] = hi;
+      f[j + 1] = lo;
+    }
+  }
+}
+
 // Per-asset univariate columns uni[a][0..kMaxMaDegree] of the (sorted,)
 // standardized features of one path; only degrees <= p.degree are read.
 template <int A>
@@ -109,18 +126,7 @@ __device__ __forceinline__ void ma_features(const float (&s)[A], const MaParams&
   float f[A];
 #pragma unroll
   for (int a = 0; a < A; ++a) f[a] = s[a];
-  if (p.sorted) {
-#pragma unroll
-    for (int i = 0; i < A; ++i) {
-#pragma unroll
-      for (int j = 0; j < A - 1 - i; ++j) {
-        const float hi = fmaxf(f[j], f[j + 1]);
-        const float lo = fminf(f[j], f[j + 1]);
-        f[j] = hi;
-        f[j + 1] = lo;
-      }
-    }
-  }
+  if (p.sorted) sort_desc<A>(f);
 #pragma unroll
   for (int a = 0; a < A; ++a) {
     const float x = (f[a] - stats[a * T1 + t]) * stats[(A + a) * T1 + t];

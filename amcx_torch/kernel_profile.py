@@ -3,7 +3,7 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 -m amcx_torch.kernel_profile
-        [--route put|gbm|book|ma-step|ma-apply|ma-mega|swing|step|fusedpath|qmc]
+        [--route put|gbm|book|ma-step|ma-apply|ma-prepare|ma-mega|swing|step|fusedpath|qmc]
         [--reps 20]
         [--label NAME]
 
@@ -30,6 +30,15 @@ Routes, each on fixed inputs made from fixed seeds:
   through ``ma_step_apply`` on coefficients solved once on the CPU from the
   all-paths moments of the maturity carry; the hash covers cf and tau after
   one apply on fresh copies of the carry.
+- ``ma-prepare``: the inputs of kernel 7 for the max-call of ``ma-mega``
+  (maxcall-5-1M: 1,048,576 paths x 9 dates x 5 assets, sorted basis,
+  exercise from date 1) through ``lsmc_ma_mega.prepare`` alone: the asset-
+  major planes and the stats rows; the hash covers both. It also prints
+  the host waits a call (synchronises and copies, by the profiler) and the
+  torch-op composition by part, each alone: the frame
+  (``maxcall_standardization``: the sorting network, the means and
+  standard deviations), the asset-major copy (``permute(0, 2,
+  1).contiguous()``) and ``ma_stats``, and the ``ma_prepare`` kernel alone.
 - ``ma-mega`` (kernel 7): the whole induction of the 5-asset Bermudan
   max-call of ``ma-step`` (maxcall-5-1M: 1,048,576 paths, 9 dates, sorted
   degree-2 basis, m = 21, all-paths fit, exercise from date 1) through
@@ -182,6 +191,32 @@ def _ma_apply(torch, amcx_torch, dev):
     return run, (cf, tau), {"price": packed[0]}
 
 
+def _ma_prepare(torch, amcx_torch, dev):
+    from amcx_torch.ops import lsmc_ma_mega
+    from amcx_torch.ops import maxcall_pallas as ma
+
+    n_paths, n_dates, S0, K, r, q, sigma, T = 1_048_576, 9, 100.0, 100.0, 0.05, 0.1, 0.2, 3.0
+    dt = T / n_dates
+    sim = amcx_torch.SimConfig(n_paths=n_paths, n_steps=n_dates)
+    paths = amcx_torch.simulate_gbm_multi(20261018, [S0] * 5, r, sigma, T, sim, q=q, device=dev)
+
+    def run():
+        return lsmc_ma_mega.prepare(paths, K, r, dt, payoff_kind="maxcall", degree=2,
+                                    sorted_basis=True, exercise_from_step=1)[:2]
+
+    planes, stats = run()
+
+    def parts(split):
+        allow = (torch.arange(n_dates + 1, device=dev) >= 1).to(torch.float32)
+        frame = ma.maxcall_standardization(paths, "sorted")
+        return {"frame": split(lambda: ma.maxcall_standardization(paths, "sorted")),
+                "copy": split(lambda: paths.permute(0, 2, 1).contiguous()),
+                "ma_stats": split(lambda: ma.ma_stats(*frame, r, dt, allow)),
+                "ma_prepare": split(lambda: ma.ma_prepare(paths, r, dt, allow, sorted_basis=True))}
+
+    return run, (planes, stats), {"price": stats[0, 1], "parts": parts}
+
+
 def _ma_mega(torch, amcx_torch, dev):
     from amcx_torch.ops import lsmc_ma_mega
 
@@ -317,8 +352,8 @@ def _qmc(torch, amcx_torch, dev):
 
 
 ROUTES = {"put": _put, "gbm": _gbm, "book": _book, "ma-step": _ma_step, "ma-apply": _ma_apply,
-          "ma-mega": _ma_mega, "swing": _swing, "step": _step, "fusedpath": _fusedpath,
-          "qmc": _qmc}
+          "ma-prepare": _ma_prepare, "ma-mega": _ma_mega, "swing": _swing, "step": _step,
+          "fusedpath": _fusedpath, "qmc": _qmc}
 
 
 def _device_us(torch, profile, activity, fn, reps):
@@ -333,10 +368,26 @@ def _device_us(torch, profile, activity, fn, reps):
                if e.device_type == torch.autograd.DeviceType.CUDA) / reps
 
 
+# host calls that wait for the card: synchronises, and copies (a copy from
+# or to pageable host memory returns only when the stream reaches it)
+_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def _host_waits(torch, events, reps):
+    """Host waits a call among the profiler's ``events`` of ``reps`` calls:
+    synchronises and ``cudaMemcpy*`` calls, each by name."""
+    waits = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and (
+                e.name in _WAITS or e.name.startswith("cudaMemcpy")):
+            waits[e.name] = waits.get(e.name, 0) + 1
+    return {k: v / reps for k, v in waits.items()}
+
+
 def _split(torch, profile, activity, fn, reps):
     """One call of ``fn`` on its own: ms by CUDA events (median), the host
-    enqueue µs a call, and device µs and launches a call by name
-    (kernels and copies apart)."""
+    enqueue µs a call, device µs and launches a call by name (kernels and
+    copies apart), and the host waits a call."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -365,7 +416,8 @@ def _split(torch, profile, activity, fn, reps):
             count[name] = count.get(name, 0) + 1
     return {"ms_median": statistics.median(times), "host_enqueue_us": host_us,
             "device_us": {k: v / reps for k, v in per_name.items()},
-            "device_launches": {k: v / reps for k, v in count.items()}}
+            "device_launches": {k: v / reps for k, v in count.items()},
+            "host_waits": _host_waits(torch, prof.events(), reps)}
 
 
 def _short(name):
@@ -437,6 +489,10 @@ def main(argv=None):
             lambda fn: _split(torch, profile, ProfilerActivity, fn, args.reps))
     if "tables" in extra:
         line["new_seed_tables"] = extra["tables"]()
+    if "parts" in extra:
+        line["host_waits_per_call"] = _host_waits(torch, prof.events(), args.reps)
+        line["parts"] = extra["parts"](
+            lambda fn: _split(torch, profile, ProfilerActivity, fn, args.reps))
     device_us = sum(per_name.values()) / args.reps
     line.update(route=args.route, device_us_per_call=device_us, host_enqueue_us_per_call=host_us,
                 wall_minus_device_us=statistics.median(times) * 1e3 - device_us)

@@ -111,11 +111,11 @@ def _xla_pricing(seed, S0, r, q, sigma, corr, K, T, spec, sim, basis_mode, retur
 
 def _fused_maxcall(moments, apply_launcher, paths_tm, K, r, dt, spec=_BENCH_SPEC,
                    basis_mode="sorted", exercise_from_step=1, payoff_kind="maxcall", phi=1.0,
-                   weights=None):
+                   weights=None, *, plain=False):
     sorted_basis = basis_mode == "sorted"
     mode = "total" if sorted_basis else basis_mode
     planes, stats = ma_inputs(paths_tm, r, dt, sorted_basis=sorted_basis, mode=mode,
-                              exercise_from_step=exercise_from_step)
+                              exercise_from_step=exercise_from_step, plain=plain)
     n_steps, n_assets, n_paths = planes.shape[0] - 1, planes.shape[1], planes.shape[2]
     f32, dev = torch.float32, planes.device
     # r·dt in f32, as amcx forms it from its f32 r and dt
@@ -167,10 +167,10 @@ def backward_induction_fused_maxcall(
 def backward_induction_fused_maxcall_reference(paths_tm: torch.Tensor, *args,
                                                **kwargs) -> LSMCResult:
     """:func:`backward_induction_fused_maxcall` on the step kernels' plain
-    versions, on any device."""
+    versions and the plain inputs, on any device."""
     return _fused_maxcall(ma_step_moments_reference,
                           partial(ma_step_apply_launcher, reference=True), paths_tm, *args,
-                          **kwargs)
+                          plain=True, **kwargs)
 
 
 def price_max_call(

@@ -174,9 +174,9 @@ lsmc_price_ma_mega.launches = 0
 
 
 def lsmc_price_ma_mega_reference(paths_tm: torch.Tensor, *args, **kwargs):
-    """:func:`lsmc_price_ma_mega`'s plain version on any device (the card's
-    check compares the two on the same CUDA paths)."""
-    return _price(_ma_mega_reference, paths_tm, *args, **kwargs)
+    """:func:`lsmc_price_ma_mega`'s plain version on any device, inputs
+    included (the card's check compares the two on the same CUDA paths)."""
+    return _price(_ma_mega_reference, paths_tm, *args, plain=True, **kwargs)
 
 
 def _price(run, paths_tm, *args, return_cf_tau=False, antithetic=False, **kwargs):
@@ -196,10 +196,11 @@ def _price(run, paths_tm, *args, return_cf_tau=False, antithetic=False, **kwargs
 def prepare(paths_tm, K, r, dt, phi=1.0, payoff_kind="maxcall", basis="chebyshev", degree=2,
             mode="total", sorted_basis=False, weights=None, rcond=1e-6, itm_weights=False,
             exercise_from_step=0, exercise_steps=None, antithetic=False, discount_planes=None,
-            barrier=None, barrier_type="down-in", axis_name=None, axis_size=1):
+            barrier=None, barrier_type="down-in", axis_name=None, axis_size=1, plain=False):
     """Validate :func:`lsmc_price_ma_mega`'s arguments and build the
     induction's inputs: the asset-major planes ``(n_steps+1, A, n_paths)``,
-    the :func:`ma_stats` rows and the static configuration."""
+    the :func:`ma_stats` rows (by :func:`ma_inputs`, its plain version with
+    ``plain``) and the static configuration."""
     if barrier is not None:
         _not_ported("the ma-mega kernel's asset-0 sign-bit barrier", "A11 / B6 options")
     if discount_planes is not None:
@@ -211,7 +212,7 @@ def prepare(paths_tm, K, r, dt, phi=1.0, payoff_kind="maxcall", basis="chebyshev
         _not_ported("the ma-mega kernel's collective mode", "A15")
     planes, stats = ma_inputs(paths_tm, r, dt, sorted_basis=bool(sorted_basis), mode=mode,
                               exercise_from_step=exercise_from_step,
-                              exercise_steps=exercise_steps)
+                              exercise_steps=exercise_steps, plain=plain)
     n_assets, n_paths = planes.shape[1], planes.shape[2]
     if n_paths >= 2 ** 31:
         raise ValueError(f"n_paths must be < 2^31, got {n_paths}")

@@ -1,9 +1,12 @@
-"""The multi-asset step kernels: wrappers and their plain versions.
+"""The multi-asset step kernels and their inputs: wrappers and their plain
+versions.
 
 Port of `amcx.ops.maxcall_pallas` (``_ma_moments_kernel`` via
 :func:`ma_step_moments`, ``_ma_apply_kernel`` via :func:`ma_step_apply`).
 The kernels live in ``amcx_torch/csrc/ma_step.cu`` (shared device code in
-``csrc/ma_common.cuh``). ``ma_step_moments_reference`` and
+``csrc/ma_common.cuh``). :func:`ma_prepare` (``csrc/ma_prepare.cu``) builds
+the inputs both multi-asset inductions run on, the asset-major planes and
+the frame, in one pass over the paths. ``ma_step_moments_reference`` and
 ``ma_step_apply_reference`` compute the same functions in plain torch, in
 the kernels' operation order, with the moments summed in f64 and rounded
 once to f32, so on the card kernel and plain version agree to the bit.
@@ -46,15 +49,21 @@ from ..basis import BASIS_IDS, _multi_index_set, multi_asset_cols
 from ..payoff import exercise_allow_row
 from .lsmc_megakernel import _pairs, _sum_once_rounded
 
-__all__ = ["ma_pack_dim", "ma_stats", "ma_inputs", "maxcall_standardization", "ma_step_moments",
-           "ma_step_moments_reference", "ma_step_apply", "ma_step_apply_reference",
-           "ma_step_apply_launcher", "ma_factor_words", "PAYOFF_KINDS"]
+__all__ = ["ma_pack_dim", "ma_stats", "ma_inputs", "ma_prepare", "ma_prepare_reference",
+           "maxcall_standardization", "ma_step_moments", "ma_step_moments_reference",
+           "ma_step_apply", "ma_step_apply_reference", "ma_step_apply_launcher",
+           "ma_factor_words", "PAYOFF_KINDS"]
 
 # limits of csrc/ma_common.cuh
 MAX_ASSETS = 8
 MAX_COLS = 32
 MAX_DEGREE = 4
 _MAX_TASK_WARPS = 21  # csrc/ma_step.cu kMaxTaskWarps
+_PREPARE_TILE = 512  # csrc/ma_prepare.cu kTilePaths
+# ma_prepare's grid: at 1M x 10 x 5 on an H100 80GB HBM3 (700 W), the kernel
+# alone took 0.164-0.169 ms at two blocks an SM (medians by CUDA events,
+# three rounds) against 0.199 at one and 0.177-0.192 at 3, 4, 6 and 8
+_PREPARE_BLOCKS_PER_SM = 2
 
 PAYOFF_KINDS = {"maxcall": 0, "first": 1, "second": 2, "spread": 3, "spreadk": 4,
                 "basket": 5, "geobasket": 6}
@@ -71,13 +80,35 @@ def maxcall_standardization(paths_tm: torch.Tensor, mode: str = "sorted"):
     ``mode == "sorted"``) basket ``(n_steps+1, n_paths, n_assets)``: two
     ``(n_steps+1, n_assets)`` tensors, the frame the fused and mega
     engines standardize with. The order statistics come from the kernels'
-    compare-exchange network, column by column (the values of a sort)."""
+    compare-exchange network, column by column (the values of a sort).
+
+    The plain version of :func:`ma_prepare`'s frame on any device: the f64
+    sums S1 and S2 of x and x², then ``mean = S1/n`` and ``1/max(sqrt(max(S2/n
+    − mean², 0)), 1e-6)``, each in f64 and rounded once to the paths'
+    dtype."""
     feats = torch.unbind(paths_tm, dim=-1)
     if mode == "sorted":
         feats = _sort_desc(feats)
-    mean = torch.stack([torch.mean(f, dim=1) for f in feats], dim=-1)
-    std = torch.stack([torch.std(f, dim=1, correction=0) for f in feats], dim=-1)
-    return mean, 1.0 / torch.clamp_min(std, 1e-6)
+    x = torch.stack(feats, dim=-1).to(torch.float64)
+    n = x.shape[1]
+    mean = torch.sum(x, dim=1) / n
+    var = torch.clamp_min(torch.sum(x * x, dim=1) / n - mean * mean, 0.0)
+    inv_std = 1.0 / torch.clamp_min(torch.sqrt(var), 1e-6)
+    return mean.to(paths_tm.dtype), inv_std.to(paths_tm.dtype)
+
+
+def _tail_rows(n_steps: int, r, dt, allow_t, device) -> torch.Tensor:
+    """The last three :func:`ma_stats` rows as a ``(3, n_steps+1)`` f32
+    tensor on ``device``: ``c_t = e^{−r·dt·(n_steps−t)}`` and ``1/c_t`` in
+    amcx's order, f32(r)·f32(dt) rounded once on the host (exact as a Python
+    float; a device scalar would be a copy from the host that waits for the
+    stream) times the remaining steps, then ``allow_t``."""
+    f32 = torch.float32
+    rem = n_steps - torch.arange(n_steps + 1, dtype=f32, device=device)
+    r_dt = float(torch.tensor(float(r), dtype=f32) * torch.tensor(float(dt), dtype=f32))
+    r_rem = r_dt * rem
+    return torch.stack([torch.exp(-r_rem), torch.exp(r_rem),
+                        torch.as_tensor(allow_t, dtype=f32, device=device)])
 
 
 def ma_stats(mean_t, inv_std_t, r, dt, allow_t) -> torch.Tensor:
@@ -87,36 +118,100 @@ def ma_stats(mean_t, inv_std_t, r, dt, allow_t) -> torch.Tensor:
     order, and the exercise flag ``allow_t``. ``mean_t``/``inv_std_t`` are
     ``(n_steps+1, A)``."""
     f32 = torch.float32
-    dev = mean_t.device
-    n1 = mean_t.shape[0]
-    rem = (n1 - 1) - torch.arange(n1, dtype=f32, device=dev)
-    r_rem = torch.tensor(float(r), dtype=f32, device=dev) * torch.tensor(
-        float(dt), dtype=f32, device=dev) * rem
-    rows = [mean_t.to(f32).T, inv_std_t.to(f32).T, torch.exp(-r_rem)[None],
-            torch.exp(r_rem)[None], torch.as_tensor(allow_t, dtype=f32, device=dev)[None]]
-    return torch.cat(rows).contiguous()
+    tail = _tail_rows(mean_t.shape[0] - 1, r, dt, allow_t, mean_t.device)
+    return torch.cat([mean_t.to(f32).T, inv_std_t.to(f32).T, tail]).contiguous()
 
 
 def ma_inputs(paths_tm: torch.Tensor, r, dt, *, sorted_basis: bool, mode: str = "total",
-              exercise_from_step: int = 0, exercise_steps=None):
+              exercise_from_step: int = 0, exercise_steps=None, plain: bool = False):
     """The inputs both multi-asset inductions (kernels 8/9 and kernel 7) run
     on, from time-major ``(n_steps+1, n_paths, n_assets)`` f32 paths: the
     asset-major planes ``(n_steps+1, n_assets, n_paths)`` (each asset row
     coalesces) and the :func:`ma_stats` rows, with the
     :func:`maxcall_standardization` frame of the whole path set (sorted when
     ``sorted_basis``) and the exercise row (``exercise_steps``, step indices
-    in 0..n_steps-1, overrides ``exercise_from_step``)."""
+    in 0..n_steps-1, overrides ``exercise_from_step``; a schedule is copied
+    from the host). :func:`ma_prepare` builds both (one kernel on a CUDA
+    tensor), or with ``plain`` :func:`ma_prepare_reference` on any device."""
     if paths_tm.ndim != 3 or paths_tm.shape[0] < 2 or paths_tm.dtype != torch.float32:
         raise ValueError(f"paths must be time-major (n_steps+1, n_paths, n_assets) float32, "
                          f"got {tuple(paths_tm.shape)} {paths_tm.dtype}")
     n_steps, dev = paths_tm.shape[0] - 1, paths_tm.device
-    mean_t, inv_std_t = maxcall_standardization(paths_tm, "sorted" if sorted_basis else mode)
     if exercise_steps is not None:
         allow = exercise_allow_row(exercise_steps, n_steps, torch.float32, dev)
     else:
         allow = (torch.arange(n_steps + 1, device=dev) >= exercise_from_step).to(torch.float32)
+    build = ma_prepare_reference if plain else ma_prepare
+    return build(paths_tm, r, dt, allow, sorted_basis=sorted_basis or mode == "sorted")
+
+
+def ma_prepare_reference(paths_tm: torch.Tensor, r, dt, allow_t, *, sorted_basis: bool):
+    """Plain-torch version of :func:`ma_prepare` on any device."""
+    mean_t, inv_std_t = maxcall_standardization(paths_tm, "sorted" if sorted_basis else "total")
     planes = paths_tm.permute(0, 2, 1).contiguous()
-    return planes, ma_stats(mean_t, inv_std_t, r, dt, allow)
+    return planes, ma_stats(mean_t, inv_std_t, r, dt, allow_t)
+
+
+def ma_prepare_chunks(n_paths: int, n_steps: int, n_sm: int) -> int:
+    """Blocks a step of :func:`ma_prepare`'s grid: about
+    ``_PREPARE_BLOCKS_PER_SM`` blocks an SM over all the steps, at most one a
+    tile of 512 paths."""
+    per_step = -(-_PREPARE_BLOCKS_PER_SM * n_sm // (n_steps + 1))
+    return max(1, min(per_step, -(-n_paths // _PREPARE_TILE)))
+
+
+def ma_prepare(paths_tm: torch.Tensor, r, dt, allow_t, *, sorted_basis: bool):
+    """The asset-major planes ``(n_steps+1, A, n_paths)`` (the bits of
+    ``paths_tm.permute(0, 2, 1).contiguous()``) and the ``(2A+3,
+    n_steps+1)`` :func:`ma_stats` rows of time-major ``(n_steps+1, n_paths,
+    A)`` f32 paths: the :func:`maxcall_standardization` frame (sorted when
+    ``sorted_basis``), then ``c_t``, ``1/c_t`` of rate ``r`` and step ``dt``,
+    and the exercise row ``allow_t``.
+
+    On a CUDA tensor this launches the kernel of ``csrc/ma_prepare.cu``
+    once, with no copy from the host and no synchronise (or raises); on a
+    CPU tensor it runs :func:`ma_prepare_reference`.
+    ``ma_prepare.launches`` counts the kernel launches.
+    """
+    dev = paths_tm.device
+    if dev.type == "cpu":
+        return ma_prepare_reference(paths_tm, r, dt, allow_t, sorted_basis=sorted_basis)
+    if dev.type != "cuda":
+        raise ValueError(f"ma_prepare runs on 'cpu' or 'cuda', got {dev}")
+    from . import _build
+
+    f32 = torch.float32
+    T1, n_paths, n_assets = paths_tm.shape
+    if paths_tm.dtype is not f32 or not 1 <= n_assets <= MAX_ASSETS:
+        raise ValueError(f"paths must be (n_steps+1, n_paths, 1..{MAX_ASSETS}) float32, got "
+                         f"{tuple(paths_tm.shape)} {paths_tm.dtype}")
+    if not 1 <= n_paths < 2 ** 31:
+        raise ValueError(f"n_paths must lie in 1..2^31-1, got {n_paths}")
+    paths_tm = paths_tm.contiguous()
+    tail = _tail_rows(T1 - 1, r, dt, allow_t, dev)
+    n_chunks = ma_prepare_chunks(n_paths, T1 - 1, _build.sm_count(dev))
+    planes = torch.empty((T1, n_assets, n_paths), dtype=f32, device=dev)
+    stats = torch.empty((2 * n_assets + 3, T1), dtype=f32, device=dev)
+    # the ticket (zeroed by the C entry), then a partial row of 2A sums a block
+    partials = torch.empty(1 + T1 * n_chunks * 2 * n_assets, dtype=torch.float64, device=dev)
+    rc = _prepare_fn()(paths_tm.data_ptr(), planes.data_ptr(), stats.data_ptr(), tail.data_ptr(),
+                       partials.data_ptr(), T1 - 1, n_paths, n_assets, n_chunks,
+                       int(sorted_basis), torch._C._cuda_getCurrentRawStream(dev.index))
+    ma_prepare.launches += 1
+    if rc:
+        _build.check(rc, "amcx_ma_prepare")
+    return planes, stats
+
+
+ma_prepare.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _prepare_fn():
+    from . import _build
+
+    V, I = ctypes.c_void_p, ctypes.c_int
+    return _build.function("amcx_ma_prepare", [V, V, V, V, V, I, I, I, I, I, V])
 
 
 def _sort_desc(vals):

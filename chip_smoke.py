@@ -21,8 +21,9 @@ width:
   the closed form;
 - phases 8-10: the Andersen-Broadie Bermudan max-call (1,048,576 paths,
   9 exercise dates, 5 and 2 assets): the multi-asset step kernels
-  ``ma_step_moments``/``ma_step_apply`` and the induction kernel
-  ``ma_mega`` against their plain versions, then
+  ``ma_step_moments``/``ma_step_apply``, the induction kernel ``ma_mega``
+  and the kernel of their inputs ``ma_prepare`` against their plain
+  versions, then
   ``amcx_torch.price_max_call(engine="mega"|"fused")`` against the
   published values 26.15 (5 assets) and 13.90 (2 assets);
 - phases 11-12: the strike/maturity book (``book-16-1M``: 16 American puts,
@@ -1172,6 +1173,31 @@ def main():
           f" | device time and launches per induction: {prof7 or 'no device activity recorded'}"
           f" | design floor (conversions) {floor7_ms:.4f} ms", flush=True)
     del mega_in
+    # the inductions' inputs: the asset-major planes and the frame in one
+    # pass over the paths, against the transpose and the plain f64 frame
+    mc_allow = (torch.arange(MC_DATES + 1, device=dev) >= 1).to(torch.float32)
+
+    def prepare(plain=False):
+        fn = maxcall_pallas.ma_prepare_reference if plain else maxcall_pallas.ma_prepare
+        return fn(paths5, MC_R, mc_dt, mc_allow, sorted_basis=True)
+
+    before = maxcall_pallas.ma_prepare.launches
+    prep, prep_plain = prepare(), prepare(plain=True)
+    torch.cuda.synchronize()
+    prep_launches = maxcall_pallas.ma_prepare.launches - before
+    prep_err = max(float(torch.max(torch.abs(a - b))) for a, b in zip(prep, prep_plain))
+    _require(prep_launches == 1, f"ma_prepare launches {prep_launches}")
+    _require(all(torch.equal(a, b) for a, b in zip(prep, prep_plain)),
+             f"ma_prepare kernel equal to its plain version (max|d| {prep_err:.3e})")
+    del prep, prep_plain
+    ms_prep = _time_ms(torch, prepare, 20, 3)
+    ms_prep_plain = _time_ms(torch, lambda: prepare(plain=True), 5, 1)
+    ms_prep_copy = _time_ms(torch, lambda: paths5.permute(0, 2, 1).contiguous(), 20, 3)
+    prof_prep = _profile(torch, prepare, 20)
+    print(f"phase 9 ma_prepare kernel (planes and sorted frame, 5 assets {N_PATHS}x{MC_DATES}): "
+          f"equal to plain, launches {prep_launches} | kernel {ms_prep:.4f} ms plain "
+          f"{ms_prep_plain:.4f} ms, the transposing copy alone {ms_prep_copy:.4f} ms | device "
+          f"{prof_prep or 'no device activity recorded'}", flush=True)
 
     # ---- phase 10: the slice at full width: price_max_call on the card ----
     def max_call(engine, n_assets, seed=SEED):
@@ -1186,7 +1212,7 @@ def main():
         return backward_induction_fused_maxcall(paths, STRIKE, MC_R, mc_dt, mc_spec).price
 
     all_kernels = (gbm_paths, lsmc_price_megakernel, step_moments, step_apply, ma_step_moments,
-                   ma_step_apply, lsmc_price_ma_mega)
+                   ma_step_apply, lsmc_price_ma_mega, maxcall_pallas.ma_prepare)
     mc_launches, mc_ms = {}, {}
     for n_assets in (5, 2):
         res, mc_p = {}, {}
@@ -1198,9 +1224,11 @@ def main():
             torch.cuda.synchronize()
             mc_launches[(engine, n_assets)] = {
                 "ma_step_moments": ma_step_moments.launches,
-                "ma_step_apply": ma_step_apply.launches, "ma_mega": lsmc_price_ma_mega.launches}
-        want = (dict(ma_step_moments=0, ma_step_apply=0, ma_mega=1),
-                dict(ma_step_moments=MC_DATES, ma_step_apply=MC_DATES, ma_mega=0))
+                "ma_step_apply": ma_step_apply.launches, "ma_mega": lsmc_price_ma_mega.launches,
+                "ma_prepare": maxcall_pallas.ma_prepare.launches}
+        # each route builds its inputs with one ma_prepare launch
+        want = (dict(ma_step_moments=0, ma_step_apply=0, ma_mega=1, ma_prepare=1),
+                dict(ma_step_moments=MC_DATES, ma_step_apply=MC_DATES, ma_mega=0, ma_prepare=1))
         _require((mc_launches[("mega", n_assets)], mc_launches[("fused", n_assets)]) == want,
                  f"max-call routes launched their kernels {mc_launches}")
         _require(torch.equal(mc_p["mega"], mc_p["fused"]), "both routes priced the same paths")
@@ -1593,6 +1621,8 @@ def main():
         "ma_mega": _bound((MC_DATES + 1) * 5 * row, f32_ops=N_PATHS * (MC_DATES * P21
                                                                         + 8 * (2 * m5 - 1)),
                           f64_ops=MC_DATES * N_PATHS * P21),
+        # reads the 5-asset paths once and writes their planes once
+        "ma_prepare": _bound(2 * (MC_DATES + 1) * 5 * row),
         # reads the step's 5 planes, cf and tau; 252 products and f64 sums
         "ma_step_moments": _bound(7 * row, f32_ops=N_PATHS * P21, f64_ops=N_PATHS * P21),
         # reads the step's 5 planes (never cf or tau), writes cf/tau of the
@@ -1632,6 +1662,12 @@ def main():
          "replaces": "amcx/ops/lsmc_ma_mega.py:94",
          "launches": mc_launches[("mega", 5)]["ma_mega"], "max_abs_err": ma_mega_err,
          "ms": ms_ma_mega, "plain_ms": ms_ma_mega_plain, "library_ms": None},
+        {"name": "ma_prepare", "route": "cuda", "source": "amcx_torch/csrc/ma_prepare.cu",
+         "replaces": "amcx/models/maxcall.py:85 (XLA ops, no Pallas kernel)",
+         "launches": mc_launches[("mega", 5)]["ma_prepare"], "max_abs_err": prep_err,
+         "ms": ms_prep,
+         "plain_ms": ms_prep_plain, "library_ms": None,
+         "device_us": prof_prep and prof_prep["device_us_per_call"]},
         {"name": "ma_step_moments", "route": "cuda", "source": "amcx_torch/csrc/ma_step.cu",
          "replaces": "amcx/ops/maxcall_pallas.py:137",
          "launches": mc_launches[("fused", 5)]["ma_step_moments"],

@@ -776,6 +776,61 @@ def test_ma_mega_kernel_matches_plain(cuda_device, case, n):
             assert torch.equal(a, b)
 
 
+# the kernel that builds the multi-asset inductions' inputs: its planes are
+# the transpose's bits and its stats rows the plain version's (f64 sums of
+# x and x^2 rounded once), at 1, 2, 5 and 8 assets, sorted and not, at a
+# path count with a one-path tail tile (8,193: rows past step 0 are not
+# 16-byte aligned at 1 and 2 assets) and at a multiple of the tile
+@pytest.mark.parametrize("n", [8_193, 131_072])
+@pytest.mark.parametrize("sorted_basis", [True, False], ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("n_assets", [1, 2, 5, 8])
+def test_ma_prepare_matches_plain(cuda_device, n_assets, sorted_basis, n):
+    paths = _basket_paths(cuda_device, n, n_assets, 43)
+    allow = (torch.arange(10, device=cuda_device) >= 1).to(torch.float32)
+    before = tma.ma_prepare.launches
+    planes, stats = tma.ma_prepare(paths, MC["r"], 1.0 / 3.0, allow, sorted_basis=sorted_basis)
+    ref_planes, ref_stats = tma.ma_prepare_reference(paths, MC["r"], 1.0 / 3.0, allow,
+                                                     sorted_basis=sorted_basis)
+    torch.cuda.synchronize()
+    assert tma.ma_prepare.launches == before + 1
+    assert torch.equal(planes, paths.permute(0, 2, 1).contiguous())
+    assert torch.equal(planes, ref_planes)
+    assert stats.shape == (2 * n_assets + 3, 10) and torch.equal(stats, ref_stats)
+
+
+def test_ma_prepare_makes_no_host_wait(cuda_device):
+    # the induction's inputs on the card: one launch, no synchronise and no
+    # copy from the host
+    paths = _basket_paths(cuda_device, 131_072, 5, 44)
+    torch.cuda.synchronize()
+    before = tma.ma_prepare.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        planes, stats, _ = tmamega.prepare(paths, 100.0, 0.0437, 1.0 / 3.0, payoff_kind="maxcall",
+                                           degree=2, sorted_basis=True, exercise_from_step=1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tma.ma_prepare.launches == before + 1
+    assert planes.shape == (10, 5, 131_072) and bool(torch.isfinite(stats).all())
+
+
+def test_price_max_call_mega_keeps_the_plain_bits(cuda_device):
+    # the benchmark's route at 131,072 paths: kernel 7 on the kernel-built
+    # inputs prices the bits of the plain induction on the plain inputs
+    # (the transpose and the torch f64 frame, no ma_prepare launch) of the
+    # same paths
+    res, paths = at.price_max_call(45, [100.0] * 5, MC["K"], MC["T"], MC["r"], MC["sigma"],
+                                   q=MC["q"], n_paths=131_072, engine="mega", return_paths=True,
+                                   device=cuda_device)
+    before = tma.ma_prepare.launches
+    ref = tmamega.lsmc_price_ma_mega_reference(paths, MC["K"], MC["r"], MC["T"] / 9, degree=2,
+                                               sorted_basis=True, exercise_from_step=1)
+    torch.cuda.synchronize()
+    assert tma.ma_prepare.launches == before
+    assert torch.equal(res.price, ref[0]) and torch.equal(res.stderr, ref[1])
+
+
 def test_price_max_call_routes_on_card(cuda_device):
     # the slice's entry point at 131k paths, 2 assets: mega and fused price
     # the same card paths within 5e-3 of each other and within 0.35 of the

@@ -403,6 +403,74 @@ def test_xla_maxcall_matches_amcx(paths2, paths5, n_assets):
                               fit_fn=tmaxcall.max_call_fit_values, return_coeffs=True)
 
 
+def _assert_frame_matches_amcx(paths, mode, frame=None):
+    """The port's frame (f64 sums rounded once) against amcx's (f32 sums)
+    on the same numpy paths: rtol 1e-5 on the means, 1e-4 on 1/std."""
+    if frame is None:
+        frame = jmaxcall.maxcall_standardization(jnp.asarray(paths), mode)
+    mean, inv_std = tmaxcall.maxcall_standardization(_t(paths), mode)
+    assert mean.dtype == inv_std.dtype == torch.float32
+    np.testing.assert_allclose(mean.numpy(), np.asarray(frame[0]), rtol=1e-5)
+    np.testing.assert_allclose(inv_std.numpy(), np.asarray(frame[1]), rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["sorted", "total"])
+@pytest.mark.parametrize("n_assets", [1, 2, 5])
+def test_maxcall_standardization_matches_amcx(n_assets, mode):
+    _assert_frame_matches_amcx(_jax_paths(n_assets, seed=13, n_paths=2048), mode)
+
+
+def _frame_numpy(paths, sort):
+    """A float64 numpy transcription of the frame: the values sorted
+    descending, S1 and S2 in f64, mean and 1/std in f64, rounded once."""
+    x = np.sort(paths, axis=-1)[..., ::-1] if sort else paths
+    x = x.astype(np.float64)
+    n = x.shape[1]
+    mean = x.sum(axis=1) / n
+    var = np.maximum((x * x).sum(axis=1) / n - mean * mean, 0.0)
+    inv_std = 1.0 / np.maximum(np.sqrt(var), 1e-6)
+    return mean.astype(np.float32), inv_std.astype(np.float32)
+
+
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+def test_frame_is_f64_rounded_once(sort):
+    # the plain frame and ma_inputs' stats rows on the CPU: the numpy
+    # transcription's f32 bits (step 0's equal spots: var 0, 1/std 1e6)
+    paths = _jax_paths(3, seed=14, n_paths=3001)
+    mean, inv_std = tmaxcall.maxcall_standardization(_t(paths), "sorted" if sort else "total")
+    want_mean, want_inv = _frame_numpy(paths, sort)
+    np.testing.assert_array_equal(mean.numpy(), want_mean)
+    np.testing.assert_array_equal(inv_std.numpy(), want_inv)
+    assert float(inv_std[0, 0]) == 1e6
+    tma.ma_prepare.launches = 0
+    planes, stats = tma.ma_inputs(_t(paths), R, DT, sorted_basis=sort, exercise_from_step=1)
+    assert tma.ma_prepare.launches == 0  # the plain version on a CPU tensor
+    np.testing.assert_array_equal(planes.numpy(), np.ascontiguousarray(paths.transpose(0, 2, 1)))
+    np.testing.assert_array_equal(stats[:3].numpy(), want_mean.T)
+    np.testing.assert_array_equal(stats[3:6].numpy(), want_inv.T)
+
+
+@pytest.mark.parametrize("exercise", ["from-1", "steps"])
+def test_ma_stats_discount_rows_keep_their_bits(exercise):
+    # c_t and 1/c_t against the formula the rows were first built by (f32
+    # device scalars r and dt times the remaining steps), the exercise row
+    # against the schedule, in ma_stats and in the rows ma_inputs builds
+    f32 = torch.float32
+    rem = N_STEPS - torch.arange(N_STEPS + 1, dtype=f32)
+    r_rem = torch.tensor(R, dtype=f32) * torch.tensor(DT, dtype=f32) * rem
+    if exercise == "steps":
+        kw, allow = dict(exercise_steps=(2, 4, 7)), at.exercise_allow_row((2, 4, 7), N_STEPS, f32)
+    else:
+        kw, allow = dict(exercise_from_step=1), (torch.arange(N_STEPS + 1) >= 1).to(f32)
+    mean_t, inv_std_t = torch.zeros(N_STEPS + 1, 2), torch.ones(N_STEPS + 1, 2)
+    stats = tma.ma_stats(mean_t, inv_std_t, R, DT, allow)
+    _, built = tma.ma_inputs(torch.ones(N_STEPS + 1, 64, 2), R, DT, sorted_basis=True, **kw)
+    for rows in (stats, built):
+        assert rows.shape == (7, N_STEPS + 1) and rows.dtype == f32
+        assert torch.equal(rows[4], torch.exp(-r_rem)) and torch.equal(rows[5], torch.exp(r_rem))
+        assert torch.equal(rows[6], allow)
+
+
 def test_reprice_with_amcx_coefficients():
     # the exercise policy carried across: amcx's exported coefficient rows
     # and standardization frame, replayed by the port on fresh paths, give
@@ -421,10 +489,8 @@ def test_reprice_with_amcx_coefficients():
     tout = at.reprice_max_call_with_coeffs(_t(fresh), tres, tframe, K, T, R, TSPEC)
     assert abs(float(tout.price) - float(jout.price)) <= 1e-4
     np.testing.assert_allclose(float(tout.stderr), float(jout.stderr), rtol=1e-3)
-    # the port's own frame equals amcx's to f32 sums in two orders
-    mean, inv_std = tmaxcall.maxcall_standardization(_t(np.asarray(fit_paths)), "sorted")
-    np.testing.assert_allclose(mean.numpy(), np.asarray(frame[0]), rtol=1e-5)
-    np.testing.assert_allclose(inv_std.numpy(), np.asarray(frame[1]), rtol=1e-4)
+    # the port's own frame equals amcx's
+    _assert_frame_matches_amcx(np.asarray(fit_paths), "sorted", frame)
     with pytest.raises(ValueError, match="return_coeffs"):
         at.reprice_max_call_with_coeffs(_t(fresh), at.LSMCResult(None, None, None, None, None),
                                         tframe, K, T, R, TSPEC)
