@@ -30,7 +30,7 @@ from typing import Callable, NamedTuple, Optional, Union
 import torch
 
 from . import tracing
-from .exposures import _profile, step_exposures
+from .exposures import _profile, exposures_from_coeffs, step_profile
 from .payoff import barrier_gate, exercise_allow_row, payoff_fn_for
 from .regress import fit_continuation_with_coeffs, reject_axis_name
 from .types import MarketParams, ProductSpec, RegressionSpec, SimConfig
@@ -115,7 +115,8 @@ def backward_induction(
     coefficient rows (``return_coeffs``) are ``(n_steps, n_coeffs)``, as
     amcx exports them. ``surface_stats`` fills ``exposures`` with each
     step's EPE, PFE-5 and PFE-95 of the clamped continuation (exact,
-    sort-based; the maturity row is zero) without keeping the surface.
+    sort-based, EPE summed in f64; the maturity row is zero) without
+    keeping the surface (`amcx_torch.exposures.step_profile`).
     ``axis_name`` (amcx's sharded path axis) raises (ROADMAP A15).
     """
     reject_axis_name(axis_name, "backward_induction")
@@ -165,7 +166,7 @@ def backward_induction(
         if return_surface:
             conts[step] = cont
         if surface_stats:
-            rows[step] = step_exposures(cont)
+            rows[step] = step_profile(cont)
 
     discounted = cashflows * torch.exp(-r * dt * tau)
     if antithetic:
@@ -250,6 +251,7 @@ def price_option(
     return_cf_tau: bool = False,
     return_coeffs: bool = False,
     device: Union[str, torch.device] = "cuda",
+    surface_stats: bool = False,
 ) -> LSMCResult:
     """Simulate → price on ``device``.
 
@@ -262,18 +264,26 @@ def price_option(
     integer (every engine) or a ``torch.Generator`` (``"torch"`` backend).
     ``return_coeffs`` fills ``coeffs`` ("xla", "mega", "fusedpath");
     ``return_cf_tau`` fills ``cashflows``/``exercise_times`` for "mega" and
-    "fusedpath" ("xla" and "fused" always return them).
+    "fusedpath" ("xla" and "fused" always return them). ``surface_stats``
+    fills ``exposures`` with the per-step EPE/PFE-5/PFE-95 profile of the
+    continuation ("xla": :func:`backward_induction`'s; "mega": the induction
+    kernel's coefficients through `amcx_torch.exposures_from_coeffs`, the
+    price and stderr the same bits as without it); ``regress_on="auto"``
+    then fits on all paths.
     """
     with tracing.span("entry", engine=engine, n_paths=sim.n_paths, n_steps=sim.n_steps):
         return _price_option(seed, market, product, spec, sim, return_surface, engine,
-                             exercise_steps, return_cf_tau, return_coeffs, device)
+                             exercise_steps, return_cf_tau, return_coeffs, device, surface_stats)
 
 
 def _price_option(seed, market, product, spec, sim, return_surface, engine, exercise_steps,
-                  return_cf_tau, return_coeffs, device) -> LSMCResult:
+                  return_cf_tau, return_coeffs, device, surface_stats) -> LSMCResult:
     from .paths import gbm_standardization, simulate_gbm
 
-    spec = resolve_regression_spec(spec, product, q=market.q, for_surface=return_surface)
+    if surface_stats and engine in ("fused", "fusedpath"):
+        raise ValueError(f"engine={engine!r} has no surface_stats; use 'mega' or 'xla'")
+    spec = resolve_regression_spec(spec, product, q=market.q,
+                                   for_surface=return_surface or surface_stats)
     advisory = q0_call_advisory(market, product, spec)
     if advisory is not None:
         warnings.warn(advisory, stacklevel=3)  # the caller of price_option
@@ -327,17 +337,22 @@ def _price_option(seed, market, product, spec, sim, return_surface, engine, exer
             barrier_type=product.barrier_type, itm_weights=spec.regress_on == "itm",
             mean_t=mean_t, inv_std_t=inv_std_t, return_stats=True,
             exercise_steps=exercise_steps, return_cf_tau=return_cf_tau,
-            return_coeffs=return_coeffs, antithetic=sim.antithetic,
+            return_coeffs=return_coeffs or surface_stats, antithetic=sim.antithetic,
         )
-        if return_cf_tau or return_coeffs:
-            return LSMCResult(out.price, out.stderr, out.cashflows, out.exercise_times, None,
-                              coeffs=out.coeffs)
-        return LSMCResult(out[0], out[1], None, None, None)
+        if not (return_cf_tau or return_coeffs or surface_stats):
+            return LSMCResult(out[0], out[1], None, None, None)
+        exposures = None
+        if surface_stats:
+            exposures = exposures_from_coeffs(paths, out.coeffs, mean_t, inv_std_t, spec.basis,
+                                              spec.degree)
+        return LSMCResult(out.price, out.stderr, out.cashflows, out.exercise_times, None,
+                          exposures=exposures, coeffs=out.coeffs if return_coeffs else None)
     if engine != "xla":
         raise ValueError(f"engine must be 'xla', 'fused', 'mega', or 'fusedpath', got {engine!r}")
     paths = simulate_gbm(seed, market, product.T, sim, device)
     return lsmc_option_pricing(paths, product, market.r, spec,
                                return_surface=return_surface,
+                               surface_stats=surface_stats,
                                return_coeffs=return_coeffs,
                                exercise_steps=exercise_steps,
                                antithetic=sim.antithetic)

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from .basis import design_matrix
+from . import tracing
 
 __all__ = ["CCRExposures", "compute_ccr_exposures", "distributed_percentiles",
            "bilateral_cva", "exposures_from_coeffs", "cva_from_epe"]
@@ -58,19 +58,26 @@ def compute_ccr_exposures(surface_tm: torch.Tensor) -> CCRExposures:
                         pfe95=_percentiles(srt, n_valid, 95.0), epe=epe)
 
 
-def step_exposures(cont: torch.Tensor):
-    """``(EPE, PFE-5, PFE-95)`` 0-d tensors of one step's ``(n_paths,)``
-    finite continuation values (the engines' ``surface_stats`` rows)."""
-    srt = torch.sort(cont).values[None, :]
-    n = torch.tensor([cont.shape[0]], device=cont.device)
-    return (torch.mean(cont), _percentiles(srt, n, 5.0)[0], _percentiles(srt, n, 95.0)[0])
+def step_profile(cont: torch.Tensor) -> torch.Tensor:
+    """``(3,)`` ``[EPE, PFE-5, PFE-95]`` of one step's ``(n_paths,)``
+    continuation values, in their dtype (the engines' ``surface_stats``
+    rows): non-finite values left out, EPE the f64 sum over their count
+    rounded once, each NaN where no value is finite. Makes no copy from the
+    host."""
+    finite = torch.isfinite(cont)
+    n_valid = torch.sum(finite)[None]
+    total = torch.sum(torch.where(finite, cont, 0.0), dtype=torch.float64)
+    epe = torch.where(n_valid > 0, total / n_valid, torch.nan).to(cont.dtype)
+    srt = torch.sort(torch.where(finite, cont, torch.inf)).values[None, :]
+    return torch.cat([epe, _percentiles(srt, n_valid, 5.0), _percentiles(srt, n_valid, 95.0)])
 
 
 def _profile(rows, dtype, device) -> CCRExposures:
-    # per-step rows, maturity row recorded as zeros (the engines' surface)
-    epe, p5, p95 = (torch.cat([torch.stack(col), torch.zeros((1,), dtype=dtype, device=device)])
-                    for col in zip(*rows))
-    return CCRExposures(pfe5=p5, pfe95=p95, epe=epe)
+    # per-step step_profile rows, maturity column recorded as zeros (the
+    # engines' surface)
+    out = torch.cat([torch.stack(rows, dim=1), torch.zeros((3, 1), dtype=dtype, device=device)],
+                    dim=1)
+    return CCRExposures(pfe5=out[1], pfe95=out[2], epe=out[0])
 
 
 def _intervals(T, n_steps: int, r, dtype, device):
@@ -126,18 +133,18 @@ def exposures_from_coeffs(paths_tm: torch.Tensor, coeffs: torch.Tensor, mean_t: 
                           degree: int = 4) -> CCRExposures:
     """EPE/PFE from exported per-step regression coefficients (``(n_steps+1,
     degree+1)``, the mega engine's ``coeffs``; maturity row unused) and the
-    standardization the fit used, one step at a time: the surface
-    ``Ĉ_t = max(Σ_a c_{t,a} B_a((S_t − μ_t)·inv_std_t), 0)`` is never
-    materialized (elementwise products, so no TF32 reaches it)."""
-    n_steps = paths_tm.shape[0] - 1
-    dtype = paths_tm.dtype
-    coeffs, mean_t, inv_std_t = (torch.as_tensor(a, device=paths_tm.device).to(dtype)
-                                 for a in (coeffs, mean_t, inv_std_t))
-    rows = []
-    for t in range(n_steps):
-        A = design_matrix((paths_tm[t] - mean_t[t]) * inv_std_t[t], basis, degree)
-        rows.append(step_exposures(torch.clamp_min(torch.sum(A * coeffs[t], dim=-1), 0.0)))
-    return _profile(rows, dtype, paths_tm.device)
+    standardization the fit used: the surface ``Ĉ_t = max(Σ_a c_{t,a}
+    B_a((S_t − μ_t)·inv_std_t), 0)``, in the induction kernel's own order,
+    is reduced a step at a time and never materialized. Each step's EPE is
+    the f64 sum over its count, rounded once; PFE is amcx's percentile.
+    `amcx_torch.ops.ccr_exposures` computes it: the kernel on f32 paths on
+    a CUDA device, its plain version in the paths' dtype on any other.
+    Inside the ``analytics`` span."""
+    from .ops.ccr_exposures import ccr_exposures
+
+    with tracing.span("analytics"):
+        rows = ccr_exposures(paths_tm, coeffs, mean_t, inv_std_t, basis, degree)
+        return CCRExposures(pfe5=rows[1], pfe95=rows[2], epe=rows[0])
 
 
 def distributed_percentiles(x, qs, axis_name, n_bins: int = 2048):

@@ -3,7 +3,7 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 -m amcx_torch.kernel_profile
-        [--route put|gbm|book|ma-step|ma-apply|ma-prepare|ma-mega|swing|step|fusedpath|qmc]
+        [--route put|gbm|book|ma-step|ma-apply|ma-prepare|ma-mega|swing|step|fusedpath|qmc|ccr]
         [--reps 20]
         [--label NAME]
 
@@ -68,6 +68,12 @@ Routes, each on fixed inputs made from fixed seeds:
   kernel's time stands apart from any host-to-device copy, and a new
   seed's host work by part (scipy's engine, the direction tables, their
   copy to the card).
+
+- ``ccr`` (the exposure kernel): the CCR profile of the flagship put
+  (1,048,576 Philox paths x 100 steps of ``gbm``, the all-paths fit)
+  through ``ccr_exposures`` alone, on the coefficients kernel 2 exports
+  once and the closed-form frame; the hash covers the EPE, PFE-5 and
+  PFE-95 rows.
 
 Every route also prints the wrappers' host time per run (enqueue, no
 sync) and the CUDA-event time minus the device time; a ``step`` run is
@@ -351,9 +357,28 @@ def _qmc(torch, amcx_torch, dev):
     return run, outs, {"price": outs[1][-1].mean(), "by_order": by_order, "tables": tables}
 
 
+def _ccr(torch, amcx_torch, dev):
+    from amcx_torch.ops.ccr_exposures import ccr_exposures
+    from amcx_torch.ops.gbm import gbm_paths
+    from amcx_torch.ops.lsmc_megakernel import lsmc_price_megakernel
+
+    n_paths, n_steps, S0, r, sigma, K, T = 1_048_576, 100, 100.0, 0.01, 0.2, 100.0, 1.0
+    paths = gbm_paths(20261016, S0, r, sigma, 0.0, T, n_steps, n_paths, device=dev)
+    mean_t, inv_std_t = amcx_torch.gbm_standardization(amcx_torch.MarketParams(S0, r, sigma), T,
+                                                       n_steps, device=dev)
+    coeffs = lsmc_price_megakernel(paths, K, r, T / n_steps, -1.0, degree=4, itm_weights=False,
+                                   mean_t=mean_t, inv_std_t=inv_std_t, return_coeffs=True).coeffs
+
+    def run():
+        return ccr_exposures(paths, coeffs, mean_t, inv_std_t, "chebyshev", 4)
+
+    rows = run()
+    return run, (rows,), {"price": rows[0, 0]}
+
+
 ROUTES = {"put": _put, "gbm": _gbm, "book": _book, "ma-step": _ma_step, "ma-apply": _ma_apply,
           "ma-prepare": _ma_prepare, "ma-mega": _ma_mega, "swing": _swing, "step": _step,
-          "fusedpath": _fusedpath, "qmc": _qmc}
+          "fusedpath": _fusedpath, "qmc": _qmc, "ccr": _ccr}
 
 
 def _device_us(torch, profile, activity, fn, reps):

@@ -17,5 +17,7 @@ first use) with their plain-torch versions.
   (``csrc/lsmc_swing.cu``);
 - `amcx_torch.ops.sobol_pallas`: scrambled-Sobol GBM pathgen
   (``csrc/sobol_gbm.cu``);
+- `amcx_torch.ops.ccr_exposures`: the CCR exposure profile of a pricing's
+  coefficients (``csrc/ccr_exposures.cu``);
 - `amcx_torch.ops._build`: the ``nvcc`` build and ``ctypes`` loader.
 """

@@ -32,6 +32,9 @@ The spans of the pricing entries, at the layer boundaries of ``PERF.md``:
 ``induction.prepare``     the induction's inputs before its launch (the
                           mega put's ``mega_stats``, the max-call's
                           ``prepare``, fusedpath's frame and settings)
+``analytics``             ``exposures_from_coeffs`` (in ``price_option``
+                          with ``engine="mega"`` and ``surface_stats``):
+                          the exposure kernel and the ``CCRExposures``
 ========================  ==================================================
 
 A layer is a name's first dotted part; its self time is the time its spans

@@ -54,7 +54,13 @@ width:
   also at 20 steps and at its step cap) and its point set against scipy's,
   then ``simulate_gbm_qmc_device`` into ``lsmc_mega`` on
   the flagship put against CRR-2000, and the bridge-order European put
-  against Black-Scholes.
+  against Black-Scholes;
+- phase 19: the CCR exposure profile: the kernel ``ccr_exposures``
+  (EPE, PFE-5 and PFE-95 of every step from kernel 2's all-paths
+  coefficients) against its plain version at 1,048,576 x 100, bit for bit,
+  then ``price_option(engine="mega", surface_stats=True)`` (each of kernel
+  1, kernel 2 and the exposure kernel launched once; the price and stderr
+  the bits of the call without the profile).
 
 It times the pricings, each kernel, each plain version and, where one
 PyTorch call computes the same function, that call, with CUDA events, and
@@ -611,6 +617,82 @@ def _qmc_phases(torch, dev, amcx_torch, sass):
                        ms=ms[mode], plain_ms=plain_ms[mode], bound=bound[mode],
                        device_us=device_us[mode], design_floor_ms=floor[mode])
             for mode in ("increment", "bridge")}
+
+
+def _ccr_phase(torch, dev, amcx_torch):
+    """Phase 19: the CCR exposure kernel (``csrc/ccr_exposures.cu``) against
+    its plain version on the flagship put's paths and kernel 2's all-paths
+    coefficients at 1M x 100, its time beside its bound and design floor,
+    then ``price_option(engine="mega", surface_stats=True)`` (kernel 1,
+    kernel 2 and the exposure kernel launched once each; the price and
+    stderr bits of the call without the profile). Returns the kernel's row,
+    its ``launches`` that pricing's count."""
+    from amcx_torch.ops import ccr_exposures as ccr
+    from amcx_torch.ops.gbm import gbm_paths
+    from amcx_torch.ops.lsmc_megakernel import lsmc_price_megakernel
+
+    market = amcx_torch.MarketParams(S0, R, SIGMA)
+    paths = gbm_paths(SEED, S0, R, SIGMA, 0.0, T, N_STEPS, N_PATHS, device=dev)
+    mean_t, inv_std_t = amcx_torch.gbm_standardization(market, T, N_STEPS, device=dev)
+    coeffs = lsmc_price_megakernel(paths, STRIKE, R, T / N_STEPS, -1.0, itm_weights=False,
+                                   mean_t=mean_t, inv_std_t=inv_std_t, return_coeffs=True).coeffs
+
+    def kernel():
+        return ccr.ccr_exposures(paths, coeffs, mean_t, inv_std_t)
+
+    rows = kernel()
+    ref = ccr.ccr_exposures_reference(paths, coeffs, mean_t, inv_std_t)
+    err = float(torch.max(torch.abs(rows - ref)))
+    _require(torch.equal(rows.view(torch.int32), ref.view(torch.int32)),
+             f"ccr_exposures kernel equal to its plain version (max|d| {err:.3e})")
+    ms = _time_ms(torch, kernel, 20, 3)
+    ms_plain = _time_ms(torch, lambda: ccr.ccr_exposures_reference(paths, coeffs, mean_t,
+                                                                   inv_std_t), 3, 1)
+    prof = _profile(torch, kernel, 10)
+    # reads the paths of the 100 dates before maturity once; per path-step
+    # the fit's 21 f32 operations (Chebyshev degree 4) and EPE's f64 add
+    path_steps = N_STEPS * N_PATHS
+    bound = _bound(4 * path_steps, f32_ops=21 * path_steps, f64_ops=path_steps)
+    # the design floor: the window pass's read and the sample's 1/32 of it
+    floor_ms = 4 * path_steps * (1 + 1 / 32) / HBM_BYTES_PER_S * 1e3
+    print(f"phase 19 ccr_exposures kernel (EPE/PFE-5/PFE-95, {N_PATHS}x{N_STEPS}): equal to "
+          f"plain | kernel {ms:.4f} ms plain {ms_plain:.3f} ms | device "
+          f"{prof or 'no device activity recorded'} | bound {bound[0]:.4f} ms ({bound[1]}), "
+          f"design floor {floor_ms:.4f} ms", flush=True)
+    del paths, rows, ref
+
+    args = (SEED, market, amcx_torch.ProductSpec(K=STRIKE, T=T, option_type="put",
+                                                 exercise="american"),
+            amcx_torch.RegressionSpec(degree=4, regress_on="all"),
+            amcx_torch.SimConfig(n_paths=N_PATHS, n_steps=N_STEPS, backend="philox"))
+
+    def route(**kw):
+        return amcx_torch.price_option(*args, engine="mega", device=dev, **kw)
+
+    # the main path: kernel 1, kernel 2 and the exposure kernel once each
+    torch.cuda.synchronize()
+    gbm_paths.launches = lsmc_price_megakernel.launches = ccr.ccr_exposures.launches = 0
+    res = route(surface_stats=True)
+    torch.cuda.synchronize()
+    launches = {"gbm_paths": gbm_paths.launches, "lsmc_mega": lsmc_price_megakernel.launches,
+                "ccr_exposures": ccr.ccr_exposures.launches}
+    _require(launches == dict(gbm_paths=1, lsmc_mega=1, ccr_exposures=1),
+             f"the profile's route launched each kernel once {launches}")
+    plain = route()
+    e = res.exposures
+    _require(torch.equal(res.price, plain.price) and torch.equal(res.stderr, plain.stderr),
+             "the profile keeps the price and stderr bits")
+    _require(bool(torch.isfinite(torch.stack([e.epe, e.pfe5, e.pfe95])).all()),
+             "a finite profile")
+    ms_route = _time_ms(torch, lambda: route(surface_stats=True), 10, 2)
+    ms_price = _time_ms(torch, route, 10, 2)
+    print(f"phase 19 price_option(engine='mega', surface_stats=True) {N_PATHS}x{N_STEPS}: price "
+          f"{float(res.price):.6f} +- {float(res.stderr):.6f}, EPE t=50 {float(e.epe[50]):.4f} "
+          f"PFE-5 {float(e.pfe5[50]):.4f} PFE-95 {float(e.pfe95[50]):.4f} | {ms_route:.3f} ms, "
+          f"{ms_price:.3f} ms without the profile | launches {launches}", flush=True)
+    return {"launches": launches["ccr_exposures"], "max_abs_err": err, "ms": ms,
+            "plain_ms": ms_plain, "device_us": prof and prof["device_us_per_call"],
+            "design_floor_ms": floor_ms, "bound": bound}
 
 
 def main():
@@ -1585,6 +1667,7 @@ def main():
 
     sw = _swing_phases(torch, dev, amcx_torch)
     qmc = _qmc_phases(torch, dev, amcx_torch, sass)
+    ccr = _ccr_phase(torch, dev, amcx_torch)
 
     # ---- bounds: bytes each kernel must move and its arithmetic ----------
     P4, k4 = 20, 5  # step kernels and mega induction: Chebyshev degree 4
@@ -1636,6 +1719,7 @@ def main():
         "lsmc_swing": sw["bound"],
         "sobol_gbm": qmc["increment"]["bound"],
         "sobol_gbm_bridge": qmc["bridge"]["bound"],
+        "ccr_exposures": ccr["bound"],
     }
 
     print(smi)
@@ -1698,6 +1782,11 @@ def main():
            "design_floor_ms": row["design_floor_ms"]}
           for name, row in (("sobol_gbm", qmc["increment"]),
                             ("sobol_gbm_bridge", qmc["bridge"]))),
+        {"name": "ccr_exposures", "route": "cuda", "source": "amcx_torch/csrc/ccr_exposures.cu",
+         "replaces": "amcx/exposures.py:113 (XLA ops, no Pallas kernel)",
+         "launches": ccr["launches"], "max_abs_err": ccr["max_abs_err"], "ms": ccr["ms"],
+         "plain_ms": ccr["plain_ms"], "library_ms": None, "device_us": ccr["device_us"],
+         "design_floor_ms": ccr["design_floor_ms"]},
     ]]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,9 @@ import torch
 
 import amcx_torch as at
 from amcx_torch import engine_pallas as tfused
+from amcx_torch import tracing
 from amcx_torch.models import maxcall as tmaxcall
+from amcx_torch.ops import ccr_exposures as tccr
 from amcx_torch.ops import gbm as tgbm
 from amcx_torch.ops import lsmc_ma_mega as tmamega
 from amcx_torch.ops import lsmc_fusedpath as tfp
@@ -1310,3 +1312,148 @@ def test_sobol_kernel_cached_seed_copies_nothing(cuda_device):
         assert tsp._device_tables.cache_info().hits == hits + 1
         assert not [e.name for e in prof.events() if "HtoD" in e.name]
         assert torch.equal(first, second)
+
+
+# ---- the CCR exposure kernel (csrc/ccr_exposures.cu) ----
+
+def _ccr_inputs(dev, seed, n, T=100, basis="chebyshev", degree=4):
+    # kernel 1's paths, kernel 2's all-paths coefficients, the closed-form frame
+    paths = tgbm.gbm_paths(seed, S0, R, SIGMA, 0.0, 1.0, T, n, device=dev)
+    mean_t, inv_std_t = at.gbm_standardization(at.MarketParams(S0, R, SIGMA), 1.0, T, device=dev)
+    coeffs = tmega.lsmc_price_megakernel(paths, K, R, 1.0 / T, -1.0, basis=basis, degree=degree,
+                                         itm_weights=False, mean_t=mean_t, inv_std_t=inv_std_t,
+                                         return_coeffs=True).coeffs
+    return paths, coeffs, mean_t, inv_std_t
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _misled(paths, coeffs, mean_t, inv_std_t, basis, degree):
+    # a copy whose first 32,768 paths (the kernel's sample) of each step all
+    # take the step's largest finite continuation: the sample's windows then
+    # miss the PFE-5 ranks, and every step with well over 32,768 paths and
+    # more than one value goes through the kernel's radix passes
+    out = paths.clone()
+    m = min(paths.shape[1], 32_768)
+    for t in range(paths.shape[0] - 1):
+        cont = tccr._fit(paths[t], coeffs[t], mean_t[t], inv_std_t[t], basis, degree)
+        out[t, :m] = paths[t, torch.argmax(torch.where(torch.isfinite(cont), cont, -torch.inf))]
+    return out
+
+
+def _ccr_equal_to_plain(paths, coeffs, mean_t, inv_std_t, basis="chebyshev", degree=4):
+    # the kernel twice, on a copy whose sample misleads its windows (the
+    # radix passes) and its plain version (a sort a step): the same bits,
+    # NaN included
+    misled = _misled(paths, coeffs, mean_t, inv_std_t, basis, degree)
+    before = tccr.ccr_exposures.launches
+    ker = tccr.ccr_exposures(paths, coeffs, mean_t, inv_std_t, basis, degree)
+    again = tccr.ccr_exposures(paths, coeffs, mean_t, inv_std_t, basis, degree)
+    fallback = tccr.ccr_exposures(misled, coeffs, mean_t, inv_std_t, basis, degree)
+    ref = tccr.ccr_exposures_reference(paths, coeffs, mean_t, inv_std_t, basis, degree)
+    ref_misled = tccr.ccr_exposures_reference(misled, coeffs, mean_t, inv_std_t, basis, degree)
+    torch.cuda.synchronize()
+    assert tccr.ccr_exposures.launches == before + 3
+    assert torch.equal(_bits(ker), _bits(again))
+    assert torch.equal(_bits(fallback), _bits(ref_misled)), \
+        (fallback - ref_misled).abs().nan_to_num(1.0).max()
+    assert torch.equal(_bits(ker), _bits(ref)), (ker - ref).abs().nan_to_num(1.0).max()
+    return ker
+
+
+@pytest.mark.parametrize("seed", [20261016, 2 ** 31 + 977])
+def test_ccr_kernel_matches_plain_at_full_shape(cuda_device, seed):
+    # the cell's shape: 1,048,576 x 100 (t = 0 has every path equal)
+    rows = _ccr_equal_to_plain(*_ccr_inputs(cuda_device, seed, 1_048_576))
+    assert rows.shape == (3, 101) and not rows[:, 100].any()
+    assert bool(torch.isfinite(rows).all())
+    assert rows[1, 0] == rows[2, 0] == rows[0, 0]  # one value at t = 0
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 21, 131_071])
+def test_ccr_kernel_odd_path_counts(cuda_device, n):
+    # a masked last quad, one and two values, 21 paths (5% of 20 and 95% of
+    # 20 are whole ranks), a chunk that is not full
+    _ccr_equal_to_plain(*_ccr_inputs(cuda_device, 5, n, T=50))
+
+
+@pytest.mark.parametrize("basis,degree", [("power", 0), ("legendre", 3), ("laguerre", 3),
+                                          ("hermite", 3), ("chebyshev", 10)])
+def test_ccr_kernel_other_bases(cuda_device, basis, degree):
+    _ccr_equal_to_plain(*_ccr_inputs(cuda_device, 6, 65_537, T=20, basis=basis, degree=degree),
+                        basis=basis, degree=degree)
+
+
+def test_ccr_kernel_non_finite_ties_and_unaligned_rows(cuda_device):
+    # non-finite spots and a NaN coefficient row are left out (a step with
+    # no finite value reads NaN), a zero row makes every value +0.0, a row
+    # of half equal spots ties at the selected ranks; rows one float past
+    # an aligned base take the one-load-a-path branch
+    n, T = 65_537, 12
+    paths, coeffs, mean_t, inv_std_t = _ccr_inputs(cuda_device, 7, n, T=T)
+    paths = paths.clone()
+    paths[3, ::7] = float("inf")
+    paths[4, 1::5] = float("nan")
+    paths[5, : n // 2] = 97.0
+    coeffs = coeffs.clone()
+    coeffs[6] = float("nan")
+    coeffs[7] = 0.0
+    coeffs[8, 0] = -0.0
+    coeffs[8, 1:] = 0.0
+    rows = _ccr_equal_to_plain(paths, coeffs, mean_t, inv_std_t)
+    assert bool(torch.isnan(rows[:, 6]).all()) and not rows[:, 7].any()
+    buf = torch.empty(paths.numel() + 1, dtype=torch.float32, device=cuda_device)
+    shifted = buf[1:].view_as(paths)
+    shifted.copy_(paths)
+    _ccr_equal_to_plain(shifted, coeffs, mean_t, inv_std_t)
+
+
+def test_price_option_surface_stats_on_card(cuda_device):
+    # the cell's entry at 131k x 100: the price and stderr are the bits of
+    # the call without the profile; one profile is one kernel call on the
+    # paths and kernel 2's coefficients
+    args = (23, at.MarketParams(S0, R, SIGMA),
+            at.ProductSpec(K=K, T=1.0, option_type="put", exercise="american"),
+            at.RegressionSpec(degree=4, regress_on="all"),
+            at.SimConfig(n_paths=131_072, n_steps=100, backend="philox"))
+    before = tccr.ccr_exposures.launches
+    res = at.price_option(*args, engine="mega", device=cuda_device, surface_stats=True,
+                          return_coeffs=True)
+    plain = at.price_option(*args, engine="mega", device=cuda_device)
+    paths = at.simulate_gbm(23, args[1], 1.0, args[4], cuda_device)
+    mean_t, inv_std_t = at.gbm_standardization(args[1], 1.0, 100, device=cuda_device)
+    ref = tccr.ccr_exposures_reference(paths, res.coeffs, mean_t, inv_std_t)
+    torch.cuda.synchronize()
+    assert tccr.ccr_exposures.launches == before + 1
+    assert torch.equal(res.price, plain.price) and torch.equal(res.stderr, plain.stderr)
+    e = res.exposures
+    assert torch.equal(_bits(torch.stack([e.epe, e.pfe5, e.pfe95])), _bits(ref))
+
+
+def test_analytics_makes_no_host_wait(cuda_device):
+    # inside the analytics span: no synchronise and no copy, by the sync
+    # debug mode and by the profiler's runtime calls under the span
+    from torch.profiler import ProfilerActivity, profile
+
+    inputs = _ccr_inputs(cuda_device, 8, 131_072)
+    at.exposures_from_coeffs(*inputs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        at.exposures_from_coeffs(*inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with tracing.recording(), profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) as prof:
+        at.exposures_from_coeffs(*inputs)
+        torch.cuda.synchronize()
+    tracing.drain()
+    spans = [e.time_range for e in prof.events() if e.name == tracing.PREFIX + "analytics"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    assert len(spans) == 1
+    inside = [e.name for e in prof.events()
+              if spans[0].start <= e.time_range.start <= spans[0].end
+              and (e.name.startswith("cudaMemcpy") or "Synchronize" in e.name)]
+    assert not inside, inside
