@@ -95,8 +95,9 @@ def max_call_fit_values(X, y, spec: RegressionSpec, weights=None, axis_name=None
 
 
 def _xla_pricing(seed, S0, r, q, sigma, corr, K, T, spec, sim, basis_mode, return_surface,
-                 return_coeffs, device):
-    paths = simulate_gbm_multi(seed, S0, r, sigma, T, sim, q=q, corr=corr, device=device)
+                 return_coeffs, device, differentiable=False):
+    paths = simulate_gbm_multi(seed, S0, r, sigma, T, sim, q=q, corr=corr, device=device,
+                               differentiable=differentiable)
     with tracing.span("induction"):
         knocked = torch.ones(paths.shape[:2], dtype=torch.bool, device=paths.device)
         res = backward_induction(
@@ -315,6 +316,6 @@ def max_call_greeks(
     rr = torch.tensor(float(r), requires_grad=True)
     sim = SimConfig(n_paths=n_paths, n_steps=n_exercise_dates)
     res, _ = _xla_pricing(seed, S0_t, rr, float(q), sig, corr, float(K), float(T), spec, sim,
-                          basis_mode, False, False, device)
+                          basis_mode, False, False, device, differentiable=True)
     delta, vega, rho = torch.autograd.grad(res.price, (S0_t, sig, rr))
     return res.price.detach(), {"delta": delta, "vega": vega, "rho": rho}

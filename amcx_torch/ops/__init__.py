@@ -2,6 +2,8 @@
 first use) with their plain-torch versions.
 
 - `amcx_torch.ops.gbm`: Philox GBM pathgen (``csrc/gbm.cu``);
+- `amcx_torch.ops.gbm_multi`: correlated multi-asset GBM paths from given
+  normals (``csrc/gbm_multi.cu``);
 - `amcx_torch.ops.lsmc_megakernel`: LSMC backward induction of one option
   (``csrc/lsmc_mega.cu``) and of a strike/maturity book
   (``csrc/lsmc_book.cu``);

@@ -23,6 +23,7 @@ from typing import Union
 import torch
 
 from . import tracing
+from .ops.gbm_multi import gbm_multi_paths, gbm_multi_paths_reference
 from .types import MarketParams, SimConfig
 
 __all__ = [
@@ -133,6 +134,8 @@ def simulate_gbm_multi(
     q=None,
     corr=None,
     device: Union[str, torch.device] = "cuda",
+    *,
+    differentiable: bool = False,
 ) -> torch.Tensor:
     """Correlated multi-asset GBM on ``device``, time-major ``(n_steps+1,
     n_paths, n_assets)`` (amcx's ``simulate_gbm_multi``).
@@ -142,20 +145,23 @@ def simulate_gbm_multi(
     f32 products, so no matrix product (and no TF32 setting) reaches the
     paths. ``S0``/``r``/``sigma``/``q`` broadcast per asset. ``seed`` as in
     :func:`simulate_gbm` (the ``"torch"`` simulator; amcx has no kernel
-    pathgen for baskets). The paths are differentiable in tensor inputs
-    (S0, r, sigma, q, T). ``sim.antithetic`` mirrors path i into path
+    pathgen for baskets). ``sim.antithetic`` mirrors path i into path
     i + n_paths/2.
+
+    After ``torch.randn`` the paths come from
+    :func:`amcx_torch.ops.gbm_multi.gbm_multi_paths`: on the card one launch
+    of its kernel (no copy from the host, no synchronise; float32, at most 8
+    assets, S0/r/sigma/q/T host values that need no grad, else it raises),
+    on the CPU its plain version. ``differentiable=True`` asks for that
+    plain version, the chain of torch operations, on any device: the paths
+    are then differentiable in tensor inputs (S0, r, sigma, q, T), as
+    ``max_call_greeks`` needs.
     """
     with tracing.span("pathgen"):
         device = torch.device(device)
         dtype = sim.torch_dtype
-        S0 = torch.atleast_1d(torch.as_tensor(S0, dtype=dtype, device=device))
-        n_assets = S0.shape[0]
+        n_assets = torch.atleast_1d(torch.as_tensor(S0)).shape[0]
         n_steps, n_paths = sim.n_steps, sim.n_paths
-
-        def vec(x):
-            return torch.broadcast_to(torch.as_tensor(x, dtype=dtype, device=device), (n_assets,))
-
         generator = _generator(seed, device)
         if sim.antithetic:
             half = torch.randn((n_steps, n_paths // 2, n_assets), generator=generator, dtype=dtype,
@@ -164,20 +170,6 @@ def simulate_gbm_multi(
         else:
             Z = torch.randn((n_steps, n_paths, n_assets), generator=generator, dtype=dtype,
                             device=device)
-        W = Z
-        if corr is not None:
-            L = torch.linalg.cholesky(torch.as_tensor(corr, dtype=dtype, device=device))
-            cols = []
-            for b in range(n_assets):
-                w_b = Z[..., 0] * L[b, 0]
-                for a in range(1, b + 1):
-                    w_b = w_b + Z[..., a] * L[b, a]
-                cols.append(w_b)
-            W = torch.stack(cols, dim=-1)
-        r, sigma, q = vec(r), vec(sigma), vec(0.0 if q is None else q)
-        dt = torch.as_tensor(T, dtype=dtype, device=device) / n_steps
-        drift = (r - q - 0.5 * sigma ** 2) * dt
-        log_inc = drift + (sigma * torch.sqrt(dt)) * W
-        log_rel = torch.cat([torch.zeros((1, n_paths, n_assets), dtype=dtype, device=device),
-                             torch.cumsum(log_inc, dim=0)], dim=0)
-        return S0 * torch.exp(log_rel)
+        if differentiable:
+            return gbm_multi_paths_reference(Z, S0, r, sigma, q, T, corr)
+        return gbm_multi_paths(Z, S0, r, sigma, q, T, corr)

@@ -21,9 +21,10 @@ width:
   the closed form;
 - phases 8-10: the Andersen-Broadie Bermudan max-call (1,048,576 paths,
   9 exercise dates, 5 and 2 assets): the multi-asset step kernels
-  ``ma_step_moments``/``ma_step_apply``, the induction kernel ``ma_mega``
-  and the kernel of their inputs ``ma_prepare`` against their plain
-  versions, then
+  ``ma_step_moments``/``ma_step_apply``, the induction kernel ``ma_mega``,
+  the kernel of their inputs ``ma_prepare`` and the basket pathgen kernel
+  ``gbm_multi`` (independent and correlated assets) against their plain
+  versions, bit for bit, then
   ``amcx_torch.price_max_call(engine="mega"|"fused")`` against the
   published values 26.15 (5 assets) and 13.90 (2 assets);
 - phases 11-12: the strike/maturity book (``book-16-1M``: 16 American puts,
@@ -708,6 +709,7 @@ def main():
     from amcx_torch.host_profile import route_split
     from amcx_torch.ops import _build
     from amcx_torch.ops.gbm import gbm_paths, gbm_paths_reference
+    from amcx_torch.ops.gbm_multi import gbm_multi_paths, gbm_multi_paths_reference
     from amcx_torch.ops.lsmc_megakernel import (lsmc_book_mega_reference,
                                                 lsmc_book_megakernel,
                                                 lsmc_price_mega_reference,
@@ -1281,7 +1283,41 @@ def main():
           f"{ms_prep_plain:.4f} ms, the transposing copy alone {ms_prep_copy:.4f} ms | device "
           f"{prof_prep or 'no device activity recorded'}", flush=True)
 
-    # ---- phase 10: the slice at full width: price_max_call on the card ----
+    # ---- phase 10: the basket pathgen kernel, then the slice at full width:
+    # ---- price_max_call on the card ------------------------------------------
+    # the kernel on the draw of phase 8's paths (their normals again), with
+    # independent assets and with a correlation, against its plain chain
+    mc_gen = torch.Generator(device=dev)
+    mc_gen.manual_seed(SEED)
+    mc_z = torch.randn((MC_DATES, N_PATHS, 5), generator=mc_gen, device=dev)
+    mc_args = ([S0] * 5, MC_R, MC_SIGMA, MC_Q, MC_T)
+    mc_corr = [[1.0 if a == b else 0.3 for b in range(5)] for a in range(5)]
+    gm_equal = {}
+    for case, corr in (("independent", None), ("corr 0.3", mc_corr)):
+        ker = gbm_multi_paths(mc_z, *mc_args, corr)
+        ref = gbm_multi_paths_reference(mc_z, *mc_args, corr)
+        torch.cuda.synchronize()
+        gm_equal[case] = (torch.equal(ker, ref), float(torch.max(torch.abs(ker - ref))))
+        del ker, ref
+    _require(torch.equal(paths5, gbm_multi_paths_reference(mc_z, *mc_args)),
+             "phase 8's route paths are the plain chain's bits on the same draw")
+    _require(all(eq for eq, _ in gm_equal.values()),
+             f"gbm_multi kernel equal to its plain chain {gm_equal}")
+    gm_err = max(err for _, err in gm_equal.values())
+    ms_gm = _time_ms(torch, lambda: gbm_multi_paths(mc_z, *mc_args), 20, 3)
+    ms_gm_plain = _time_ms(torch, lambda: gbm_multi_paths_reference(mc_z, *mc_args), 10, 2)
+    # the route's pathgen before this kernel: the draw, then the chain
+    ms_gm_chain = _time_ms(torch, lambda: gbm_multi_paths_reference(
+        torch.randn((MC_DATES, N_PATHS, 5), generator=mc_gen, device=dev), *mc_args), 10, 2)
+    prof_gm = _kernel_us(torch, lambda: gbm_multi_paths(mc_z, *mc_args), 20, "gbm_multi_kernel")
+    # reads the normals once and writes the paths once
+    bound_gm = _bound((2 * MC_DATES + 1) * 5 * N_PATHS * 4)
+    print(f"phase 10 gbm_multi kernel (5 assets {N_PATHS}x{MC_DATES}): equal to plain "
+          f"{gm_equal} | kernel {ms_gm:.4f} ms ({_launch_text(prof_gm)}) plain {ms_gm_plain:.4f} "
+          f"ms, draw + chain {ms_gm_chain:.4f} ms | bound {bound_gm[0]:.4f} ms ({bound_gm[1]})",
+          flush=True)
+    del mc_z
+
     def max_call(engine, n_assets, seed=SEED):
         return amcx_torch.price_max_call(seed, [S0] * n_assets, STRIKE, MC_T, MC_R, MC_SIGMA,
                                          q=MC_Q, n_paths=N_PATHS, spec=mc_spec, engine=engine,
@@ -1294,7 +1330,7 @@ def main():
         return backward_induction_fused_maxcall(paths, STRIKE, MC_R, mc_dt, mc_spec).price
 
     all_kernels = (gbm_paths, lsmc_price_megakernel, step_moments, step_apply, ma_step_moments,
-                   ma_step_apply, lsmc_price_ma_mega, maxcall_pallas.ma_prepare)
+                   ma_step_apply, lsmc_price_ma_mega, maxcall_pallas.ma_prepare, gbm_multi_paths)
     mc_launches, mc_ms = {}, {}
     for n_assets in (5, 2):
         res, mc_p = {}, {}
@@ -1307,10 +1343,14 @@ def main():
             mc_launches[(engine, n_assets)] = {
                 "ma_step_moments": ma_step_moments.launches,
                 "ma_step_apply": ma_step_apply.launches, "ma_mega": lsmc_price_ma_mega.launches,
-                "ma_prepare": maxcall_pallas.ma_prepare.launches}
-        # each route builds its inputs with one ma_prepare launch
-        want = (dict(ma_step_moments=0, ma_step_apply=0, ma_mega=1, ma_prepare=1),
-                dict(ma_step_moments=MC_DATES, ma_step_apply=MC_DATES, ma_mega=0, ma_prepare=1))
+                "ma_prepare": maxcall_pallas.ma_prepare.launches,
+                "gbm_multi_paths": gbm_multi_paths.launches}
+        # each route draws its paths with one gbm_multi launch and builds its
+        # inputs with one ma_prepare launch
+        want = (dict(ma_step_moments=0, ma_step_apply=0, ma_mega=1, ma_prepare=1,
+                     gbm_multi_paths=1),
+                dict(ma_step_moments=MC_DATES, ma_step_apply=MC_DATES, ma_mega=0, ma_prepare=1,
+                     gbm_multi_paths=1))
         _require((mc_launches[("mega", n_assets)], mc_launches[("fused", n_assets)]) == want,
                  f"max-call routes launched their kernels {mc_launches}")
         _require(torch.equal(mc_p["mega"], mc_p["fused"]), "both routes priced the same paths")
@@ -1706,6 +1746,7 @@ def main():
                           f64_ops=MC_DATES * N_PATHS * P21),
         # reads the 5-asset paths once and writes their planes once
         "ma_prepare": _bound(2 * (MC_DATES + 1) * 5 * row),
+        "gbm_multi": bound_gm,
         # reads the step's 5 planes, cf and tau; 252 products and f64 sums
         "ma_step_moments": _bound(7 * row, f32_ops=N_PATHS * P21, f64_ops=N_PATHS * P21),
         # reads the step's 5 planes (never cf or tau), writes cf/tau of the
@@ -1752,6 +1793,11 @@ def main():
          "ms": ms_prep,
          "plain_ms": ms_prep_plain, "library_ms": None,
          "device_us": prof_prep and prof_prep["device_us_per_call"]},
+        {"name": "gbm_multi", "route": "cuda", "source": "amcx_torch/csrc/gbm_multi.cu",
+         "replaces": "amcx/paths.py:137 (XLA ops, no Pallas kernel)",
+         "launches": mc_launches[("mega", 5)]["gbm_multi_paths"], "max_abs_err": gm_err,
+         "ms": ms_gm, "plain_ms": ms_gm_plain, "library_ms": None,
+         "device_us": prof_gm and prof_gm[0]},
         {"name": "ma_step_moments", "route": "cuda", "source": "amcx_torch/csrc/ma_step.cu",
          "replaces": "amcx/ops/maxcall_pallas.py:137",
          "launches": mc_launches[("fused", 5)]["ma_step_moments"],

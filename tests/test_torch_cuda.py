@@ -20,6 +20,7 @@ from amcx_torch import tracing
 from amcx_torch.models import maxcall as tmaxcall
 from amcx_torch.ops import ccr_exposures as tccr
 from amcx_torch.ops import gbm as tgbm
+from amcx_torch.ops import gbm_multi as tgm
 from amcx_torch.ops import lsmc_ma_mega as tmamega
 from amcx_torch.ops import lsmc_fusedpath as tfp
 from amcx_torch.ops import lsmc_megakernel as tmega
@@ -849,6 +850,122 @@ def test_price_max_call_routes_on_card(cuda_device):
     assert torch.equal(paths, paths_f) and paths.shape == (10, 131_072, 2)
     assert abs(float(mega.price) - float(fused.price)) <= 5e-3
     assert abs(float(mega.price) - 13.90) <= 0.35
+
+
+# the basket pathgen kernel (csrc/gbm_multi.cu) against its plain chain:
+# (n_assets, n_paths, corr, antithetic); 4,099 x 5 and 4,099 x 3 floats a
+# row are no multiple of 4 (the float-at-a-time instance), 4,099 paths end
+# in a part tile
+CORR3 = [[1.0, 0.5, 0.2], [0.5, 1.0, 0.3], [0.2, 0.3, 1.0]]
+GBM_MULTI_CARD_CASES = {
+    "5-identity": (5, 65_536, None, False),
+    "3-corr": (3, 65_536, CORR3, False),
+    "5-antithetic": (5, 65_536, None, True),
+    "5-ragged": (5, 4_099, None, False),
+    "3-corr-ragged": (3, 4_099, CORR3, False),
+    "1-identity": (1, 65_536, None, False),
+    "8-corr": (8, 4_096, (np.eye(8) + 0.4) / 1.4, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GBM_MULTI_CARD_CASES))
+def test_gbm_multi_kernel_matches_the_chain(cuda_device, case):
+    # simulate_gbm_multi launches the kernel once on the draw of its seed,
+    # and the paths are the bits of the plain chain on the same normals
+    # (expf and torch's CUDA exp agree; products and sums round alone)
+    n_assets, n, corr, antithetic = GBM_MULTI_CARD_CASES[case]
+    sim = at.SimConfig(n_paths=n, n_steps=9, antithetic=antithetic)
+    S0 = [90.0 + 5.0 * a for a in range(n_assets)]
+    args = (S0, MC["r"], MC["sigma"], MC["q"], MC["T"], corr)
+    before = tgm.gbm_multi_paths.launches
+    paths = at.simulate_gbm_multi(46, S0, MC["r"], MC["sigma"], MC["T"], sim, q=MC["q"],
+                                  corr=corr, device=cuda_device)
+    torch.cuda.synchronize()
+    assert tgm.gbm_multi_paths.launches == before + 1
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(46)
+    if antithetic:
+        half = torch.randn((9, n // 2, n_assets), generator=g, device=cuda_device)
+        Z = torch.cat([half, -half], dim=1)
+    else:
+        Z = torch.randn((9, n, n_assets), generator=g, device=cuda_device)
+    want = tgm.gbm_multi_paths_reference(Z, *args)
+    again = tgm.gbm_multi_paths(Z, *args)
+    torch.cuda.synchronize()
+    assert paths.shape == (10, n, n_assets) and bool(torch.isfinite(paths).all())
+    assert torch.equal(paths, want) and torch.equal(again, want)
+
+
+@pytest.mark.parametrize("T_", [3.0, 1.457604143493508])
+def test_gbm_multi_host_rows_equal_the_card_chains_rows(cuda_device, T_):
+    # at T = 1.4576... / 9 steps the CPU's f32 quotient differs from the
+    # card's product with the reciprocal: the host rows take the card's
+    market = ([95.0, 100.0, 105.0], [0.01, 0.03, 0.05], [0.15, 0.25, 0.4], 0.02, T_, 9)
+    want = torch.stack(tgm._chain_rows(*market, torch.float32, cuda_device)).cpu().numpy()
+    rows = tgm.host_rows(*market)
+    np.testing.assert_array_equal(rows.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", [47, 2_147_483_700])
+def test_price_max_call_mega_keeps_the_parents_bits(cuda_device, seed):
+    # the benchmark's route at 131,072 paths: one pathgen launch, no host
+    # wait in the pricing, and the price and stderr of the route before the
+    # kernel (the chain's paths of the same draw into kernel 7)
+    kw = dict(q=MC["q"], n_paths=131_072, engine="mega", device=cuda_device)
+    args = ([100.0] * 5, MC["K"], MC["T"], MC["r"], MC["sigma"])
+    at.price_max_call(seed, *args, **kw)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    before = tgm.gbm_multi_paths.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = at.price_max_call(seed, *args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tgm.gbm_multi_paths.launches == before + 1
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(seed)
+    Z = torch.randn((9, 131_072, 5), generator=g, device=cuda_device)
+    paths = tgm.gbm_multi_paths_reference(Z, [100.0] * 5, MC["r"], MC["sigma"], MC["q"], MC["T"])
+    ref = tmamega.lsmc_price_ma_mega(paths, MC["K"], MC["r"], MC["T"] / 9, degree=2,
+                                     sorted_basis=True, exercise_from_step=1)
+    assert torch.equal(res.price, ref[0]) and torch.equal(res.stderr, ref[1])
+
+
+def test_gbm_multi_chain_only_on_request(cuda_device):
+    # the differentiable chain runs on the card only where its caller asks
+    # for it (max_call_greeks), with no launch; elsewhere an input the
+    # kernel cannot take (one that needs grad, a device tensor among the
+    # scalars, a non-contiguous, float64 or 9-asset Z) raises, with no launch
+    sim = at.SimConfig(n_paths=8_192, n_steps=9)
+    market = (MC["r"], MC["sigma"], MC["T"], sim)
+    before = tgm.gbm_multi_paths.launches
+    S0 = torch.full((2,), 100.0, requires_grad=True)
+    grad_paths = at.simulate_gbm_multi(48, S0, *market, q=MC["q"], device=cuda_device,
+                                       differentiable=True)
+    price, greeks = at.max_call_greeks(49, [100.0] * 2, MC["K"], MC["T"], MC["r"], MC["sigma"],
+                                       q=MC["q"], n_paths=8_192, device=cuda_device)
+    torch.cuda.synchronize()
+    assert tgm.gbm_multi_paths.launches == before
+    assert grad_paths.grad_fn is not None
+    assert bool(torch.isfinite(price)) and greeks["delta"].shape == (2,)
+    with pytest.raises(ValueError, match="host value"):
+        at.simulate_gbm_multi(48, S0, *market, q=MC["q"], device=cuda_device)
+    with pytest.raises(ValueError, match="host value"):
+        at.simulate_gbm_multi(48, [100.0] * 2, MC["r"],
+                              torch.tensor(MC["sigma"], device=cuda_device), MC["T"], sim,
+                              q=MC["q"], device=cuda_device)
+    assert tgm.gbm_multi_paths.launches == before
+    kernel_paths = at.simulate_gbm_multi(48, [100.0] * 2, *market, q=MC["q"], device=cuda_device)
+    assert tgm.gbm_multi_paths.launches == before + 1
+    assert torch.equal(kernel_paths, grad_paths.detach())
+    Z = torch.randn((9, 1_024, 5), device=cuda_device)
+    args = ([100.0] * 5, MC["r"], MC["sigma"], MC["q"], MC["T"])
+    for bad, match in ((Z.transpose(0, 1), "contiguous"), (Z.double(), "float32"),
+                       (torch.randn((9, 1_024, 9), device=cuda_device), "1..8 assets")):
+        with pytest.raises(ValueError, match=match):
+            tgm.gbm_multi_paths(bad, *args)
+    assert tgm.gbm_multi_paths.launches == before + 1
 
 
 # kernel 3: the four cases of chip_smoke.py phase 11 (book-16-1M's market,

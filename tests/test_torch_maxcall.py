@@ -29,6 +29,7 @@ from amcx.ops import lsmc_ma_mega as jmamega
 from amcx.ops import maxcall_pallas as jma
 from amcx_torch import basis as tbasis
 from amcx_torch.models import maxcall as tmaxcall
+from amcx_torch.ops import gbm_multi as tgm
 from amcx_torch.ops import lsmc_ma_mega as tmamega
 from amcx_torch.ops import maxcall_pallas as tma
 from amcx_torch.ops.lsmc_pallas import unpack_moments
@@ -191,6 +192,133 @@ def test_simulate_gbm_multi_antithetic_and_autograd():
         e[a] = bump
         fd = (float(euro(S0.detach() + e)) - float(euro(S0.detach() - e))) / (2 * bump)
         assert abs(float(grad[a]) - fd) <= 1e-3 * abs(fd), (a, float(grad[a]), fd)
+
+
+def _chain_before_the_kernel(seed, S0, r, sigma, T, sim, q=None, corr=None):
+    """`simulate_gbm_multi` on the CPU as the port ran it before the paths
+    had a kernel, line for line: the bits the plain chain must keep."""
+    device = torch.device("cpu")
+    dtype = sim.torch_dtype
+    S0 = torch.atleast_1d(torch.as_tensor(S0, dtype=dtype, device=device))
+    n_assets = S0.shape[0]
+    n_steps, n_paths = sim.n_steps, sim.n_paths
+
+    def vec(x):
+        return torch.broadcast_to(torch.as_tensor(x, dtype=dtype, device=device), (n_assets,))
+
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(seed))
+    if sim.antithetic:
+        half = torch.randn((n_steps, n_paths // 2, n_assets), generator=generator, dtype=dtype,
+                           device=device)
+        Z = torch.cat([half, -half], dim=1)
+    else:
+        Z = torch.randn((n_steps, n_paths, n_assets), generator=generator, dtype=dtype,
+                        device=device)
+    W = Z
+    if corr is not None:
+        L = torch.linalg.cholesky(torch.as_tensor(corr, dtype=dtype, device=device))
+        cols = []
+        for b in range(n_assets):
+            w_b = Z[..., 0] * L[b, 0]
+            for a in range(1, b + 1):
+                w_b = w_b + Z[..., a] * L[b, a]
+            cols.append(w_b)
+        W = torch.stack(cols, dim=-1)
+    r, sigma, q = vec(r), vec(sigma), vec(0.0 if q is None else q)
+    dt = torch.as_tensor(T, dtype=dtype, device=device) / n_steps
+    drift = (r - q - 0.5 * sigma ** 2) * dt
+    log_inc = drift + (sigma * torch.sqrt(dt)) * W
+    log_rel = torch.cat([torch.zeros((1, n_paths, n_assets), dtype=dtype, device=device),
+                         torch.cumsum(log_inc, dim=0)], dim=0)
+    return S0 * torch.exp(log_rel)
+
+
+# (n_assets, corr, antithetic, S0 needs grad, the chain asked for)
+CHAIN_CASES = {
+    "5-identity": (5, None, False, False, False),
+    "3-corr": (3, [[1.0, 0.5, 0.2], [0.5, 1.0, 0.3], [0.2, 0.3, 1.0]], False, False, False),
+    "5-antithetic": (5, None, True, False, False),
+    "2-corr-grad": (2, [[1.0, 0.5], [0.5, 1.0]], False, True, False),
+    "2-corr-grad-asked": (2, [[1.0, 0.5], [0.5, 1.0]], False, True, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_simulate_gbm_multi_on_cpu_keeps_the_chain(case):
+    # the CPU takes the plain chain, as does differentiable=True (what
+    # max_call_greeks asks for): no launch, the bits of the chain before the
+    # kernel, differentiable where an input needs grad
+    n_assets, corr, antithetic, grad, asked = CHAIN_CASES[case]
+    sim = at.SimConfig(n_paths=1_026, n_steps=N_STEPS, antithetic=antithetic)
+    S0 = torch.linspace(90.0, 110.0, n_assets).requires_grad_(grad)
+    before = tgm.gbm_multi_paths.launches
+    got = at.simulate_gbm_multi(8, S0, R, SIGMA, T, sim, q=Q, corr=corr, device="cpu",
+                                differentiable=asked)
+    want = _chain_before_the_kernel(8, S0, R, SIGMA, T, sim, q=Q, corr=corr)
+    assert tgm.gbm_multi_paths.launches == before
+    assert torch.equal(got, want)
+    assert (got.grad_fn is not None) == grad
+
+
+# markets whose dt = T / n_steps is the same under the CPU's f32 division
+# and the card's product with the f32 reciprocal (the next test covers a
+# T where the two differ)
+ROW_MARKETS = {
+    "maxcall-5": ([100.0] * 5, 0.05, 0.2, 0.10, 3.0, 9),
+    "per-asset": ([90.0, 100.0, 110.0], [0.01, 0.03, 0.05], [0.15, 0.25, 0.4], None, 1.0, 100),
+    "cpu-tensors": (torch.tensor([95.0, 105.0]), torch.tensor(0.02), 0.3,
+                    torch.tensor([0.0, 0.01]), torch.tensor(2.0), 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROW_MARKETS))
+def test_gbm_multi_host_rows_equal_the_chains_rows(case):
+    S0, r, sigma, q, T_, n_steps = ROW_MARKETS[case]
+    rows = tgm.host_rows(S0, r, sigma, q, T_, n_steps)
+    want = torch.stack(tgm._chain_rows(S0, r, sigma, q, T_, n_steps, torch.float32, "cpu"))
+    assert rows.dtype == np.float32 and rows.flags.c_contiguous
+    np.testing.assert_array_equal(rows.view(np.uint32), want.numpy().view(np.uint32))
+
+
+def test_gbm_multi_host_rows_divide_as_the_card_does():
+    # at T = 1.457604143493508 and 9 steps the CPU's f32 quotient and the
+    # card's product T * f32(1/9) differ in the last place: the rows take
+    # the card's dt (tests/test_torch_cuda.py holds them to the card's chain)
+    T_, n = 1.457604143493508, 9
+    dt_card = torch.tensor(T_) * (torch.tensor(1.0) / n)
+    assert float(torch.tensor(T_) / n) != float(dt_card)
+    rows = tgm.host_rows(100.0, R, SIGMA, Q, T_, n)
+    want = torch.stack(tgm._chain_rows(100.0, R, SIGMA, Q, dt_card, 1, torch.float32, "cpu"))
+    np.testing.assert_array_equal(rows.view(np.uint32), want.numpy().view(np.uint32))
+
+
+def _meta(shape, **kw):
+    return torch.empty(shape, device="meta", **kw)
+
+
+# the kernel's wrapper on tensors off the CPU (meta tensors here): what
+# the kernel cannot take raises, before any launch, with no fallback
+REFUSED = {
+    "non-contiguous": (lambda: _meta((N_STEPS, 5, 64)).transpose(1, 2), {}, "contiguous"),
+    "float64": (lambda: _meta((N_STEPS, 64, 5), dtype=torch.float64), {}, "float32"),
+    "9-assets": (lambda: _meta((N_STEPS, 64, 9)), {}, "1..8 assets"),
+    "device-scalar": (lambda: _meta((N_STEPS, 64, 5)), {"sigma": _meta(())}, "host value"),
+    "grad-scalar": (lambda: _meta((N_STEPS, 64, 5)),
+                    {"S0": torch.full((5,), 100.0, requires_grad=True)}, "host value"),
+    "not-cuda": (lambda: _meta((N_STEPS, 64, 5)), {}, "runs on 'cpu' or 'cuda'"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_gbm_multi_paths_refuses_what_the_kernel_cannot_take(case):
+    make, kw, match = REFUSED[case]
+    Z = make()
+    args = {**dict(S0=[100.0] * Z.shape[-1], r=R, sigma=SIGMA, q=Q, T=T), **kw}
+    before = tgm.gbm_multi_paths.launches
+    with pytest.raises(ValueError, match=match):
+        tgm.gbm_multi_paths(Z, **args)
+    assert tgm.gbm_multi_paths.launches == before
 
 
 # ---------------------------------------------------------------------------
