@@ -278,7 +278,7 @@ def price_option(
 
 def _price_option(seed, market, product, spec, sim, return_surface, engine, exercise_steps,
                   return_cf_tau, return_coeffs, device, surface_stats) -> LSMCResult:
-    from .paths import gbm_standardization, simulate_gbm
+    from .paths import simulate_gbm
 
     if surface_stats and engine in ("fused", "fusedpath"):
         raise ValueError(f"engine={engine!r} has no surface_stats; use 'mega' or 'xla'")
@@ -291,7 +291,6 @@ def _price_option(seed, market, product, spec, sim, return_surface, engine, exer
         exercise_steps = tuple(int(i) for i in exercise_steps)
     if engine == "fused":
         from .engine_pallas import lsmc_option_pricing_fused
-        from .paths import simulate_gbm
 
         if return_coeffs:
             raise ValueError("engine='fused' does not export coeffs; use 'xla' or 'mega'")
@@ -320,22 +319,22 @@ def _price_option(seed, market, product, spec, sim, return_surface, engine, exer
                               coeffs=out.coeffs)
         return LSMCResult(out[0], out[1], None, None, None)
     if engine == "mega":
-        from .ops.lsmc_megakernel import lsmc_price_megakernel
+        from .ops.lsmc_megakernel import _price_rows, closed_form_rows
 
         if return_surface:
             raise ValueError(
                 "engine='mega' is price-only for dense surfaces; use 'fused' or 'xla'")
         n_steps = sim.n_steps
-        with tracing.span("entry.frame"):
-            mean_t, inv_std_t = gbm_standardization(market, product.T, n_steps, device=device)
         paths = simulate_gbm(seed, market, product.T, sim, device)
-        out = lsmc_price_megakernel(
-            paths, product.K, market.r, product.T / n_steps,
-            1.0 if product.option_type == "call" else -1.0,
+        with tracing.span("entry.frame"):
+            stats = closed_form_rows(float(market.S0), float(market.r), float(market.sigma),
+                                     float(market.q), float(product.T), product.T / n_steps,
+                                     n_steps, paths.device)
+        out = _price_rows(
+            paths, stats, product.K, 1.0 if product.option_type == "call" else -1.0,
             basis=spec.basis, degree=spec.degree, rcond=spec.rcond,
             american=product.is_american, barrier=product.barrier,
             barrier_type=product.barrier_type, itm_weights=spec.regress_on == "itm",
-            mean_t=mean_t, inv_std_t=inv_std_t, return_stats=True,
             exercise_steps=exercise_steps, return_cf_tau=return_cf_tau,
             return_coeffs=return_coeffs or surface_stats, antithetic=sim.antithetic,
         )
@@ -343,6 +342,7 @@ def _price_option(seed, market, product, spec, sim, return_surface, engine, exer
             return LSMCResult(out[0], out[1], None, None, None)
         exposures = None
         if surface_stats:
+            mean_t, inv_std_t = stats.view(4, n_steps + 1)[:2]
             exposures = exposures_from_coeffs(paths, out.coeffs, mean_t, inv_std_t, spec.basis,
                                               spec.degree)
         return LSMCResult(out.price, out.stderr, out.cashflows, out.exercise_times, None,

@@ -47,13 +47,11 @@ import torch
 
 from .. import tracing
 from ..basis import BASIS_IDS, basis_cols
-from ..paths import gbm_standardization
 from ..payoff import exercise_allow_row
-from ..types import MarketParams
 from .gbm import _seed_key, philox4x32_10
 from .lsmc_megakernel import (_QUAD_BYTES, _THREADS, MAX_DEGREE, MegaOutputs, _not_ported,
                               _pairs, _solve_equilibrated_ridge, _sum_once_rounded,
-                              coop_partials, cooperative_plan, mega_stats)
+                              closed_form_rows, coop_partials, cooperative_plan)
 
 __all__ = ["lsmc_price_fusedpath", "lsmc_price_fusedpath_reference", "fusedpath_normals",
            "fusedpath_paths_reference"]
@@ -327,17 +325,6 @@ def _fusedpath_cuda(cfg: _Config, stats, coeffs, allow, cf_tau):
     return sums, coeffs, cf, tau
 
 
-@functools.lru_cache(maxsize=16)
-def _frame(S0: float, r: float, sigma: float, q: float, dt: float, n_steps: int,
-           device: torch.device) -> torch.Tensor:
-    """A pricing's closed-form frame and discount rows (`mega_stats`),
-    cached per market and grid: built once, the rows need no host-to-card
-    copies on later calls. Read-only."""
-    mean_t, inv_std_t = gbm_standardization(MarketParams(S0, r, sigma, q), dt * n_steps, n_steps,
-                                            device=device)
-    return mega_stats(mean_t, inv_std_t, r, dt, n_steps, device)
-
-
 def _scalar(name, x) -> float:
     if getattr(x, "ndim", 0) > 0 or isinstance(x, (list, tuple)):
         _not_ported(f"fusedpath with a per-step {name} curve", "A9, amcx/term.py")
@@ -397,7 +384,8 @@ def _price_fusedpath(run, seed, S0, K, r, sigma, dt, n_steps, n_paths, phi, q=0.
     if exercise_steps is not None:
         allow = exercise_allow_row(exercise_steps, n_steps).tolist()
     with tracing.span("induction.prepare"):
-        stats = _frame(float(S0), r, sigma, q, float(dt), n_steps, dev)
+        stats = closed_form_rows(float(S0), r, sigma, q, float(dt) * n_steps, float(dt), n_steps,
+                                 dev)
         cfg = _Config(seed=seed, n_steps=n_steps, n_paths=n_paths, K=_f32(K), phi=_f32(phi),
                       rcond=_f32(rcond), sigma=_f32(sigma),
                       drift_dt=_f32((r - q - 0.5 * sigma ** 2) * dt), dt=_f32(dt), S0=_f32(S0),
@@ -432,10 +420,10 @@ def lsmc_price_fusedpath(seed, S0, K, r, sigma, dt, n_steps: int, n_paths: int, 
     ``seed``: an integer in [0, 2⁶⁴); the price is a pure function of
     (seed, n_paths, n_steps) and the market. Runs on ``device``: on the
     card the kernel of ``csrc/lsmc_fusedpath.cu`` (or it raises), on the
-    CPU :func:`lsmc_price_fusedpath_reference`'s arithmetic. The frame is
-    the closed-form GBM standardization (`amcx_torch.gbm_standardization`)
-    and the discount rows are `mega_stats`', so a fit here and kernel 2's on
-    the same paths see the same bits.
+    CPU :func:`lsmc_price_fusedpath_reference`'s arithmetic. The frame and
+    discount rows are `closed_form_rows`', cached per market and grid and
+    shared with ``price_option(engine="mega")``, so a fit here and kernel
+    2's on the same paths see the same bits.
 
     Returns the price, ``(price, stderr)`` with ``return_stats``, or a
     `MegaOutputs` with the undiscounted cashflow and exercise-step planes

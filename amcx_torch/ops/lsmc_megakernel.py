@@ -41,7 +41,8 @@ from ..basis import BASIS_IDS, basis_cols
 from ..payoff import barrier_gate
 
 __all__ = ["lsmc_price_megakernel", "lsmc_price_mega_reference", "MegaOutputs",
-           "mega_stats", "lsmc_book_megakernel", "lsmc_book_mega_reference", "BOOK_MAX_STRIKES"]
+           "mega_stats", "closed_form_frame", "closed_form_rows", "lsmc_book_megakernel",
+           "lsmc_book_mega_reference", "BOOK_MAX_STRIKES"]
 
 MAX_DEGREE = 10
 _THREADS = 256  # csrc/lsmc_common.cuh kThreads
@@ -336,6 +337,32 @@ def mega_stats(mean_t, inv_std_t, r, dt, n_steps: int, device) -> torch.Tensor:
         torch.exp(-r_rem), torch.exp(r_rem)])
 
 
+def closed_form_frame(S0, r, sigma, q, T, n_steps: int, dtype=torch.float32, device=None):
+    """Closed-form per-step standardization statistics for GBM spot paths:
+    ``(mean_t, 1/std_t)`` with ``E[S_t] = S0 e^{(r−q)t}`` and
+    ``Var[S_t] = S0² e^{2(r−q)t}(e^{σ²t} − 1)``, in ``dtype`` with amcx's
+    operation order (`amcx_torch.gbm_standardization`). At t=0 the variance
+    is 0 and the clamped 1/std multiplies an exactly-zero deviation.
+    """
+    t = torch.arange(n_steps + 1, dtype=dtype, device=device) * (
+        torch.tensor(T, dtype=dtype, device=device) / n_steps)
+    growth = torch.exp((r - q) * t)
+    mean = S0 * growth
+    var = (S0 * growth) ** 2 * torch.expm1(sigma ** 2 * t)
+    return mean, 1.0 / torch.clamp_min(torch.sqrt(var), 1e-6)
+
+
+@functools.lru_cache(maxsize=16)
+def closed_form_rows(S0: float, r: float, sigma: float, q: float, T: float, dt: float,
+                     n_steps: int, device: torch.device) -> torch.Tensor:
+    """Kernels 2 and 6's rows in the closed-form frame: :func:`mega_stats`
+    of :func:`closed_form_frame` over ``T``, the discount rows over ``dt``.
+    Built once per market, grid and device, so later calls copy nothing to
+    the card. Read-only."""
+    mean_t, inv_std_t = closed_form_frame(S0, r, sigma, q, T, n_steps, device=device)
+    return mega_stats(mean_t, inv_std_t, r, dt, n_steps, device)
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
@@ -381,10 +408,7 @@ def lsmc_price_megakernel(
     and ``axis_name`` (A15). ``lsmc_price_megakernel.launches`` counts
     kernel launches.
     """
-    dev = torch.device(paths_tm.device)
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"lsmc_price_megakernel runs on 'cpu' or 'cuda', got {dev}")
-    run = _mega_cuda if dev.type == "cuda" else _mega_reference
+    run = _runner(paths_tm)
     with tracing.span("induction"):
         return _price(run, paths_tm, K, r, dt, phi, basis, degree, rcond, american, barrier,
                       barrier_type, itm_weights, mean_t, inv_std_t, return_stats, axis_name,
@@ -401,11 +425,48 @@ def lsmc_price_mega_reference(paths_tm: torch.Tensor, *args, **kwargs):
     return _price(_mega_reference, paths_tm, *args, **kwargs)
 
 
+def _runner(paths_tm):
+    dev = torch.device(paths_tm.device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"lsmc_price_megakernel runs on 'cpu' or 'cuda', got {dev}")
+    return _mega_cuda if dev.type == "cuda" else _mega_reference
+
+
 def _price(run, paths_tm, K, r, dt, phi, basis="chebyshev", degree=4, rcond=1e-6,
            american=True, barrier=None, barrier_type="down-in", itm_weights=False,
            mean_t=None, inv_std_t=None, return_stats=False, axis_name=None, axis_size=1,
            exercise_steps=None, return_cf_tau=False, return_coeffs=False, antithetic=False,
            replay_coeffs=None):
+    paths, basis = _checked(paths_tm, r, basis, degree, barrier, barrier_type, axis_name,
+                            exercise_steps, replay_coeffs, antithetic)
+    with tracing.span("induction.prepare"):
+        if mean_t is None or inv_std_t is None:
+            mean_t, inv_std_t = _data_standardization(paths, float(K), float(phi), itm_weights)
+        stats = mega_stats(mean_t, inv_std_t, r, dt, paths.shape[0] - 1, paths.device)
+    return _induction(run, paths, stats, K, phi, rcond, basis, degree, american, itm_weights,
+                      return_stats, return_cf_tau, return_coeffs)
+
+
+def _price_rows(paths_tm, stats, K, phi, basis="chebyshev", degree=4, rcond=1e-6,
+                american=True, barrier=None, barrier_type="down-in", itm_weights=False,
+                exercise_steps=None, return_cf_tau=False, return_coeffs=False,
+                antithetic=False):
+    """:func:`lsmc_price_megakernel` with ``return_stats`` on rows built
+    already (:func:`closed_form_rows`; ``price_option(engine="mega")``):
+    the same checks and induction, and no row of its own."""
+    run = _runner(paths_tm)
+    with tracing.span("induction"):
+        with tracing.span("induction.prepare"):
+            paths, basis = _checked(paths_tm, None, basis, degree, barrier, barrier_type, None,
+                                    exercise_steps, None, antithetic)
+        return _induction(run, paths, stats, K, phi, rcond, basis, degree, american,
+                          itm_weights, True, return_cf_tau, return_coeffs)
+
+
+def _checked(paths_tm, r, basis, degree, barrier, barrier_type, axis_name, exercise_steps,
+             replay_coeffs, antithetic):
+    """The contiguous paths and the normalized basis name, or the error of
+    an argument the kernel does not take."""
     if axis_name is not None:
         _not_ported("the mega kernel's collective mode (axis_name)", "A15")
     if barrier is not None:
@@ -428,16 +489,19 @@ def _price(run, paths_tm, K, r, dt, phi, basis="chebyshev", degree=4, rcond=1e-6
             f"paths must be time-major (n_steps+1, n_paths) float32, got "
             f"{tuple(paths_tm.shape)} {paths_tm.dtype}")
     paths = paths_tm.contiguous()
-    n_steps, n_paths = paths.shape[0] - 1, paths.shape[1]
-    if n_paths >= 2 ** 31:
-        raise ValueError(f"n_paths must be < 2^31, got {n_paths}")
-    K, phi = float(K), float(phi)
-    with tracing.span("induction.prepare"):
-        if mean_t is None or inv_std_t is None:
-            mean_t, inv_std_t = _data_standardization(paths, K, phi, itm_weights)
-        stats = mega_stats(mean_t, inv_std_t, r, dt, n_steps, paths.device)
-    sums, coeffs, _, cf, tau = run(paths, stats, K, phi, float(rcond), basis, degree,
-                                   bool(american), bool(itm_weights), bool(return_cf_tau))
+    if paths.shape[1] >= 2 ** 31:
+        raise ValueError(f"n_paths must be < 2^31, got {paths.shape[1]}")
+    return paths, basis
+
+
+def _induction(run, paths, stats, K, phi, rcond, basis, degree, american, itm_weights,
+               return_stats, return_cf_tau, return_coeffs):
+    """Kernel 2 (or its plain version, ``run``) on checked paths and rows;
+    the price and stderr in amcx's return convention."""
+    n_paths = paths.shape[1]
+    sums, coeffs, _, cf, tau = run(paths, stats, float(K), float(phi), float(rcond), basis,
+                                   degree, bool(american), bool(itm_weights),
+                                   bool(return_cf_tau))
     price = sums[0] / n_paths
     var = torch.clamp_min(sums[1] / n_paths - price * price, 0.0)
     stderr = torch.sqrt(var / n_paths)

@@ -24,6 +24,7 @@ import torch
 
 from . import tracing
 from .ops.gbm_multi import gbm_multi_paths, gbm_multi_paths_reference
+from .ops.lsmc_megakernel import closed_form_frame
 from .types import MarketParams, SimConfig
 
 __all__ = [
@@ -46,14 +47,12 @@ def gbm_standardization(market: MarketParams, T, n_steps: int,
     ``(mean_t, 1/std_t)`` with ``E[S_t] = S0 e^{(r−q)t}`` and
     ``Var[S_t] = S0² e^{2(r−q)t}(e^{σ²t} − 1)``, in ``dtype`` with amcx's
     operation order. At t=0 the variance is 0 and the clamped 1/std
-    multiplies an exactly-zero deviation.
+    multiplies an exactly-zero deviation. The kernels' routes read these
+    rows from `amcx_torch.ops.lsmc_megakernel.closed_form_rows`, built once
+    per market and grid.
     """
-    t = torch.arange(n_steps + 1, dtype=dtype, device=device) * (
-        torch.tensor(T, dtype=dtype, device=device) / n_steps)
-    growth = torch.exp((market.r - market.q) * t)
-    mean = market.S0 * growth
-    var = (market.S0 * growth) ** 2 * torch.expm1(market.sigma ** 2 * t)
-    return mean, 1.0 / torch.clamp_min(torch.sqrt(var), 1e-6)
+    return closed_form_frame(market.S0, market.r, market.sigma, market.q, T, n_steps, dtype,
+                             device)
 
 
 def brownian_normals(generator: torch.Generator, n_steps: int, n_paths: int,

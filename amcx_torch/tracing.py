@@ -23,15 +23,19 @@ The spans of the pricing entries, at the layer boundaries of ``PERF.md``:
 ``entry`` (root)          ``price_option``, ``price_max_call``: the whole
                           call; attributes ``engine``, ``n_paths``,
                           ``n_steps``
-``entry.frame``           ``price_option(engine="mega")``: the closed-form
-                          frame (``gbm_standardization``)
+``entry.frame``           ``price_option(engine="mega")``: the lookup of
+                          the closed-form frame's kernel rows
+                          (``closed_form_rows``; built on a new market or
+                          grid only)
 ``pathgen``               ``simulate_gbm``, ``simulate_gbm_multi``
 ``induction``             the induction entries the two entries call
                           (kernels 2, 6 and 7, the fused and the reference
                           engines), price and stderr included
-``induction.prepare``     the induction's inputs before its launch (the
-                          mega put's ``mega_stats``, the max-call's
-                          ``prepare``, fusedpath's frame and settings)
+``induction.prepare``     the induction's inputs before its launch (in
+                          the mega put the argument checks; in
+                          ``lsmc_price_megakernel`` also ``mega_stats``;
+                          the max-call's ``prepare``; fusedpath's cached
+                          rows and settings)
 ``analytics``             ``exposures_from_coeffs`` (in ``price_option``
                           with ``engine="mega"`` and ``surface_stats``):
                           the exposure kernel and the ``CCRExposures``

@@ -72,10 +72,9 @@ it also prints the device time and launches by kernel (``torch.profiler``)
 beside their design floors: the bytes they must move and their f32 -> f64
 conversions at 16 a clock a SM; for kernels 1 and 11 (phases 2 and 17) the
 device time beside their issue floor, SASS instructions a path-step (as
-this run built them, by cuobjdump) at 4 a clock a SM; for kernel 5 also the wrapper's host time a
-call (phase 5), and for the fused put route the host time of a step by part
-(phase 7). Kernels 2 and 7 are held to their plain versions bit for bit
-(phases 3, 6 and 9).
+this run built them, by cuobjdump) at 4 a clock a SM; for kernel 5 also the
+wrapper's host time a call (phase 5). Kernels 2 and 7 are held to their plain
+versions bit for bit (phases 3, 6 and 9).
 Any failed phase raises (non-zero exit). Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 
@@ -86,10 +85,13 @@ JSON line with the kernels' numbers, then the result line
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+
+from perfbench.roofline import bound_s
 
 N_PATHS = 1_048_576
 N_STEPS = 100
@@ -116,11 +118,8 @@ SW_CONTRACT_STEPS = 20
 # scrambled-Sobol QMC on the flagship put: the absolute gates of one scramble
 QMC_CRR_TOL, QMC_BS_TOL = 0.02, 0.005
 
-# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): HBM3
-# bandwidth, f32 and f64 arithmetic outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-F64_OPS_PER_S = 34e12
+# the card's byte and arithmetic peaks are the benchmark's
+# (perfbench/peaks.json, read by perfbench/roofline.py bound_s)
 # f32 <-> f64 conversions: 16 a clock a SM (CUDA C++ Programming Guide,
 # arithmetic throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz
 # boost clock; kernels 3 and 8 convert every f32 product before its f64 add
@@ -129,7 +128,7 @@ F64_CONVERSIONS_PER_S = 16 * 132 * 1.98e9
 # 132 SMs x the 1.98 GHz boost clock (the SM clock nvidia-smi reads under
 # load). The pathgen kernels' design floor is their SASS instructions a
 # path-step at that rate. This run counts them in the libraries it built
-# (cuobjdump beside nvcc, amcx_torch/pathgen_probe.py issue_model: kernel
+# (cuobjdump beside nvcc, issue_model below: kernel
 # 1's step quad; kernel 11's increment chunk with its compaction and dense
 # tail-form loops, its bridge row with a born and an other entry) and
 # weighs the loops that depend on the data by this run's data (phases 2
@@ -143,21 +142,146 @@ INC_CHUNK_STEPS, INC_PATHS, BRIDGE_PATHS = 4, 4, 4
 
 
 def _bound(n_bytes, f32_ops=0.0, f64_ops=0.0):
-    """Least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the peak rate of their type (ms)."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (f32_ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Least time the card could take (ms): the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type
+    (`perfbench.roofline.bound_s`), and which of the two it is."""
+    t_bytes = bound_s({"bytes": n_bytes})
+    t_ops = bound_s({"f32": f32_ops, "f64": f64_ops})
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+# the pathgen kernels' SASS: which instructions each loop issues a pass
+
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_FUNC = re.compile(r"Function : (\S+)")
+
+
+def sass_functions(text: str):
+    """Each function of a ``cuobjdump -sass`` listing (of a cubin or of a
+    shared library): its (address, instruction) pairs in address order."""
+    out, instrs = {}, None
+    for line in text.splitlines():
+        m = _FUNC.search(line)
+        if m:
+            out[m.group(1)] = instrs = []
+            continue
+        m = _INSTR.search(line)
+        if m and instrs is not None:
+            instrs.append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def _opcode(ins: str) -> str:
+    return re.sub(r"^@!?U?P[T0-9]+\s+", "", ins).split()[0]
+
+
+def _loops(instrs):
+    """(start, end) of each loop: a branch back to a lower address."""
+    out = []
+    for addr, ins in instrs:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            out.append((int(m.group(1), 16), addr))
+    return out
+
+
+def _real(instrs, lo, hi, opcode=None):
+    """Instructions in [lo, hi] other than NOP (or only those of ``opcode``)."""
+    return sum(1 for a, i in instrs if lo <= a <= hi and _opcode(i) != "NOP"
+               and (opcode is None or _opcode(i) == opcode))
+
+
+def sass_loops(text: str):
+    """Per function of a ``cuobjdump -sass`` listing: its instruction count
+    and each loop closed by a backward branch (start, end, instructions,
+    and the counts of a few opcode classes inside)."""
+    out = {}
+    for func, instrs in sass_functions(text).items():
+        loops = []
+        for lo, addr in _loops(instrs):
+            ops = [_opcode(i).split(".")[0] for a, i in instrs if lo <= a <= addr]
+            cls = {}
+            for op in ops:
+                key = ("MUFU" if op == "MUFU" else "mem" if op[:3] in ("LDG", "STG", "LDS", "STS",
+                                                                     "LDC", "LDL", "STL")
+                       else "branch" if op in ("BRA", "CALL", "RET", "BSSY", "BSYNC", "EXIT")
+                       else "fp32" if op in ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX",
+                                             "FCHK")
+                       else "int" if op[:1] in ("I", "L", "S") or op in ("LEA", "SEL", "SHF",
+                                                                         "POPC", "FLO", "PRMT")
+                       else "other")
+                cls[key] = cls.get(key, 0) + 1
+            loops.append((lo, addr, len(ops), sum(1 for o in ops if o != "NOP"), cls))
+        out[func] = (len(instrs), loops)
+    return out
+
+
+def issue_model(text: str):
+    """The instruction counts that the pathgen kernels' issue floors weigh,
+    from a ``cuobjdump -sass`` listing of ``csrc/gbm.cu`` or
+    ``csrc/sobol_gbm.cu`` as built. Every instruction of a region counts as
+    issued once a pass (a rarely taken slow path too). Keys, where the
+    listing holds the kernel and its loops have the expected nesting:
+
+    - ``gbm_paths``: ``quad``, the step-quad loop of the 16-byte-store
+      instance (4 paths x 4 steps a pass);
+    - ``sobol_gbm`` (increment order): ``chunk``, the chunk loop (4 steps x
+      4 paths) without its two inner loops; ``compaction``, the loop that
+      lists a thread's tail points (one pass a point of the warp's busiest
+      lane); ``tail``, the dense tail-form loop, which evaluates
+      ``tail_points`` points a lane a pass (its remainder runs in the chunk's
+      straight code);
+    - ``sobol_gbm_bridge``: ``row``, the row loop (4 paths) without its
+      entry loop; ``born``, the entry loop body on an entry whose Sobol
+      dimension is born there (all of it); ``other``, on any other entry (the
+      body less the region that a born entry alone runs).
+    """
+    model = {}
+    for name, instrs in sass_functions(text).items():
+        loops = _loops(instrs)
+        if not loops:
+            continue
+        outer = max(loops, key=lambda lo_hi: lo_hi[1] - lo_hi[0])
+        inside = [lp for lp in loops if lp != outer and outer[0] <= lp[0] and lp[1] <= outer[1]]
+        if "gbm_paths_kernelILb0E" in name:
+            innermost = [lp for lp in loops if not any(
+                o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+            model["gbm_paths"] = {"quad": max(_real(instrs, *lp) for lp in innermost)}
+        elif "sobol_increment_kernel" in name:
+            tail = [lp for lp in inside if _real(instrs, *lp, "MUFU.RSQ")]
+            scan = [lp for lp in inside if not any(_opcode(i).startswith("MUFU")
+                                                   for a, i in instrs if lp[0] <= a <= lp[1])]
+            if len(tail) == 1 and len(scan) == 1 and len(inside) == 2:
+                model["sobol_gbm"] = {
+                    "chunk": _real(instrs, *outer) - _real(instrs, *tail[0])
+                    - _real(instrs, *scan[0]),
+                    "compaction": _real(instrs, *scan[0]), "tail": _real(instrs, *tail[0]),
+                    "tail_points": _real(instrs, *tail[0], "MUFU.RSQ")}
+        elif "sobol_bridge_kernel" in name and len(inside) == 1:
+            lo, hi = inside[0]
+            body = _real(instrs, lo, hi)
+            # the regions a forward branch inside the entry loop skips; the
+            # born entries' own code is the largest that holds a MUFU
+            skipped = []
+            for addr, ins in instrs:
+                m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
+                if lo <= addr <= hi and m and addr < int(m.group(1), 16) <= hi:
+                    region = [i for a, i in instrs if addr < a < int(m.group(1), 16)]
+                    if any(_opcode(i).startswith("MUFU") for i in region):
+                        skipped.append(sum(1 for i in region if _opcode(i) != "NOP"))
+            if skipped:
+                model["sobol_gbm_bridge"] = {"row": _real(instrs, *outer) - body, "born": body,
+                                             "other": body - max(skipped)}
+    return model
 
 
 def _sass_model(build_paths):
     """The pathgen kernels' loop counts in the SASS of the libraries this run
-    built (``pathgen_probe.issue_model``), or ``{}`` where the toolkit has
-    no cuobjdump."""
+    built (:func:`issue_model`), or ``{}`` where the toolkit has no
+    cuobjdump."""
     from pathlib import Path
 
     from amcx_torch.ops import _build
-    from amcx_torch.pathgen_probe import issue_model
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     model = {}
@@ -372,7 +496,7 @@ def _swing_phases(torch, dev, amcx_torch):
     per_step = prof10 and {name: us / N_STEPS for name, us in prof10["top_us_per_call"].items()}
     # the moments' floors per step: S_t and the SW_RIGHTS planes read once,
     # and one f32 -> f64 conversion of each of the P = 15 + 5 R products
-    floor10 = {"bytes_us": (SW_RIGHTS + 1) * N_PATHS * 4 / HBM_BYTES_PER_S * 1e6,
+    floor10 = {"bytes_us": bound_s({"bytes": (SW_RIGHTS + 1) * N_PATHS * 4}) * 1e6,
                "conversions_us": N_PATHS * (15 + 5 * SW_RIGHTS) / F64_CONVERSIONS_PER_S * 1e6}
     print(f"phase 15 kernel 10 on (a), device time per step by kernel (us): "
           f"{per_step or 'no device activity recorded'} | moments' design floors per step "
@@ -655,7 +779,7 @@ def _ccr_phase(torch, dev, amcx_torch):
     path_steps = N_STEPS * N_PATHS
     bound = _bound(4 * path_steps, f32_ops=21 * path_steps, f64_ops=path_steps)
     # the design floor: the window pass's read and the sample's 1/32 of it
-    floor_ms = 4 * path_steps * (1 + 1 / 32) / HBM_BYTES_PER_S * 1e3
+    floor_ms = bound_s({"bytes": 4 * path_steps * (1 + 1 / 32)}) * 1e3
     print(f"phase 19 ccr_exposures kernel (EPE/PFE-5/PFE-95, {N_PATHS}x{N_STEPS}): equal to "
           f"plain | kernel {ms:.4f} ms plain {ms_plain:.3f} ms | device "
           f"{prof or 'no device activity recorded'} | bound {bound[0]:.4f} ms ({bound[1]}), "
@@ -705,8 +829,6 @@ def main():
     import amcx_torch
     from amcx_torch.engine_pallas import (backward_induction_fused,
                                           backward_induction_fused_reference)
-    from amcx_torch import engine_pallas
-    from amcx_torch.host_profile import route_split
     from amcx_torch.ops import _build
     from amcx_torch.ops.gbm import gbm_paths, gbm_paths_reference
     from amcx_torch.ops.gbm_multi import gbm_multi_paths, gbm_multi_paths_reference
@@ -1095,14 +1217,6 @@ def main():
           f"{N_PATHS * N_STEPS / (ms_fused / 1e3):.4e} path-steps/s | mean of 10 timed "
           f"pricings {mean10:.5f} |err| {abs(mean10 - crr):.5f} | Greeks ms {greeks_ms}",
           flush=True)
-    # a step of the route by part (host clock; pinv_solve waits for the card
-    # inside eigh): the route with its step functions wrapped in timers
-    split, per_pricing = route_split(engine_pallas, {
-        "step_moments": "moments_call", "unpack_moments": "unpack_moments",
-        "pinv_solve": "pinv_solve", "step_apply_launcher": "apply_launch"}, fused_pricing)
-    _require(per_pricing.get("apply_launch") == N_STEPS, f"split counted {per_pricing}")
-    print(f"phase 7 fused path, host us a step by part (median of 2 pricings x {N_STEPS} "
-          f"steps): { {k: round(v, 2) for k, v in split.items()} }", flush=True)
 
     # ---- phase 8: kernels 8+9 (multi-asset step kernels) vs their plain ---
     # ---- versions, at the full-width 5-asset max-call ------------------------
@@ -1180,7 +1294,7 @@ def main():
     bound9 = _bound(5 * N_PATHS * 4 + 8 * n_ex5, f32_ops=N_PATHS * (2 * m5 - 1))
     # the design's floors: the 28 MB it reads, and one f32 -> f64 conversion
     # of each of the 252 products a path
-    floor8 = {"bytes_us": 7 * N_PATHS * 4 / HBM_BYTES_PER_S * 1e6,
+    floor8 = {"bytes_us": bound_s({"bytes": 7 * N_PATHS * 4}) * 1e6,
               "conversions_us": N_PATHS * packed5.shape[0] / F64_CONVERSIONS_PER_S * 1e6}
     print(f"phase 8 one step t={t_ma} of the 5-asset max-call at {N_PATHS} paths (m = {m5}, "
           f"P = 252): moments kernel vs plain max|d| {ma_moments_err:.3e}, apply kernel vs plain "
@@ -1529,7 +1643,7 @@ def main():
     per_step = prof3 and {name: us / N_STEPS for name, us in prof3["top_us_per_call"].items()}
     # the design's floors per step: the 16 V planes and S_t read once
     # (68 MB), and one f32 -> f64 conversion of each of the P_book products
-    floor3 = {"v_bytes_us": (BOOK_N + 1) * N_PATHS * 4 / HBM_BYTES_PER_S * 1e6,
+    floor3 = {"v_bytes_us": bound_s({"bytes": (BOOK_N + 1) * N_PATHS * 4}) * 1e6,
               "conversions_us": N_PATHS * (15 + 5 * BOOK_N) / F64_CONVERSIONS_PER_S * 1e6}
     print(f"phase 12 kernel 3 device time per step by kernel (us): "
           f"{per_step or 'no device activity recorded'} | design floors per step (us): {floor3}",

@@ -1549,6 +1549,50 @@ def test_price_option_surface_stats_on_card(cuda_device):
     assert torch.equal(_bits(torch.stack([e.epe, e.pfe5, e.pfe95])), _bits(ref))
 
 
+def test_put_entries_on_the_cached_closed_form_rows(cuda_device):
+    # the put's three entries at 64k x 100, on the rows of the one cached
+    # builder: price_option(engine="mega") with and without the exposure
+    # profile, and engine="fusedpath", each the bits of its plain version in
+    # the explicit closed-form frame; a warm call makes no host wait
+    n, steps = 65_536, 100
+    market = at.MarketParams(S0, R, SIGMA)
+    prod = at.ProductSpec(K=K, T=1.0, option_type="put", exercise="american")
+    sim = at.SimConfig(n_paths=n, n_steps=steps, backend="philox")
+    calls = {
+        "mega": lambda: at.price_option(29, market, prod, at.RegressionSpec(), sim,
+                                        engine="mega", device=cuda_device),
+        "ccr": lambda: at.price_option(29, market, prod, at.RegressionSpec(regress_on="all"),
+                                       sim, engine="mega", device=cuda_device,
+                                       surface_stats=True),
+        "fusedpath": lambda: at.price_option(29, market, prod, at.RegressionSpec(), sim,
+                                             engine="fusedpath", device=cuda_device),
+    }
+    got = {name: call() for name, call in calls.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls.values():
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    paths = at.simulate_gbm(29, market, 1.0, sim, cuda_device)
+    mean_t, inv_std_t = at.gbm_standardization(market, 1.0, steps, device=cuda_device)
+    for name, itm in (("mega", True), ("ccr", False)):
+        ref = tmega.lsmc_price_mega_reference(paths, K, R, 1.0 / steps, -1.0, itm_weights=itm,
+                                              mean_t=mean_t, inv_std_t=inv_std_t,
+                                              return_coeffs=True)
+        assert torch.equal(got[name].price, ref.price)
+        assert torch.equal(got[name].stderr, ref.stderr)
+    e = got["ccr"].exposures
+    profile = tccr.ccr_exposures_reference(paths, ref.coeffs, mean_t, inv_std_t)
+    assert torch.equal(_bits(torch.stack([e.epe, e.pfe5, e.pfe95])), _bits(profile))
+    price, stderr = tfp.lsmc_price_fusedpath_reference(29, S0, K, R, SIGMA, 1.0 / steps, steps,
+                                                       n, -1.0, itm_weights=True,
+                                                       return_stats=True, device=cuda_device)
+    assert torch.equal(got["fusedpath"].price, price)
+    assert torch.equal(got["fusedpath"].stderr, stderr)
+
+
 def test_analytics_makes_no_host_wait(cuda_device):
     # inside the analytics span: no synchronise and no copy, by the sync
     # debug mode and by the profiler's runtime calls under the span

@@ -207,6 +207,38 @@ def test_price_option_mega_on_cpu_launches_no_kernel():
     assert np.isfinite(float(res.price)) and float(res.stderr) > 0
 
 
+# the closed-form frame's kernel rows have one builder, `closed_form_rows`,
+# cached per market and grid: price_option(engine="mega") looks them up
+# (two calls, two hits) and prices the bits of the public wrapper given
+# the same frame explicitly, with and without the exposure profile
+@pytest.mark.parametrize("surface_stats", [False, True])
+def test_price_option_mega_reads_the_cached_closed_form_rows(surface_stats):
+    market = at.MarketParams(S0, R, SIGMA)
+    prod = at.ProductSpec(K=K, T=1.0, option_type="put", exercise="american")
+    spec = at.RegressionSpec(regress_on="all" if surface_stats else "auto")
+    n = 8
+    sim = at.SimConfig(n_paths=4096, n_steps=n, backend="philox")
+    mean_t, inv_std_t = at.gbm_standardization(market, 1.0, n, device="cpu")
+    rows = tmega.closed_form_rows(S0, R, SIGMA, 0.0, 1.0, 1.0 / n, n, torch.device("cpu"))
+    assert torch.equal(rows, tmega.mega_stats(mean_t, inv_std_t, R, 1.0 / n, n, "cpu"))
+    hits = tmega.closed_form_rows.cache_info().hits
+    got = [at.price_option(3, market, prod, spec, sim, engine="mega", device="cpu",
+                           surface_stats=surface_stats) for _ in range(2)]
+    assert tmega.closed_form_rows.cache_info().hits == hits + 2
+    paths = at.simulate_gbm(3, market, 1.0, sim, "cpu")
+    want = tmega.lsmc_price_megakernel(paths, K, R, 1.0 / n, -1.0,
+                                       itm_weights=not surface_stats, mean_t=mean_t,
+                                       inv_std_t=inv_std_t, return_coeffs=True)
+    for res in got:
+        assert torch.equal(res.price, want.price) and torch.equal(res.stderr, want.stderr)
+    if surface_stats:
+        profile = at.exposures_from_coeffs(paths, want.coeffs, mean_t, inv_std_t)
+        for a, b in zip(got[0].exposures, profile):
+            assert torch.equal(a, b)
+    else:
+        assert got[0].exposures is None
+
+
 ENTRY_POINTS = {
     "price_option": lambda: at.price_option(
         0, at.MarketParams(S0, R, SIGMA), at.ProductSpec(K=K, T=1.0, option_type="put"),

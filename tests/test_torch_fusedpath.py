@@ -282,6 +282,33 @@ def test_price_option_fusedpath_route():
     assert all(np.isfinite(float(v)) for v in g.values())
 
 
+# the fusedpath's frame and discount rows come from the one cached builder
+# (`closed_form_rows`) on its own key (T = dt·n_steps): the rows of the
+# explicit frame, bit for bit, and the prices of kernel 2's plain version
+# on the regenerated paths in that frame
+@pytest.mark.parametrize("q", [0.0, 0.03])
+def test_fusedpath_reads_the_cached_closed_form_rows(q):
+    from amcx_torch.ops import lsmc_megakernel as tmega
+
+    n_paths = 2048
+    mean_t, inv_std_t = at.gbm_standardization(at.MarketParams(S0, R, SIGMA, q), DT * N_STEPS,
+                                               N_STEPS, device="cpu")
+    rows = tmega.closed_form_rows(S0, R, SIGMA, q, DT * N_STEPS, DT, N_STEPS,
+                                  torch.device("cpu"))
+    assert torch.equal(rows, tmega.mega_stats(mean_t, inv_std_t, R, DT, N_STEPS, "cpu"))
+    hits = tmega.closed_form_rows.cache_info().hits
+    args = (3, S0, K, R, SIGMA, DT, N_STEPS, n_paths, -1.0)
+    got = [tfp.lsmc_price_fusedpath(*args, q=q, itm_weights=True, return_stats=True,
+                                    device="cpu") for _ in range(2)]
+    assert tmega.closed_form_rows.cache_info().hits == hits + 2
+    paths = tfp.fusedpath_paths_reference(3, S0, R, SIGMA, DT, N_STEPS, n_paths, q=q)
+    want = tmega.lsmc_price_mega_reference(paths, K, R, DT, -1.0, itm_weights=True,
+                                           mean_t=mean_t, inv_std_t=inv_std_t,
+                                           return_stats=True)
+    for price, stderr in got:
+        assert torch.equal(price, want[0]) and torch.equal(stderr, want[1])
+
+
 def test_fusedpath_rejects_what_it_does_not_take():
     args = (0, S0, K, R, SIGMA, DT, N_STEPS, 64, -1.0)
     with pytest.raises(ValueError, match="barrier_type"):
