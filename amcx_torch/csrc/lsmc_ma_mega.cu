@@ -10,7 +10,7 @@
 //   maturity: V = payoff(S_T); with the cf/tau planes cf = V, tau = n_steps;
 //   per step t = T-1 .. 0:
 //     moments: y = c_t * V, the cross-term columns and ITM weights of
-//              ma_common.cuh, the packed f64 sums;
+//              ma_common.cuh, the packed f64 sums of exact products;
 //     solve:   the partial rows summed in a fixed order (rounded once to
 //              f32) and the equilibrated ridge Cholesky with two refinements
 //              (lsmc_common.cuh);
@@ -22,19 +22,24 @@
 // scalar c_t, never multiplied per step.
 //
 // Bound on the H100 (5 assets, m = 21, 1M paths x 9 steps): reading the
-// planes once (0.063 ms) and the moments' f32 products and f64 sums (0.11
-// ms of arithmetic); the design floor is the moments' 252 f32 -> f64
-// conversions a path and step (~63 us a step at 16 a clock a SM, kernel 8's
-// floor). The per-step Gram is a grid-wide dependency.
+// planes once (0.063 ms) and the moments' 252 exact f64 products and f64
+// sums a path-step (0.068 ms at the FP64 tensor cores' 67 TFLOP/s). The
+// design floor is the moments' 1.5 DMMA (m8n8k4) a path-step at that rate
+// (~12 us a step, 0.108 ms); their 24 widenings a path-step take ~6 us a
+// step. Measured: the step kernel 1.06 ms a pricing (moments ~72 us a step,
+// their build most of it; ma_step.cu). Before the moments were exact
+// products, each of their 252 f32 products a path-step was widened on its
+// own (~63 us a step, 0.5687 ms: that design's floor), and the step kernel
+// took 1.65 ms. The per-step Gram is a grid-wide dependency.
 //
 // Design: a host loop on one stream with no syncs, two launches a step.
-// - ma_mega_step_kernel: step t's moments on kernel 8's register-blocked
-//   design (ma_moments.cuh: 4 x 4 warp tasks, double-buffered tiles, the
-//   per-block factor table, a persistent grid of one block an SM at m = 21,
-//   so ~132 partial rows); at t = T-1 its build first sets V from the
-//   maturity payoff. The block that takes the last ticket sums the rows, a
-//   thread a sum (sum_rows_coalesced), and one warp solves
-//   (warp_solve_equilibrated_ridge) into coefficient row t.
+// - ma_mega_step_kernel: step t's moments on kernel 8's design
+//   (ma_moments.cuh: X^T X's upper 8 x 8 tiles by mma.sync f64 a warp over
+//   its own paths, double-buffered tiles, the per-block factor table, a
+//   persistent grid of one block an SM, so ~132 partial rows); at t = T-1
+//   its build first sets V from the maturity payoff. The block that takes
+//   the last ticket sums the rows, a thread a sum (sum_rows_coalesced), and
+//   one warp solves (warp_solve_equilibrated_ridge) into coefficient row t.
 // - ma_mega_apply_kernel: step t's exercise on a grid-stride grid of
 //   kThreads blocks, the columns from the univariate columns staged in
 //   shared memory by the factor table, as kernel 8's moments build them.
@@ -110,11 +115,10 @@ __device__ __forceinline__ void sum_rows_coalesced(const double* rows, int n_row
 }
 
 // Step t's moments in one launch (the header's design): y = c_t V (at t =
-// T-1 from the maturity payoff, written to V and, where asked, cf/tau by
-// task group 0); the last block sums the rows and warp 0 solves step t into
-// coeffs row t.
+// T-1 from the maturity payoff, written to V and, where asked, cf/tau);
+// the last block sums the rows and warp 0 solves step t into coeffs row t.
 template <int A, bool kItm>
-__global__ void __launch_bounds__(kMaxTaskWarps * 32)
+__global__ void __launch_bounds__(kMomentsThreads, 1)
 ma_mega_step_kernel(const float* __restrict__ planes, float* V, float* __restrict__ cf,
                     float* __restrict__ tau, const float* __restrict__ stats, float* coeffs,
                     double* partials, unsigned* ticket, int t, int n_steps, int n_paths,
@@ -124,21 +128,19 @@ ma_mega_step_kernel(const float* __restrict__ planes, float* V, float* __restric
   const int T1 = n_steps + 1;
   const bool maturity = t + 1 == n_steps;
   const MomentsPlan q = moments_plan(m);
-  const int tp = 32 * q.n_warps;  // paths per tile = threads per block
   const MomentsTiles sm = moments_tiles(smem4, q, uni_slots);
   const int tid = threadIdx.x;
-  const int n_tiles = (n_paths + tp - 1) / tp;
+  const int n_tiles = (n_paths + kMomentsThreads - 1) / kMomentsThreads;
   const size_t plane = static_cast<size_t>(n_paths);
   const float* planes_t = planes + static_cast<size_t>(t) * A * plane;
   const float* planes_T = planes + static_cast<size_t>(n_steps) * A * plane;
   const float c_t = stats[2 * A * T1 + t];
-  const bool writer = blockIdx.y == 0;
   init_factors<A>(p, sm.factors);
   if (tid < 2 * A) sm.frame[tid] = stats[tid * T1 + t];  // the mean_a and inv_std_a rows
   __syncthreads();
 
   auto fetch = [&](int tile, StepIn<A>& in) {
-    const int i = tile * tp + tid;
+    const int i = tile * kMomentsThreads + tid;
     if (tile >= n_tiles || i >= n_paths) return;
     load_assets<A>(planes_t, plane, i, in.s);
     if (maturity) {
@@ -148,30 +150,29 @@ ma_mega_step_kernel(const float* __restrict__ planes, float* V, float* __restric
     }
   };
   auto build = [&](int tile, const StepIn<A>& in, int b) {
-    const int i = tile * tp + tid;
-    if (tile >= n_tiles || i >= n_paths) return;
+    const int i = tile * kMomentsThreads + tid;
+    if (tile >= n_tiles) return;
+    if (i >= n_paths) return zero_row(q, sm, b);
     float v = in.v;
     if (maturity) {
       v = ma_payoff<A>(in.sT, p);
-      if (writer) {
-        V[i] = v;
-        if (cf != nullptr) {
-          cf[i] = v;
-          tau[i] = static_cast<float>(n_steps);
-        }
+      V[i] = v;
+      if (cf != nullptr) {
+        cf[i] = v;
+        tau[i] = static_cast<float>(n_steps);
       }
     }
     float uni[A][kMaxMaDegree + 1];
     ma_features<A>(in.s, p, sm.frame, 1, 0, uni);  // the frame as a one-step stats array
     // w is 0 or 1, so weighting is exact: the all-paths fit (w = 1)
-    // rounds as the plain version's unweighted products
+    // rounds as the plain version's unweighted columns
     const float w = kItm ? (ma_payoff<A>(in.s, p) > 0.0f ? 1.0f : 0.0f) : 1.0f;
     build_row<A, kItm>(q, p, uni_slots, sm, uni, w, c_t * v * w, b);
   };
   const int P = pack_dim(m);
-  moments_walk<kItm, StepIn<A>>(q, m, n_paths, sm, fetch, build,
-                                partials + static_cast<size_t>(blockIdx.x) * P);
-  if (!last_ticket(ticket, gridDim.x * gridDim.y)) return;
+  moments_walk<StepIn<A>>(q, m, n_paths, sm, fetch, build,
+                          partials + static_cast<size_t>(blockIdx.x) * P);
+  if (!last_ticket(ticket, gridDim.x)) return;
   float* packed = reinterpret_cast<float*>(smem4);  // the tiles are free
   sum_rows_coalesced(partials, gridDim.x, P, packed);
   __syncthreads();
@@ -302,7 +303,7 @@ cudaError_t run_steps(const float* planes, const float* stats, float* V, float* 
     allowed = smem;
   }
   for (int t = n_steps - 1; t >= 0; --t) {
-    ma_mega_step_kernel<A, kItm><<<dim3(n_blocks, q.n_groups), 32 * q.n_warps, smem, stream>>>(
+    ma_mega_step_kernel<A, kItm><<<n_blocks, kMomentsThreads, smem, stream>>>(
         planes, V, cf, tau, stats, coeffs, partials, ticket, t, n_steps, n_paths, rcond,
         uni_slots, p);
     AMCX_LAUNCH_CHECK();

@@ -11,56 +11,55 @@
 // Moments, per path i of step t: y = cf * expf(-rdt * (tau - t)) (or y = cf
 // with direct_y), the cross-term columns c_0..c_{m-1} and w = 1[payoff > 0]
 // (ITM fits; w = 1 otherwise), then the P = m(m+1)/2 + m packed sums
-// sum f32(c_i w * c_j) (i <= j) and sum f32(c_i * w y), f64 per block,
-// summed over blocks in a fixed order and rounded once.
+// sum (c_i w)(c_j) (i <= j) and sum c_i (w y), each product exact in f64
+// (an f32 x f32 product has 48 significant bits), f64 per block, summed
+// over blocks in a fixed order and rounded once.
 // Apply, per path: cont = max(sum coef_c col_c, 0) (a NaN fit stays NaN);
 // where payoff > cont and the step is an exercise date, cf <- payoff and
 // tau <- t IN PLACE (amcx donates these buffers).
 //
 // Bound on the H100, 5 assets and m = 21 at 1M paths: the moments read 5
-// planes + cf + tau, 28 MB (8.4 us at 3.35 TB/s), and do 252 f32 products
-// and 252 f64 additions per path (3.9 us at 67 TFLOP/s f32, 7.8 us at
-// 34 TFLOP/s f64): 0.0117 ms of roofline. The result is defined as f32
-// products summed in f64, so each product is widened (F2F), and Hopper
-// widens 16 values a clock a SM (14.6-15.3 measured by
-// amcx_torch/widen_probe.py): 252 a path take >= ~63 us at 1M paths, this
-// design's floor. The first design (one thread a packed sum over a shared
-// tile: two shared-memory loads a product) summed 1024 partial rows on one
-// block (82 us of its 212). This design (ma_step_moments_kernel; its parts
-// are ma_moments.cuh's, which kernel 7's moments share):
-// - Register-blocked outer products. The packed sums are the upper triangle
-//   plus last column of the m x (m+1) product of the rows [c_i w] with the
-//   columns [c_j, y w]; a warp owns one 4 x 4 block of it (a task), its
-//   lanes a stripe of the tile's paths, 16 f64 sums a lane. Per path a lane
-//   loads two float4 (one on the diagonal): 16 products for 2 shared loads.
-//   A diagonal block skips its lower triangle, the last column block its
-//   padding columns (the slots are template arguments), and pairs its y w
-//   column with the unweighted c_i, as the rhs sums are defined: 253
-//   products a path at m = 21 for 252 sums.
-// - The tile is one path per thread (32 x warps paths), a row of
-//   [c_0..c_{m-1}, y w, 0..] padded to an odd number of float4 so that a
-//   quarter-warp's 16-byte loads hit distinct banks, and w beside it. Two
-//   tiles live in shared memory: a thread builds its path of tile i+1 from
-//   loads issued a tile earlier, then the warps sum tile i, one barrier a
-//   tile. The build took about as long as the sums (each timed alone in a
-//   copy with the other switched off), mostly ma_column's scan of all
-//   assets for every column:
-//   the threads stage their univariate columns in shared memory and each
-//   column multiplies its factors from a per-block table, in asset order
-//   (ma_column's bits), when they fit beside the tiles.
-// - A persistent grid (the wrapper's n_blocks: blocks that fill 24 warps a
-//   SM), each walking many tiles, so the fixed-order final sum reads ~132
-//   rows, one warp a sum. Above kMaxTaskWarps tasks (m >= 24) gridDim.y
-//   splits the tasks into groups that each build the tile and write
-//   disjoint entries of the partial row.
-// Widening on the integer unit instead (sign, exponent + 896, mantissa <<
-// 29, exact for 0 and normal values) was measured and dropped: it reached
-// 10.8 values a clock a SM in widen_probe.py, below F2F's, and did not speed
-// the kernel up at any split.
-// The sums are per lane in path order, then a fixed shuffle tree, then the
-// fixed-order cross-block sum: no float atomics, so runs are bit-identical,
-// and f64 noise never reaches the f32 rounding, so the plain version's
-// torch.sum gives the same bits.
+// planes + cf + tau, 28 MB (8.4 us at 3.35 TB/s), and form 252 f64
+// products and their f64 sums a path (7.6 us at the FP64 tensor cores' 67
+// TFLOP/s). Until the moments were defined by exact products they were f32
+// products summed in f64, so each of the 252 products a path was widened
+// on its own (F2F; 16 a clock a SM, 14.6-15.3 measured): a floor of ~63
+// us, which that design (4 x 4 f32 outer-product tasks a warp) reached
+// within a factor of two, at 132 us. This design (ma_step_moments_kernel;
+// its parts are ma_moments.cuh's, which kernel 7's moments share):
+// - The packed sums are X^T X without its entry (m, m), X = [c_0 w ..
+//   c_{m-1} w | y w | 0 ..] padded to n_cb = ceil((m + 1) / 8) blocks of 8
+//   columns (w is 0 or 1: c_i w is exact, and (c_i w)(y w) = c_i (w y)).
+//   A warp owns every upper 8 x 8 tile (I <= J) of X^T X over its own 32
+//   paths of a tile: a k-step of 4 paths, each lane loads one f32 of each
+//   column block, widens it once, and the tiles' mma.sync m8n8k4 f64 take
+//   x_I as A's fragment and x_J as B's. At m = 21: 24 widenings and 1.5
+//   DMMA a path (3 blocks, 6 tiles), against 252 widenings; the products
+//   are exact, so the sums differ from the plain version's in f64 order
+//   only. Accumulators stay in registers (15 tiles at m = 32).
+// - The tile is one path per thread (32 x 16 paths), kept per warp
+//   column-major, a column of 32 paths padded to 36 floats: the build's
+//   stores (a column, 32 lanes) and the fragment loads (8 columns x 4
+//   paths) both hit 32 distinct banks. Two tiles live in shared memory: a
+//   thread builds its path of tile i+1 from loads issued a tile earlier,
+//   then its warp sums tile i, one warp barrier a tile (a warp reads only
+//   the paths it built). The threads stage their univariate columns in
+//   shared memory and each column multiplies its factors from a per-block
+//   table, in asset order (ma_column's bits), when they fit beside the
+//   tiles. At the end the warps' accumulators are summed in warp order into
+//   the block's partial row.
+// - A persistent grid (the wrapper's n_blocks: one block of 16 warps an SM,
+//   ~132 partial rows), each block walking many tiles.
+// Measured on the H100 (1M paths, m = 21): 72.4 us a call, the build alone
+// (products switched off) 55 us, the products alone 28-31 us; 128
+// registers a thread. Measured and dropped: mma m16n8k8 (0.5 DMMA a path)
+// spilled its 36 accumulators (kernel 7 1.14 ms against 1.06); a build of 4
+// paths a lane in float4 slots (kernel 9's) on 8 warps an SM, 77-83 us.
+// The sums are per lane in path order (each DMMA's four products in the
+// unit's fixed order), then the warps in order, then the fixed-order
+// cross-block sum: no float atomics, so runs are bit-identical, and f64
+// noise never reaches the f32 rounding, so the plain version's torch.sum
+// gives the same bits.
 // The apply reads only the 5 planes (21 MB, 6.3 us at 3.35 TB/s) and writes
 // cf/tau (8 B) only where a path exercises; it never reads cf or tau. Its
 // first design (one path a thread on a 1,024-block grid, ma_continuation's
@@ -116,7 +115,7 @@ struct PathIn {
 // in shared memory (slot a degree + d - 1 of asset a's degree d), by the
 // factor table; 0 (no room in shared memory): by ma_column in registers.
 template <int A, bool kItm>
-__global__ void __launch_bounds__(kMaxTaskWarps * 32)
+__global__ void __launch_bounds__(kMomentsThreads, 1)
 ma_step_moments_kernel(const float* __restrict__ planes, const float* __restrict__ cf,
                        const float* __restrict__ tau, const float* __restrict__ stats,
                        double* __restrict__ partials, int t, int n_steps, int n_paths, float rdt,
@@ -124,38 +123,38 @@ ma_step_moments_kernel(const float* __restrict__ planes, const float* __restrict
   extern __shared__ float4 smem4[];
   const int m = p.n_cols;
   const MomentsPlan q = moments_plan(m);
-  const int tp = 32 * q.n_warps;  // paths per tile = threads per block
   const MomentsTiles sm = moments_tiles(smem4, q, uni_slots);
   const int T1 = n_steps + 1;
   const float tf = static_cast<float>(t);
   const int tid = threadIdx.x;
-  const int n_tiles = (n_paths + tp - 1) / tp;
+  const int n_tiles = (n_paths + kMomentsThreads - 1) / kMomentsThreads;
   init_factors<A>(p, sm.factors);
   if (tid < 2 * A) sm.frame[tid] = stats[tid * T1 + t];  // the mean_a and inv_std_a rows
   __syncthreads();
 
   // this thread's path of a tile: its loads, issued a tile ahead...
   auto fetch = [&](int tile, PathIn<A>& in) {
-    const int i = tile * tp + tid;
+    const int i = tile * kMomentsThreads + tid;
     if (tile >= n_tiles || i >= n_paths) return;
     load_assets<A>(planes, static_cast<size_t>(n_paths), i, in.s);
     in.cf = cf[i];
     if (!direct_y) in.tau = tau[i];
   };
-  // ...then its row of the tile
+  // ...then its column of the tile
   auto build = [&](int tile, const PathIn<A>& in, int b) {
-    const int i = tile * tp + tid;
-    if (tile >= n_tiles || i >= n_paths) return;
+    const int i = tile * kMomentsThreads + tid;
+    if (tile >= n_tiles) return;
+    if (i >= n_paths) return zero_row(q, sm, b);
     float uni[A][kMaxMaDegree + 1];
     ma_features<A>(in.s, p, sm.frame, 1, 0, uni);  // the frame as a one-step stats array
     // w is 0 or 1, so weighting is exact: the all-paths fit (w = 1)
-    // rounds as the plain version's unweighted products
+    // rounds as the plain version's unweighted columns
     const float w = kItm ? (ma_payoff<A>(in.s, p) > 0.0f ? 1.0f : 0.0f) : 1.0f;
     const float yw = (direct_y ? in.cf : in.cf * expf(-rdt * (in.tau - tf))) * w;
     build_row<A, kItm>(q, p, uni_slots, sm, uni, w, yw, b);
   };
-  moments_walk<kItm, PathIn<A>>(q, m, n_paths, sm, fetch, build,
-                                partials + static_cast<size_t>(blockIdx.x) * pack_dim(m));
+  moments_walk<PathIn<A>>(q, m, n_paths, sm, fetch, build,
+                          partials + static_cast<size_t>(blockIdx.x) * pack_dim(m));
 }
 
 // Basis column n >= 2 of x from columns n-1 and n-2: basis_cols' operations
@@ -325,7 +324,7 @@ cudaError_t launch_moments(const float* planes, const float* cf, const float* ta
     if (err != cudaSuccess) return err;
     allowed = smem;
   }
-  ma_step_moments_kernel<A, kItm><<<dim3(n_blocks, q.n_groups), 32 * q.n_warps, smem, stream>>>(
+  ma_step_moments_kernel<A, kItm><<<n_blocks, kMomentsThreads, smem, stream>>>(
       planes, cf, tau, stats, partials, t, n_steps, n_paths, rdt, direct_y, uni_slots, p);
   return cudaGetLastError();
 }

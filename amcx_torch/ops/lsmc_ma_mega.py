@@ -6,8 +6,8 @@ multi-asset product (max-call, arithmetic and geometric baskets, the
 two-plane kinds of the Heston/Asian/spread engines) in one call. On
 Hopper the per-step Gram is a grid-wide dependency, so
 ``amcx_torch/csrc/lsmc_ma_mega.cu`` runs two launches a step from a C host
-loop on one stream: the step's moments on kernel 8's register-blocked
-design (``csrc/ma_moments.cuh``, on the persistent grid of
+loop on one stream: the step's moments on kernel 8's tensor-core design
+(``csrc/ma_moments.cuh``, on the persistent grid of
 :func:`~amcx_torch.ops.maxcall_pallas.ma_moments_blocks`), after which the
 last block sums the partial rows and one warp solves the m × m system
 (``warp_solve_equilibrated_ridge`` of ``csrc/lsmc_common.cuh``), then the
@@ -16,7 +16,8 @@ sums.
 
 V is carried in time-T units: regression target ``y = c_t·V``, exercise
 ``V ← ex/c_t``, never multiplied per step. :func:`_ma_mega_reference` is
-the plain-torch transcription: f64 moment sums rounded once to f32, the
+the plain-torch transcription: moments of exact products summed in f64 and
+rounded once to f32, the
 same unrolled solve on 0-d f32 tensors (`ops.lsmc_megakernel`), the same
 per-path operation order; on the card the two agree to the bit.
 
@@ -77,7 +78,11 @@ def _ma_mega_reference(planes, stats, cfg, cf_tau, antithetic):
     return torch.stack([_sum_once_rounded(v), _sum_once_rounded(sq * sq)]), cf, tau
 
 
-def _ma_mega_cuda(planes, stats, cfg, cf_tau, antithetic):
+def _ma_mega_cuda(planes, stats, cfg, cf_tau, antithetic, coeffs=None):
+    """The kernels on CUDA planes; returns ``(sums (2,), cf, tau)``.
+    ``coeffs``, if given, an ``((n_steps+1) m,)`` f32 CUDA tensor that
+    receives each step's coefficient row t at ``[t m, (t+1) m)`` (else
+    scratch)."""
     from . import _build
 
     n_steps, A, n_paths = planes.shape
@@ -87,7 +92,7 @@ def _ma_mega_cuda(planes, stats, cfg, cf_tau, antithetic):
     m = params.n_cols
     P = ma_pack_dim(m)
     n_sm = _build.sm_count(dev)
-    n_blocks = ma_moments_blocks(n_paths, m, n_sm)
+    n_blocks = ma_moments_blocks(n_paths, n_sm)
     n_final = max(1, min(2 * n_sm, -(-n_paths // _THREADS)))
     V = torch.empty(n_paths, dtype=torch.float32, device=dev)
     cf = tau = None
@@ -97,7 +102,8 @@ def _ma_mega_cuda(planes, stats, cfg, cf_tau, antithetic):
     # the ticket (zeroed), then the blocks' partial rows
     partials = torch.empty(1 + max(n_blocks * P, 2 * n_final), dtype=torch.float64, device=dev)
     partials[:1].zero_()  # a fill: a scalar store would copy from the host and wait
-    coeffs = torch.empty((n_steps + 1) * m, dtype=torch.float32, device=dev)
+    if coeffs is None:
+        coeffs = torch.empty((n_steps + 1) * m, dtype=torch.float32, device=dev)
     sums = torch.empty(2, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _ma_mega_fn()(planes.data_ptr(), stats.data_ptr(), V.data_ptr(),

@@ -8,8 +8,9 @@ The kernels live in ``amcx_torch/csrc/ma_step.cu`` (shared device code in
 the inputs both multi-asset inductions run on, the asset-major planes and
 the frame, in one pass over the paths. ``ma_step_moments_reference`` and
 ``ma_step_apply_reference`` compute the same functions in plain torch, in
-the kernels' operation order, with the moments summed in f64 and rounded
-once to f32, so on the card kernel and plain version agree to the bit.
+the kernels' operation order, with the moments exact products of the f32
+columns summed in f64 and rounded once to f32, so on the card kernel and
+plain version agree to the bit.
 
 One backward step of a multi-asset product: the asset planes of step t are
 (optionally) sorted into the basket's order statistics by amcx's bubble
@@ -58,7 +59,7 @@ __all__ = ["ma_pack_dim", "ma_stats", "ma_inputs", "ma_prepare", "ma_prepare_ref
 MAX_ASSETS = 8
 MAX_COLS = 32
 MAX_DEGREE = 4
-_MAX_TASK_WARPS = 21  # csrc/ma_step.cu kMaxTaskWarps
+_MOMENTS_WARPS = 16  # csrc/ma_moments.cuh kMomentsWarps
 _PREPARE_TILE = 512  # csrc/ma_prepare.cu kTilePaths
 # ma_prepare's grid: at 1M x 10 x 5 on an H100 80GB HBM3 (700 W), the kernel
 # alone took 0.164-0.169 ms at two blocks an SM (medians by CUDA events,
@@ -278,13 +279,18 @@ def _payoff_for(planes, K, payoff_kind: str, phi: float = 1.0, weights=None):
 
 
 def _moments_from_cols(cols, y, w):
-    """Packed ``[Σ w c_i c_j (i ≤ j)..., Σ c_i (w y)...]``, each an f64 sum
-    of f32 products rounded once to f32."""
+    """Packed ``[Σ w c_i c_j (i ≤ j)..., Σ c_i (w y)...]`` of the f32
+    columns, each an f64 sum of exact products rounded once to f32: an f32 ×
+    f32 product has at most 48 significant bits, so it is exact in f64, and
+    ``w`` is 0 or 1, so ``c_i w`` and ``y w`` are exact in f32."""
     cols_w = cols if w is None else [c * w for c in cols]
     yw = y if w is None else y * w
+    cols_w64 = [c.double() for c in cols_w]
+    cols64 = cols_w64 if w is None else [c.double() for c in cols]
+    yw64 = yw.double()
     m = len(cols)
-    packed = [_sum_once_rounded(cols_w[i] * cols[j]) for i, j in _pairs(m)]
-    packed += [_sum_once_rounded(cols[i] * yw) for i in range(m)]
+    packed = [_sum_once_rounded(cols_w64[i] * cols64[j]) for i, j in _pairs(m)]
+    packed += [_sum_once_rounded(cols64[i] * yw64) for i in range(m)]
     return packed
 
 
@@ -470,7 +476,7 @@ def ma_step_moments(stats, t: int, planes, cf, tau, *, rdt: float, K: float, phi
                        float(phi), _tuple(weights))
     n_steps, n_paths = _check_cuda(stats, t, planes, (cf, tau), n_assets)
     P = ma_pack_dim(params.n_cols)
-    n_blocks = ma_moments_blocks(n_paths, params.n_cols, _build.sm_count(stats.device))
+    n_blocks = ma_moments_blocks(n_paths, _build.sm_count(stats.device))
     # one allocation: the (n_blocks, P) f64 partial rows, then the (P,) f32
     # result in the tail
     scratch = torch.empty(n_blocks * P + (P + 1) // 2, dtype=torch.float64,
@@ -485,20 +491,11 @@ def ma_step_moments(stats, t: int, planes, cf, tau, *, rdt: float, K: float, phi
     return packed
 
 
-def _moments_warps(m: int) -> int:
-    """Warps of a kernel-8 block for m columns: one per 4 x 4 block of the
-    rows c_0..c_{m-1} against the columns c_0..c_{m-1}, y w (upper blocks),
-    at most 21 (``moments_plan`` of ``csrc/ma_step.cu``)."""
-    n_rb, n_cb = (m + 3) // 4, (m + 4) // 4
-    return min(_MAX_TASK_WARPS, sum(min(J + 1, n_rb) for J in range(n_cb)))
-
-
-def ma_moments_blocks(n_paths: int, m: int, n_sm: int) -> int:
-    """Blocks (partial rows) of kernel 8's persistent grid: as many per SM as
-    fill 24 warps (one block of 21 warps at m = 21, in ~179 KB of shared
-    memory), fewer when the paths fill fewer tiles (32 paths a warp)."""
-    warps = _moments_warps(m)
-    return max(1, min(n_sm * max(1, 24 // warps), -(-n_paths // (32 * warps))))
+def ma_moments_blocks(n_paths: int, n_sm: int) -> int:
+    """Blocks (partial rows) of the moments' persistent grid (kernels 7 and
+    8): one block of 16 warps an SM, fewer when the paths fill fewer tiles
+    (a path a thread)."""
+    return max(1, min(n_sm, -(-n_paths // (32 * _MOMENTS_WARPS))))
 
 
 @functools.lru_cache(maxsize=None)

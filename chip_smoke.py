@@ -70,7 +70,9 @@ card's memory rate and its arithmetic over the card's peak rates. For
 kernels 2, 4, 5, 8, 9, 7, 3, 6 and 10 (phases 4, 5, 8, 9, 11, 12, 14, 15)
 it also prints the device time and launches by kernel (``torch.profiler``)
 beside their design floors: the bytes they must move and their f32 -> f64
-conversions at 16 a clock a SM; for kernels 1 and 11 (phases 2 and 17) the
+conversions at 16 a clock a SM (for kernels 8 and 7 also their DMMA at the
+FP64 tensor cores' rate, both counted a path-step in the SASS this run
+built); for kernels 1 and 11 (phases 2 and 17) the
 device time beside their issue floor, SASS instructions a path-step (as
 this run built them, by cuobjdump) at 4 a clock a SM; for kernel 5 also the
 wrapper's host time a call (phase 5). Kernels 2 and 7 are held to their plain
@@ -122,8 +124,18 @@ QMC_CRR_TOL, QMC_BS_TOL = 0.02, 0.005
 # (perfbench/peaks.json, read by perfbench/roofline.py bound_s)
 # f32 <-> f64 conversions: 16 a clock a SM (CUDA C++ Programming Guide,
 # arithmetic throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz
-# boost clock; kernels 3 and 8 convert every f32 product before its f64 add
+# boost clock; kernel 3 converts every f32 product before its f64 add,
+# kernels 7 and 8 each column of X once a path
 F64_CONVERSIONS_PER_S = 16 * 132 * 1.98e9
+# the FP64 tensor cores (mma.sync f64): 67 TFLOP/s dense on an H100 SXM
+# (NVIDIA's data sheet); an m8n8k4 is 256 multiply-adds. Kernels 7 and 8
+# form their moments' exact f64 products there
+FP64_TENSOR_FLOPS = 67e12
+# the moments' X = [c w | y w | 0] at m = 21: 3 column blocks of 8, so 6
+# upper 8 x 8 tiles, each an mma m8n8k4 (256 multiply-adds) every 4 paths
+# (csrc/ma_moments.cuh)
+MA_COL_BLOCKS, MA_TILES = 3, 6
+DMMA_FLOPS = 2 * 8 * 8 * 4
 # instruction issue: 4 warp instructions a clock a SM (32 threads each) x
 # 132 SMs x the 1.98 GHz boost clock (the SM clock nvidia-smi reads under
 # load). The pathgen kernels' design floor is their SASS instructions a
@@ -141,12 +153,14 @@ GBM_QUAD_PATH_STEPS = 4 * 4
 INC_CHUNK_STEPS, INC_PATHS, BRIDGE_PATHS = 4, 4, 4
 
 
-def _bound(n_bytes, f32_ops=0.0, f64_ops=0.0):
+def _bound(n_bytes, f32_ops=0.0, f64_ops=0.0, tensor_f64_ops=0.0):
     """Least time the card could take (ms): the larger of the bytes over the
     memory rate and the operations over the peak rate of their type
-    (`perfbench.roofline.bound_s`), and which of the two it is."""
+    (`perfbench.roofline.bound_s`; f64 products and sums that the FP64
+    tensor cores can form at FP64_TENSOR_FLOPS), and which of the two it
+    is."""
     t_bytes = bound_s({"bytes": n_bytes})
-    t_ops = bound_s({"f32": f32_ops, "f64": f64_ops})
+    t_ops = bound_s({"f32": f32_ops, "f64": f64_ops}) + tensor_f64_ops / FP64_TENSOR_FLOPS
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
 
 
@@ -275,10 +289,44 @@ def issue_model(text: str):
     return model
 
 
+def moments_model(text: str):
+    """The moments' tensor-core loop (csrc/ma_moments.cuh ``tile_products``)
+    of kernels 7 and 8 at 5 assets, all paths, from a ``cuobjdump -sass``
+    listing of ``csrc/lsmc_ma_mega.cu`` or ``csrc/ma_step.cu`` as built: the
+    innermost loop that issues DMMA with one widening a load and MA_TILES
+    DMMA a MA_COL_BLOCKS loads (a k-step of 4 paths: one load of each
+    column block a lane, one m8n8k4 a tile). Keys ``ma_mega`` and
+    ``ma_step``: its shared-memory loads, F2F.F64.F32 and DMMA a pass, and
+    per path-step the f32 -> f64 widenings (32 lanes each) and the DMMA, a
+    pass taking 4 paths a MA_COL_BLOCKS loads."""
+    model = {}
+    for name, instrs in sass_functions(text).items():
+        key = ("ma_mega" if "ma_mega_step_kernelILi5ELb0E" in name
+               else "ma_step" if "ma_step_moments_kernelILi5ELb0E" in name else None)
+        if key is None:
+            continue
+        loops = [lp for lp in _loops(instrs)
+                 if any(_opcode(i).startswith("DMMA") for a, i in instrs if lp[0] <= a <= lp[1])]
+        inner = [lp for lp in loops if not any(
+            o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+        for lo, hi in inner:
+            ops = [_opcode(i) for a, i in instrs if lo <= a <= hi]
+            dmma = sum(1 for o in ops if o.startswith("DMMA"))
+            widen = sum(1 for o in ops if o == "F2F.F64.F32")
+            loads = sum(1 for o in ops if o.startswith(("LDS", "LD.")))
+            if (loads and widen == loads and dmma * MA_COL_BLOCKS == MA_TILES * loads
+                    and (key not in model or loads > model[key]["loads"])):
+                paths = 4 * loads / MA_COL_BLOCKS
+                model[key] = {"loads": loads, "widen": widen, "dmma": dmma,
+                              "widenings_per_path_step": 32 * widen / paths,
+                              "dmma_per_path_step": dmma / paths}
+    return model
+
+
 def _sass_model(build_paths):
-    """The pathgen kernels' loop counts in the SASS of the libraries this run
-    built (:func:`issue_model`), or ``{}`` where the toolkit has no
-    cuobjdump."""
+    """The pathgen kernels' loop counts (:func:`issue_model`) and the
+    max-call moments' (:func:`moments_model`) in the SASS of the libraries
+    this run built, or ``{}`` where the toolkit has no cuobjdump."""
     from pathlib import Path
 
     from amcx_torch.ops import _build
@@ -286,11 +334,13 @@ def _sass_model(build_paths):
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     model = {}
     for path in build_paths if cuobjdump.is_file() else ():
-        if Path(path).name.startswith(("libgbm_", "libsobol_gbm_")):
+        name = Path(path).name
+        pathgen = name.startswith(("libgbm_", "libsobol_gbm_"))
+        if pathgen or name.startswith(("libma_step_", "liblsmc_ma_mega_")):
             proc = subprocess.run([str(cuobjdump), "-sass", path], capture_output=True,
                                   text=True, timeout=300)
             if proc.returncode == 0:
-                model.update(issue_model(proc.stdout))
+                model.update(issue_model(proc.stdout) if pathgen else moments_model(proc.stdout))
     return model
 
 
@@ -871,7 +921,7 @@ def main():
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} | {smi} | "
           f"kernels built in "
           f"{build_s:.1f} s ({'compiled' if _build.build_info['built'] else 'cached'}) | "
-          f"pathgen SASS loop counts {sass}", flush=True)
+          f"SASS loop counts {sass}", flush=True)
 
     market = amcx_torch.MarketParams(S0, R, SIGMA)
     dt = T / N_STEPS
@@ -1292,10 +1342,17 @@ def main():
     # kernel 9's bound: the step's 5 planes read once, cf/tau written where
     # a path exercises, the 2m-1 operations of the fit
     bound9 = _bound(5 * N_PATHS * 4 + 8 * n_ex5, f32_ops=N_PATHS * (2 * m5 - 1))
-    # the design's floors: the 28 MB it reads, and one f32 -> f64 conversion
-    # of each of the 252 products a path
+    # the design's floors: the 28 MB it reads, its f32 -> f64 widenings and
+    # its DMMA a path (this run's SASS, else the design's 8 a column block
+    # and a tile a column-block pair every 4 paths)
+    mom = sass.get("ma_step", {})
+    widen8 = mom.get("widenings_per_path_step", 8.0 * MA_COL_BLOCKS)
+    dmma8 = mom.get("dmma_per_path_step", MA_TILES / 4)
     floor8 = {"bytes_us": bound_s({"bytes": 7 * N_PATHS * 4}) * 1e6,
-              "conversions_us": N_PATHS * packed5.shape[0] / F64_CONVERSIONS_PER_S * 1e6}
+              "conversions_us": N_PATHS * widen8 / F64_CONVERSIONS_PER_S * 1e6,
+              "dmma_us": N_PATHS * dmma8 * DMMA_FLOPS / FP64_TENSOR_FLOPS * 1e6,
+              "widenings_per_path": widen8, "dmma_per_path": dmma8,
+              "counted_in_sass": bool(mom)}
     print(f"phase 8 one step t={t_ma} of the 5-asset max-call at {N_PATHS} paths (m = {m5}, "
           f"P = 252): moments kernel vs plain max|d| {ma_moments_err:.3e}, apply kernel vs plain "
           f"max|d| {ma_apply_err:.3e} ({n_ex5} paths exercised) | moments kernel "
@@ -1364,12 +1421,17 @@ def main():
     ms_ma_mega_plain = _time_ms(torch, lambda: lsmc_ma_mega._ma_mega_reference(
         *mega_in, False, False), 3, 1)
     prof7 = _profile(torch, lambda: lsmc_ma_mega._ma_mega_cuda(*mega_in, False, False), 5)
-    # the design floor: one f32 -> f64 conversion of each of the 252 moment
-    # products a path on each of the 9 dates
-    floor7_ms = MC_DATES * N_PATHS * 252 / F64_CONVERSIONS_PER_S * 1e3
+    # the design floor: the moments' DMMA and widenings a path on each of
+    # the 9 dates (this run's SASS, as phase 8), whichever is larger
+    mom7 = sass.get("ma_mega", {})
+    widen7 = mom7.get("widenings_per_path_step", 8.0 * MA_COL_BLOCKS)
+    dmma7 = mom7.get("dmma_per_path_step", MA_TILES / 4)
+    floor7_ms = MC_DATES * N_PATHS * max(widen7 / F64_CONVERSIONS_PER_S,
+                                         dmma7 * DMMA_FLOPS / FP64_TENSOR_FLOPS) * 1e3
     print(f"phase 9 ma-mega induction kernel {ms_ma_mega:.3f} ms plain {ms_ma_mega_plain:.3f} ms"
           f" | device time and launches per induction: {prof7 or 'no device activity recorded'}"
-          f" | design floor (conversions) {floor7_ms:.4f} ms", flush=True)
+          f" | design floor (DMMA, widenings) {floor7_ms:.4f} ms | moments SASS a path-step "
+          f"{mom7 or 'not counted'}", flush=True)
     del mega_in
     # the inductions' inputs: the asset-major planes and the frame in one
     # pass over the paths, against the transpose and the plain f64 frame
@@ -1853,16 +1915,17 @@ def main():
         # the exercised paths
         "lsmc_step_apply": _bound(2 * row + 8 * n_ex_step, f32_ops=N_PATHS * (2 * k4 - 1)),
         # reads the 5 asset planes of every date once; per path and step the
-        # 252 pair products and f64 sums, and the 2m-1 operations of the
-        # fitted continuation on the 8 exercise dates
-        "ma_mega": _bound((MC_DATES + 1) * 5 * row, f32_ops=N_PATHS * (MC_DATES * P21
-                                                                        + 8 * (2 * m5 - 1)),
-                          f64_ops=MC_DATES * N_PATHS * P21),
+        # 252 exact f64 products and their f64 sums (the FP64 tensor cores'
+        # work), and the 2m-1 operations of the fitted continuation on the 8
+        # exercise dates
+        "ma_mega": _bound((MC_DATES + 1) * 5 * row, f32_ops=8 * N_PATHS * (2 * m5 - 1),
+                          tensor_f64_ops=2 * MC_DATES * N_PATHS * P21),
         # reads the 5-asset paths once and writes their planes once
         "ma_prepare": _bound(2 * (MC_DATES + 1) * 5 * row),
         "gbm_multi": bound_gm,
-        # reads the step's 5 planes, cf and tau; 252 products and f64 sums
-        "ma_step_moments": _bound(7 * row, f32_ops=N_PATHS * P21, f64_ops=N_PATHS * P21),
+        # reads the step's 5 planes, cf and tau; 252 exact f64 products and
+        # their f64 sums (the FP64 tensor cores' work)
+        "ma_step_moments": _bound(7 * row, tensor_f64_ops=2 * N_PATHS * P21),
         # reads the step's 5 planes (never cf or tau), writes cf/tau of the
         # exercised paths (phase 8)
         "ma_step_apply": bound9,

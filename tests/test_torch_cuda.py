@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import _ma_crafted as crafted
 import amcx_torch as at
 from amcx_torch import engine_pallas as tfused
 from amcx_torch import tracing
@@ -696,13 +697,21 @@ def test_ma_step_apply_launcher_matches_public_wrapper(cuda_device):
             assert torch.equal(a, b)
 
 
-# kernel 8's register-blocked layout at the shapes that exercise its edges:
-# m = 21 (one task group), m = 25 and 28 (padded edge blocks, two task
-# groups over gridDim.y), m = 29 (the largest m any basis reaches under
-# MAX_COLS = 32), at a path count below one tile and at a ragged one
+# the moments' tiles at the shapes that exercise their edges: X = [c w | y w
+# | 0] has m + 1 columns in ceil((m + 1) / 8) blocks of 8, so m = 7 and 8
+# (m + 1 = 8 and 9), 15 and 16 (16 and 17) lie on either side of a block
+# edge, m = 21 and 22 fill 22 and 23 of 24 columns, m = 25, 28 and 29 take
+# four blocks (29 the largest m any basis reaches under MAX_COLS = 32; 24
+# and 32 are out of reach); each at a path count below one warp's 32 paths
+# and at a ragged one
 MA_MOMENTS_CASES = {
     # (n_assets, degree, mode, itm_weights, direct_y)
+    "6-assets-m7-itm": (6, 1, "total", True, False),
+    "7-assets-m8-all": (7, 1, "total", False, False),
+    "4-assets-m15-itm-direct-y": (4, 2, "total", True, True),
+    "5-assets-m16-all": (5, 3, "separable", False, False),
     "5-assets-m21-itm": (5, 2, "total", True, False),
+    "7-assets-m22-itm": (7, 3, "separable", True, False),
     "6-assets-m28-direct-y": (6, 2, "total", False, True),
     "7-assets-m29-itm-direct-y": (7, 4, "separable", True, True),
     "8-assets-m25-all": (8, 3, "separable", False, False),
@@ -712,8 +721,9 @@ MA_MOMENTS_CASES = {
 @pytest.mark.parametrize("n", [100, 131_071])
 @pytest.mark.parametrize("case", sorted(MA_MOMENTS_CASES))
 def test_ma_step_moments_shapes_match_plain(cuda_device, case, n):
-    # f32 products summed in f64 and rounded once, in any fixed order:
-    # identical bits to the plain version, and a rerun identical
+    # exact products of the f32 columns summed in f64 and rounded once, in
+    # any fixed order: identical bits to the plain version, and a rerun
+    # identical
     n_assets, degree, mode, itm, direct_y = MA_MOMENTS_CASES[case]
     paths = _basket_paths(cuda_device, n, n_assets, 31)
     mean_t, inv_std_t = tma.maxcall_standardization(paths, "sorted")
@@ -734,6 +744,68 @@ def test_ma_step_moments_shapes_match_plain(cuda_device, case, n):
     assert torch.equal(packed, ref) and torch.equal(packed, again)
 
 
+@pytest.mark.parametrize("case", sorted(MA_MOMENTS_CASES))
+def test_ma_mega_kernel_tile_edges_match_plain(cuda_device, case):
+    # kernel 7 on the shapes of the moments' tile edges at a ragged path
+    # count: the plain version's price, stderr and cf/tau bits, and a rerun's
+    n_assets, degree, mode, itm, _ = MA_MOMENTS_CASES[case]
+    paths = _basket_paths(cuda_device, 131_071, n_assets, 32)
+    args = (paths, 100.0, MC["r"], 1.0 / 3.0)
+    kw = dict(degree=degree, mode=mode, sorted_basis=True, itm_weights=itm, exercise_from_step=1,
+              return_cf_tau=True)
+    ker = tmamega.lsmc_price_ma_mega(*args, **kw)
+    again = tmamega.lsmc_price_ma_mega(*args, **kw)
+    ref = tmamega.lsmc_price_ma_mega_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert math.isfinite(float(ker[0])) and float(ker[1]) > 0
+    for out in (again, ref):
+        for a, b in zip(ker, out):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("itm", [False, True], ids=["all", "itm"])
+def test_ma_moments_tell_exact_from_f32_products(cuda_device, itm):
+    # the crafted step of _ma_crafted, whose rhs sum Σ x y the f32 products
+    # miss by 2^-12 of itself: kernel 8's packed moments and kernel 7's
+    # coefficient row are the exact products' (the plain versions'), not
+    # the f32 products', at a ragged path count; reruns identical
+    x, stats, y = crafted.step_inputs(2_053, 1_031, 517, cuda_device)
+    kw = dict(rdt=0.0, itm_weights=itm, direct_y=True, **crafted.STEP_KW)
+    packed = tma.ma_step_moments(stats, 0, x, y, torch.zeros_like(y), **kw)
+    again = tma.ma_step_moments(stats, 0, x, y, torch.zeros_like(y), **kw)
+    ref = tma.ma_step_moments_reference(stats, 0, x, y, torch.zeros_like(y), **kw)
+    cols = tma._columns(list(x), stats, 0, "power", 1, "total", False)
+    w = (tma._payoff_for(list(x), crafted.STRIKE, "first") > 0.0).to(torch.float32) if itm \
+        else None
+    f32 = crafted.f32_product_moments(cols, y, w)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, ref) and torch.equal(packed, again)
+    assert not torch.equal(packed, f32) and float(packed[-1]) != float(f32[-1])
+
+    paths = crafted.maturity_paths(2_053, 1_031, 517, cuda_device)
+    planes, stats7, cfg = tmamega.prepare(paths, crafted.STRIKE, 0.0, 1.0, payoff_kind="first",
+                                          basis="power", degree=1, itm_weights=itm)
+    stats7 = stats7.clone()
+    stats7[0], stats7[1] = 0.0, 1.0  # the frame: x = s exactly
+    coeffs = torch.empty(4, device=cuda_device)  # rows t = 0 (solved) and t = 1 (not)
+    coeffs_again = torch.empty(4, device=cuda_device)
+    ker = tmamega._ma_mega_cuda(planes, stats7, cfg, False, False, coeffs=coeffs)
+    tmamega._ma_mega_cuda(planes, stats7, cfg, False, False, coeffs=coeffs_again)
+    plain = tmamega._ma_mega_reference(planes, stats7, cfg, False, False)
+    cols = tma._columns(list(planes[0]), stats7, 0, "power", 1, "total", False)
+    yv = stats7[2, 0] * tma._payoff_for(list(planes[1]), crafted.STRIKE, "first")
+    w = (tma._payoff_for(list(planes[0]), crafted.STRIKE, "first") > 0.0).to(torch.float32) \
+        if itm else None
+    exact = torch.stack(tmega._solve_equilibrated_ridge(tma._moments_from_cols(cols, yv, w), 2,
+                                                        cfg["rcond"]))
+    rounded = torch.stack(tmega._solve_equilibrated_ridge(
+        list(crafted.f32_product_moments(cols, yv, w)), 2, cfg["rcond"]))
+    torch.cuda.synchronize()
+    assert torch.equal(coeffs[:2], exact) and torch.equal(coeffs_again[:2], coeffs[:2])
+    assert not torch.equal(rounded, exact)
+    assert torch.equal(ker[0], plain[0])
+
+
 MA_MEGA_CARD_CASES = {
     # (n_assets, payoff_kind, keywords)
     "maxcall-cf-tau": (5, "maxcall", dict(sorted_basis=True, return_cf_tau=True)),
@@ -747,8 +819,8 @@ MA_MEGA_CARD_CASES = {
     "second-cf-tau": (2, "second", dict(return_cf_tau=True)),
     "spread": (2, "spread", dict(degree=3)),
     "spreadk-itm": (3, "spreadk", dict(itm_weights=True, degree=1, return_cf_tau=True)),
-    # the widest systems any basis reaches under kMaxCols = 32 (two task
-    # groups over gridDim.y), m = 25 and 29 not multiples of 4, m = 28 one
+    # the widest systems any basis reaches under kMaxCols = 32 (four
+    # 8-column blocks of X), m = 25 and 29 not multiples of 4, m = 28 one
     "8-assets-m25-itm": (8, "maxcall", dict(sorted_basis=True, mode="separable", degree=3,
                                             itm_weights=True, return_cf_tau=True)),
     "7-assets-m29-dates-off": (7, "basket", dict(mode="separable", degree=4,

@@ -33,6 +33,7 @@ from amcx_torch.ops import gbm_multi as tgm
 from amcx_torch.ops import lsmc_ma_mega as tmamega
 from amcx_torch.ops import maxcall_pallas as tma
 from amcx_torch.ops.lsmc_pallas import unpack_moments
+import _ma_crafted as crafted
 from _lsmc_parity import first_divergence, hold_pair
 
 K, T, R, SIGMA, Q = 100.0, 3.0, 0.05, 0.2, 0.10
@@ -683,13 +684,107 @@ def test_unported_ma_mega_options_raise(paths2):
 
 @pytest.mark.parametrize("m", [1, 6, 21, 25, 29, 32])
 def test_ma_moments_grid_sizing(m):
-    # kernel 8's warps: one per 4 x 4 block of the rows c_0..c_{m-1} against
-    # the columns c_0..c_{m-1}, y w that holds a packed sum (a Gram pair
-    # i <= j or a rhs entry at column m), at most 21; its persistent grid
-    # fills 24 warps a SM and never exceeds the path tiles
-    blocks = {(i // 4, j // 4) for i in range(m) for j in range(i, m + 1)}
-    warps = min(21, len(blocks))
-    assert tma._moments_warps(m) == warps
-    assert tma.ma_moments_blocks(1 << 20, m, 132) == 132 * max(1, 24 // warps)
-    assert tma.ma_moments_blocks(100, m, 132) == -(-100 // (32 * warps))
-    assert tma.ma_moments_blocks(1, m, 132) == 1
+    # kernels 7 and 8 sum the upper 8 x 8 tiles (I <= J) of X^T X, X = [c w |
+    # y w | 0] padded to ceil((m + 1) / 8) blocks: lane l of a warp holds
+    # D[l // 4][2 (l % 4) + e] of each tile (ma_moments.cuh store_tiles),
+    # and every packed sum (a Gram pair i <= j < m or a rhs entry (i, m)) is
+    # held by exactly one lane. The grid is one block of 16 warps an SM,
+    # never more than the 512-path tiles
+    n_cb = (m + 8) // 8
+    assert 8 * n_cb >= m + 1 > 8 * (n_cb - 1)
+    held = []
+    for I in range(n_cb):
+        for J in range(I, n_cb):
+            for lane in range(32):
+                for e in range(2):
+                    i, j = 8 * I + lane // 4, 8 * J + 2 * (lane % 4) + e
+                    if i < m and i <= j <= m:
+                        held.append((i, j))
+    want = [(i, j) for i in range(m) for j in range(i, m)] + [(i, m) for i in range(m)]
+    assert sorted(held) == sorted(want) and len(want) == tma.ma_pack_dim(m)
+    assert tma.ma_moments_blocks(1 << 20, 132) == 132
+    assert tma.ma_moments_blocks(100, 132) == 1
+    assert tma.ma_moments_blocks(512 * 7 + 1, 132) == 8
+    assert tma.ma_moments_blocks(1, 132) == 1
+
+
+@pytest.mark.parametrize("direct_y", [False, True], ids=["discounted-y", "direct-y"])
+@pytest.mark.parametrize("itm", [False, True], ids=["all", "itm"])
+def test_plain_ma_moments_are_exact_products(itm, direct_y):
+    # the plain moments of kernels 7 and 8: each sum an f64 sum of the exact
+    # products of the f32 columns (and of w y), rounded once to f32, bit for
+    # bit numpy's float64 sum of the same products
+    rng = np.random.default_rng(19)
+    n, A, t = 3_001, 3, 4
+    planes = (100.0 * np.exp(0.2 * rng.standard_normal((A, n)))).astype(np.float32)
+    mean = planes.mean(axis=1).astype(np.float32)
+    inv_std = (1.0 / planes.std(axis=1)).astype(np.float32)
+    cf = np.maximum(planes.max(axis=0) - K, 0.0).astype(np.float32)
+    tau = rng.integers(t + 1, N_STEPS + 1, n).astype(np.float32)
+    stats = _stats(t, mean, inv_std)
+    kw = dict(K=K, basis="chebyshev", degree=2, mode="total", sorted_basis=True)
+    got = tma.ma_step_moments(stats, t, _t(planes), _t(cf), _t(tau), rdt=RDT, itm_weights=itm,
+                              direct_y=direct_y, **kw)
+    P = list(_t(planes))
+    cols = tma._columns(P, stats, t, "chebyshev", 2, "total", True)
+    y = _t(cf) if direct_y else _t(cf) * torch.exp(-RDT * (_t(tau) - float(t)))
+    w = (tma._payoff_for(P, K, "maxcall") > 0.0).to(torch.float32) if itm else None
+    want = crafted.exact_moments_numpy(cols, y, w)
+    assert got.shape == want.shape == (tma.ma_pack_dim(len(cols)),)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("itm", [False, True], ids=["all", "itm"])
+def test_plain_ma_moments_tell_exact_from_f32_products(itm):
+    # the crafted step of _ma_crafted: the plain version (kernel 8's, and
+    # through _moments_from_cols kernel 7's) gives the exact products' sums,
+    # which differ from the f32 products' in the rhs entry Σ x y
+    x, stats, y = crafted.step_inputs(2_053, 1_031, 517, "cpu")
+    got = tma.ma_step_moments(stats, 0, x, y, torch.zeros_like(y), rdt=0.0, itm_weights=itm,
+                              direct_y=True, **crafted.STEP_KW)
+    cols = tma._columns(list(x), stats, 0, "power", 1, "total", False)
+    w = (tma._payoff_for(list(x), crafted.STRIKE, "first") > 0.0).to(torch.float32) if itm \
+        else None
+    exact = crafted.exact_moments_numpy(cols, y, w)
+    f32 = crafted.f32_product_moments(cols, y, w).numpy()
+    np.testing.assert_array_equal(got.numpy(), exact)
+    assert got.numpy()[-1] != f32[-1]
+    step_packed = torch.stack(tma._moments_from_cols(cols, y, w))
+    assert torch.equal(step_packed, got)
+
+
+def test_moments_sass_model_counts_the_tensor_core_loop():
+    # chip_smoke.py's count of the moments' tensor-core loop in a SASS
+    # listing: the innermost loop with DMMA at 3 column blocks (3 loads, 3
+    # widenings and 6 DMMA a k-step of 4 paths), here unrolled twice, gives
+    # 24 widenings and 1.5 DMMA a path-step; the outer tile loop and the
+    # 5-block loop (5 loads, 15 DMMA a k-step) are not it
+    import chip_smoke
+
+    def ins(addr, text):
+        return f"        /*{addr:04x}*/                   {text} ;"
+
+    lines = ["        Function : _ZN12_GLOBAL__N_119ma_mega_step_kernelILi5ELb0EEEvPKf"]
+    addr = 0x10
+    lines.append(ins(addr, "MOV R1, c[0x0][0x28]"))
+    outer = addr = addr + 0x10
+    for blocks, dmma in ((3, 6), (5, 15)):
+        start = addr = addr + 0x10
+        for _ in range(2):
+            for r in range(blocks):
+                lines.append(ins(addr, f"LDS R{2 + r}, [R40+{hex(0x480 * r)}]"))
+                addr += 0x10
+                lines.append(ins(addr, f"F2F.F64.F32 R{20 + 2 * r}, R{2 + r}"))
+                addr += 0x10
+            for _ in range(dmma):
+                lines.append(ins(addr, "DMMA.8x8x4 R60, R20, R22, R60"))
+                addr += 0x10
+        lines.append(ins(addr, f"@P0 BRA {hex(start)}"))
+        addr += 0x10
+    lines.append(ins(addr, f"@P1 BRA {hex(outer)}"))
+    lines.append(ins(addr + 0x10, "EXIT"))
+    model = chip_smoke.moments_model("\n".join(lines))
+    assert set(model) == {"ma_mega"}
+    got = model["ma_mega"]
+    assert (got["loads"], got["widen"], got["dmma"]) == (6, 6, 12)
+    assert got["widenings_per_path_step"] == 24.0 and got["dmma_per_path_step"] == 1.5
