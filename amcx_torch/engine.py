@@ -33,7 +33,7 @@ from . import tracing
 from .exposures import _profile, exposures_from_coeffs, step_profile
 from .payoff import barrier_gate, exercise_allow_row, payoff_fn_for
 from .regress import fit_continuation_with_coeffs, reject_axis_name
-from .types import MarketParams, ProductSpec, RegressionSpec, SimConfig
+from .types import SOBOL_BACKENDS, MarketParams, ProductSpec, RegressionSpec, SimConfig
 
 __all__ = ["LSMCResult", "backward_induction", "lsmc_option_pricing", "price_option",
            "q0_call_advisory", "resolve_regression_spec"]
@@ -258,10 +258,12 @@ def price_option(
     ``engine``: ``"xla"`` (the reference loop engine of this module),
     ``"fused"`` (the per-step moments/apply kernels), ``"mega"`` (the
     induction kernel) or ``"fusedpath"`` (the induction kernel that
-    regenerates its own paths, `amcx_torch.ops.lsmc_fusedpath`: no path
-    array, ``sim.backend`` unused, barriers through the first-crossing
-    plane); the kernels run their plain versions on the CPU. ``seed``: an
-    integer (every engine) or a ``torch.Generator`` (``"torch"`` backend).
+    regenerates its own Philox paths, `amcx_torch.ops.lsmc_fusedpath`: no
+    path array, barriers through the first-crossing plane; it refuses the
+    Sobol backends, whose points it cannot regenerate); the kernels run
+    their plain versions on the CPU. ``seed``: an integer (every engine) or
+    a ``torch.Generator`` (``"torch"`` backend). ``sim.backend`` picks the
+    paths of the other engines (`amcx_torch.paths.simulate_gbm`).
     ``return_coeffs`` fills ``coeffs`` ("xla", "mega", "fusedpath");
     ``return_cf_tau`` fills ``cashflows``/``exercise_times`` for "mega" and
     "fusedpath" ("xla" and "fused" always return them). ``surface_stats``
@@ -302,6 +304,10 @@ def _price_option(seed, market, product, spec, sim, return_surface, engine, exer
     if engine == "fusedpath":
         from .ops.lsmc_fusedpath import lsmc_price_fusedpath
 
+        if sim.backend in SOBOL_BACKENDS:
+            raise ValueError(
+                f"engine='fusedpath' regenerates Philox paths and cannot price backend="
+                f"{sim.backend!r}; use engine='mega', 'fused' or 'xla'")
         if return_surface:
             raise ValueError(
                 "engine='fusedpath' stores no paths, so no dense surface; use "

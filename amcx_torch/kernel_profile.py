@@ -66,8 +66,8 @@ Routes, each on fixed inputs made from fixed seeds:
   bits of each order. It also prints each order on its own: ms by CUDA
   events, the wrapper's host time, and the device time by name, so the
   kernel's time stands apart from any host-to-device copy, and a new
-  seed's host work by part (scipy's engine, the direction tables, their
-  copy to the card).
+  seed's table work (the host's scramble, then the whole build: the
+  scramble, its upload and the tables made on the card).
 
 - ``ccr`` (the exposure kernel): the CCR profile of the flagship put
   (1,048,576 Philox paths x 100 steps of ``gbm``, the all-paths fit)
@@ -326,25 +326,20 @@ def _qmc(torch, amcx_torch, dev):
                      for bridge in (False, True))
 
     def tables():
-        # a new seed's host work by part, medians over 5 seeds: scipy's
-        # engine, the tables (engine included), the copy of both to the card
-        import numpy as np
-        from scipy.stats import qmc
+        # a new seed's table work, medians over 5 seeds: the host's scramble
+        # of scipy's direction numbers, and the whole build (the scramble,
+        # its upload and the tables on the card, to a synchronise)
+        from amcx_torch.ops.sobol_pallas import _device_tables, _scramble
 
-        from amcx_torch.ops.sobol_pallas import _direction_tables
-
-        parts = {"engine_ms": [], "tables_ms": [], "copy_ms": []}
+        parts = {"scramble_ms": [], "tables_ms": []}
         for seed in range(7001, 7006):
             t0 = time.perf_counter()
-            qmc.Sobol(d=args[6], scramble=True, seed=seed)
+            _scramble(seed, args[6])
             t1 = time.perf_counter()
-            u_hi, u_lo = _direction_tables.__wrapped__(seed, args[6], args[7])
-            t2 = time.perf_counter()
-            for u in (u_hi, u_lo):
-                torch.from_numpy(u.view(np.int32).copy()).to(dev)
+            _device_tables.__wrapped__(seed, args[6], args[7], dev)
             torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            t2 = time.perf_counter()
+            for key, dt in zip(parts, (t1 - t0, t2 - t1)):
                 parts[key].append(dt * 1e3)
         return {k: statistics.median(v) for k, v in parts.items()}
 

@@ -3,15 +3,19 @@ plain version.
 
 Port of `amcx.ops.sobol_pallas` (``_sobol_gbm_kernel`` via
 ``sobol_gbm_paths``), under amcx's module name. The host derives the
-scrambled direction numbers once per (seed, n_steps, n_paths) from scipy's
-engine (:func:`_direction_tables`); the kernel (``csrc/sobol_gbm.cu``)
-rebuilds each point as ``u_hi[j, p >> 9] ^ u_lo[j, p & 511]``, maps it to a
+scrambled direction numbers once per (seed, n_steps, n_paths): scipy's
+engine's, with its scramble's draws replayed and applied as one vectorised
+product (:func:`_scramble`, :func:`_direction_tables`); the kernel
+(``csrc/sobol_gbm.cu``) rebuilds each point as ``u_hi[j, p >> 9] ^ u_lo[j, p & 511]``, maps it to a
 uniform and by Acklam's inverse CDF (:func:`norm_ppf`) to a normal, and
 writes the time-major ``(n_steps+1, n_paths)`` f32 path array, either by a
 running log-sum (increment order) or by the Brownian-bridge matrix (bridge
 order, `amcx_torch.qmc.brownian_bridge_matrix`). In bridge order the
 kernel sums only B's nonzeros, walked by a schedule the host builds once
-per (n_steps, T) (:func:`_bridge_schedule`).
+per (n_steps, T) (:func:`_bridge_schedule`). A new seed's tables are built and
+put on the device under the program span ``pathgen.tables``, counted by
+``sobol_gbm_paths.table_builds``; a cached seed opens no span and copies
+nothing.
 
 :func:`sobol_gbm_paths_reference` computes the same function in plain torch
 with the kernel's operation order: a loop over steps for the running sum,
@@ -31,16 +35,14 @@ import heapq
 import numpy as np
 import torch
 
-from ..types import MarketParams, SimConfig
+from .. import tracing
+from ..types import BRIDGE_MAX_STEPS, SOBOL_LANES as LANES, MarketParams, SimConfig, \
+    check_sobol_grid
 
 __all__ = ["sobol_gbm_paths", "sobol_gbm_paths_reference", "paths_from_tables_reference",
            "simulate_gbm_qmc_device", "norm_ppf", "BRIDGE_MAX_STEPS"]
 
-LANES = 512  # paths per u_hi column: the low 9 bits of the path index
-_LOW_BITS = 9
-# the dense bridge matrix the plain version sums (and its f64 host builder)
-# stays small: 4 MB of f32 at the cap
-BRIDGE_MAX_STEPS = 1024
+_LOW_BITS = 9  # the path index's bits that pick a u_lo column (LANES = 2**_LOW_BITS)
 _SLOT_BITS = 8  # csrc/sobol_gbm.cu kSlotBits
 
 # Acklam's inverse normal CDF coefficients
@@ -103,45 +105,99 @@ def _bits_to_uniform(u: torch.Tensor) -> torch.Tensor:
     return torch.bitwise_or(mant, 0x3F800000).view(torch.float32) - (1.0 - 2.0 ** -24)
 
 
-@functools.lru_cache(maxsize=8)
-def _direction_tables(seed: int, n_steps: int, n_paths: int):
-    """The factored XOR tables from scipy's scrambled engine: ``u_hi``
-    ``(n_steps, n_paths/512)`` (the shift folded in) and ``u_lo``
-    ``(n_steps, 512)``, uint32, left-aligned to 30 bits. amcx's tables
-    without the 128-column padding of ``u_hi``. Read-only (cached)."""
+@functools.lru_cache(maxsize=None)
+def _joe_kuo(n_steps: int):
+    """scipy's unscrambled direction numbers of ``n_steps`` dimensions,
+    ``(n_steps, bits)`` uint32, and ``bits``. Read-only (cached)."""
     from scipy.stats import qmc
 
-    if n_paths % LANES or n_paths < LANES:
-        raise ValueError(f"n_paths must be a positive multiple of {LANES}, got {n_paths}")
-    eng = qmc.Sobol(d=n_steps, scramble=True, seed=int(seed))
-    sv = np.asarray(eng._sv, dtype=np.uint32)  # (n_steps, bits)
-    shift = np.asarray(eng._shift, dtype=np.uint32)  # (n_steps,)
-    bits = int(eng.bits)
+    eng = qmc.Sobol(d=n_steps, scramble=False)
+    sv = np.asarray(eng._sv, dtype=np.uint32)
+    sv.flags.writeable = False
+    return sv, int(eng.bits)
+
+
+def _scramble(seed: int, n_steps: int):
+    """The direction numbers and digital shift of scipy's scrambled engine
+    ``qmc.Sobol(d=n_steps, scramble=True, seed=seed)``: the same draws from
+    ``np.random.default_rng(seed)`` in the engine's order (the shift's bits,
+    then the lower-triangular matrices L of its left linear matrix scramble,
+    unit diagonal), with the product over GF(2) taken at once: bit
+    ``bits - 1 - p`` of a scrambled number v is the parity of row p of L,
+    read most significant column first, AND v. The engine's own scramble, a
+    loop over every dimension, bit and row, was most of a new seed's host
+    time. ``(sv, shift, bits)``."""
+    sv, bits = _joe_kuo(n_steps)
+    rng = np.random.default_rng(seed)
+    weights = np.uint32(1) << np.arange(bits - 1, -1, -1, dtype=np.uint32)
+    shift = rng.integers(0, 2, size=(n_steps, bits), dtype=np.uint32) @ weights[::-1]
+    below = rng.integers(0, 2, size=(n_steps, bits, bits), dtype=np.uint32)
+    np.bitwise_and(below, np.tril(np.ones((bits, bits), dtype=np.uint32), -1), out=below)
+    rows = below @ weights + weights  # (n_steps, bits): row p of L as an integer
+    parity = np.bitwise_count(rows[:, None, :] & sv[:, :, None]) & 1  # (dim, j, p)
+    return parity.astype(np.uint32) @ weights, shift, bits
+
+
+def _scrambled_numbers(seed: int, n_steps: int, n_paths: int) -> np.ndarray:
+    """``(n_steps, bits + 1)`` uint32: the scrambled direction numbers
+    (:func:`_scramble`) and, in the last column, the digital shift, each
+    left-aligned to 30 bits (the uniform conversion reads bits 29..7)."""
+    sv, shift, bits = _scramble(int(seed), n_steps)
     if n_paths > 1 << bits:
         raise ValueError(f"n_paths exceeds the {bits}-bit Sobol period")
+    return np.concatenate([sv, shift[:, None]], axis=1) << np.uint32(30 - bits)
 
-    def xor_table(n: int, low_bit: int) -> np.ndarray:
-        # column i: the XOR of sv[:, low_bit + b] over the set bits b of i,
-        # built by doubling: columns 2^k + i are columns i ^ sv[:, low_bit + k]
-        acc = np.zeros((n_steps, n), dtype=np.uint32)
-        k = 0
-        while 1 << k < n:
-            size = 1 << k
-            end = min(2 * size, n)
-            np.bitwise_xor(acc[:, :end - size], sv[:, low_bit + k:low_bit + k + 1],
-                           out=acc[:, size:end])
-            k += 1
-        return acc
 
-    u_lo = xor_table(LANES, 0)
-    u_hi = xor_table(n_paths // LANES, _LOW_BITS)
-    u_hi ^= shift[:, None]
-    if bits < 30:  # the uniform conversion reads bits 29..7
-        u_hi <<= 30 - bits
-        u_lo <<= 30 - bits
-    u_hi.flags.writeable = False
-    u_lo.flags.writeable = False
-    return u_hi, u_lo
+def _factor(numbers: np.ndarray, low_bit: int, n_bits: int) -> np.ndarray:
+    """``(n_steps, 2**n_bits)``: column j the XOR of ``numbers[:, low_bit +
+    b]`` over the set bits b of j, built by doubling (columns 2^k + j are
+    columns j ^ number k)."""
+    acc = np.zeros((numbers.shape[0], 1 << n_bits), dtype=np.uint32)
+    for k in range(n_bits):
+        np.bitwise_xor(acc[:, :1 << k], numbers[:, low_bit + k:low_bit + k + 1],
+                       out=acc[:, 1 << k:2 << k])
+    return acc
+
+
+def _table_factors(seed: int, n_steps: int, n_paths: int) -> np.ndarray:
+    """The XOR tables' factors, side by side in one ``(n_steps, m)`` uint32
+    array: u_lo's column i (bits 0-8) is the XOR of a factor over its bits
+    0-4 and one over bits 5-8, u_hi's (direction numbers from bit 9 up) the
+    XOR of a factor over the low half of its index bits, the shift folded
+    in, and one over the high half (:func:`_xor_tables`)."""
+    numbers = _scrambled_numbers(seed, n_steps, n_paths)
+    hi_bits = (n_paths // LANES - 1).bit_length()
+    half = (hi_bits + 1) // 2
+    return np.concatenate([_factor(numbers, 0, 5), _factor(numbers, 5, _LOW_BITS - 5),
+                           _factor(numbers, _LOW_BITS, half) ^ numbers[:, -1:],
+                           _factor(numbers, _LOW_BITS + half, hi_bits - half)], axis=1)
+
+
+def _xor_tables(factors: torch.Tensor, n_paths: int):
+    """``u_hi`` ``(n_steps, n_paths/512)`` (the shift folded in) and ``u_lo``
+    ``(n_steps, 512)``, int32 on the device of ``factors`` (the int32 view
+    of :func:`_table_factors`): each the XOR of its two factors' columns, a
+    fixed two or three device operations whatever the seed."""
+    n_steps, n_cols = factors.shape[0], n_paths // LANES
+    hi_bits = (n_cols - 1).bit_length()
+    half = (hi_bits + 1) // 2
+    cuts = np.cumsum([32, 1 << _LOW_BITS - 5, 1 << half, 1 << hi_bits - half])
+    f0, f1, f2, f3 = (factors[:, a:b] for a, b in zip([0, *cuts[:-1]], cuts))
+    u_lo = torch.bitwise_xor(f1[:, :, None], f0[:, None, :]).view(n_steps, LANES)
+    u_hi = torch.bitwise_xor(f3[:, :, None], f2[:, None, :]).view(n_steps, -1)
+    return u_hi[:, :n_cols].contiguous(), u_lo
+
+
+@functools.lru_cache(maxsize=8)
+def _direction_tables(seed: int, n_steps: int, n_paths: int):
+    """The factored XOR tables of scipy's scrambled engine on the host:
+    :func:`_xor_tables` as uint32 arrays, left-aligned to 30 bits. amcx's
+    tables without the 128-column padding of ``u_hi``. Read-only (cached)."""
+    factors = torch.from_numpy(_table_factors(seed, n_steps, n_paths).view(np.int32))
+    tables = tuple(t.numpy().view(np.uint32) for t in _xor_tables(factors, n_paths))
+    for t in tables:
+        t.flags.writeable = False
+    return tables
 
 
 def _params(S0, r, sigma, q, T, n_steps, bridge):
@@ -198,17 +254,6 @@ def _bridge_schedule(n_steps: int, T: float):
     return row_ptr, entries, n_slots
 
 
-def _check(n_steps, n_paths, bridge):
-    if n_steps < 1:
-        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-    if n_paths % LANES or n_paths < LANES or n_paths > 2 ** 30:
-        raise ValueError(f"n_paths must be a multiple of {LANES} in [{LANES}, 2^30], "
-                         f"got {n_paths}")
-    if bridge and n_steps > BRIDGE_MAX_STEPS:
-        raise ValueError(f"bridge mode takes at most {BRIDGE_MAX_STEPS} steps (the plain "
-                         f"version's dense B), got {n_steps}")
-
-
 def paths_from_tables_reference(u_hi, u_lo, S0: float, drift_dt: float, vol: float,
                                 n_steps: int, n_paths: int, B=None, device="cpu"):
     """Plain-torch version of the kernel on given tables (``u_hi``
@@ -244,7 +289,7 @@ def sobol_gbm_paths_reference(seed, S0, r, sigma, q, T, n_steps: int, n_paths: i
                               brownian_bridge: bool = False, device="cpu") -> torch.Tensor:
     """Plain-torch version of the kernel: time-major ``(n_steps+1,
     n_paths)`` f32 on ``device``."""
-    _check(n_steps, n_paths, brownian_bridge)
+    check_sobol_grid(n_steps, n_paths, brownian_bridge, "the Sobol pathgen")
     u_hi, u_lo = _direction_tables(int(seed), n_steps, n_paths)
     S0, drift_dt, vol = _params(S0, r, sigma, q, T, n_steps, brownian_bridge)
     B = _bridge_matrix(n_steps, T) if brownian_bridge else None
@@ -260,11 +305,19 @@ def _cuda_device(device) -> torch.device:
 
 @functools.lru_cache(maxsize=8)
 def _device_tables(seed: int, n_steps: int, n_paths: int, device: torch.device):
-    """The direction tables on the card, uploaded once per (seed, n_steps,
-    n_paths, device): a call with a cached seed copies nothing."""
-    u_hi, u_lo = _direction_tables(seed, n_steps, n_paths)
-    return (torch.from_numpy(u_hi.view(np.int32).copy()).to(device),
-            torch.from_numpy(u_lo.view(np.int32).copy()).to(device))
+    """The direction tables as int32 tensors on ``device``, built once per
+    (seed, n_steps, n_paths, device) inside the ``pathgen.tables`` span and
+    counted by ``sobol_gbm_paths.table_builds``: the host scrambles the
+    direction numbers and builds the tables' small factors, the device
+    builds the tables from them (on the card after one small copy from
+    pinned memory, which the host does not wait for). A call with a cached seed opens no span and copies
+    nothing."""
+    with tracing.span("pathgen.tables"):
+        sobol_gbm_paths.table_builds += 1
+        factors = torch.from_numpy(_table_factors(seed, n_steps, n_paths).view(np.int32))
+        if device.type != "cpu":
+            factors = factors.pin_memory().to(device, non_blocking=True)
+        return _xor_tables(factors, n_paths)
 
 
 @functools.lru_cache(maxsize=8)
@@ -311,28 +364,33 @@ def sobol_gbm_paths(seed, S0, r, sigma, q, T, n_steps: int, n_paths: int,
     Sobol dimensions by the bridge construction (at most
     :data:`BRIDGE_MAX_STEPS` steps). On a CUDA device this launches the
     kernel (``csrc/sobol_gbm.cu``) on the current stream, or raises; on the
-    CPU it runs :func:`sobol_gbm_paths_reference`. The tables are built on
-    the host once per (seed, n_steps, n_paths) and kept on the card per
-    device, the bridge schedule once per (n_steps, T).
-    ``sobol_gbm_paths.launches`` counts the kernel launches.
+    CPU it runs the plain version (:func:`paths_from_tables_reference`, the
+    bits of :func:`sobol_gbm_paths_reference`). The tables are built on the
+    host once per (seed, n_steps, n_paths) and kept per device
+    (:func:`_device_tables`), the bridge schedule once per (n_steps, T).
+    ``sobol_gbm_paths.launches`` counts the kernel launches,
+    ``sobol_gbm_paths.table_builds`` the tables built for a device.
     """
     device = torch.device(device)
-    if device.type == "cpu":
-        return sobol_gbm_paths_reference(seed, S0, r, sigma, q, T, n_steps, n_paths,
-                                         brownian_bridge, device)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"sobol_gbm_paths runs on 'cpu' or 'cuda', got {device}")
-    _check(n_steps, n_paths, brownian_bridge)
-    device = _cuda_device(device)
+    check_sobol_grid(n_steps, n_paths, brownian_bridge, "the Sobol pathgen")
+    if device.type == "cuda":
+        device = _cuda_device(device)
     hi, lo = _device_tables(int(seed), n_steps, n_paths, device)
-    schedule = _device_schedule(n_steps, float(T), device) if brownian_bridge else None
     S0, drift_dt, vol = _params(S0, r, sigma, q, T, n_steps, brownian_bridge)
+    if device.type == "cpu":
+        B = _bridge_matrix(n_steps, T) if brownian_bridge else None
+        return paths_from_tables_reference(hi, lo, S0, drift_dt, vol, n_steps, n_paths, B,
+                                           device)
+    schedule = _device_schedule(n_steps, float(T), device) if brownian_bridge else None
     out = torch.empty((n_steps + 1, n_paths), dtype=torch.float32, device=device)
     _launch(hi, lo, schedule, out, n_steps, n_paths, S0, drift_dt, vol)
     return out
 
 
 sobol_gbm_paths.launches = 0
+sobol_gbm_paths.table_builds = 0
 
 
 def simulate_gbm_qmc_device(seed: int, market: MarketParams, T, sim: SimConfig,

@@ -5,7 +5,7 @@ one contiguous row per step, and on the GPU neighbouring threads read
 neighbouring addresses of that row. `to_path_major` converts to the
 reference's path-major layout.
 
-Two simulators, selected by ``SimConfig.backend``:
+Three simulators, selected by ``SimConfig.backend``:
 
 - ``"torch"``: ``torch.randn`` from a ``torch.Generator`` seeded with the
   caller's integer seed, then the log-space cumulative sum of exact GBM
@@ -13,7 +13,12 @@ Two simulators, selected by ``SimConfig.backend``:
 - ``"philox"``: the counter-based Philox4x32-10 pathgen of
   `amcx_torch.ops.gbm` (a CUDA kernel on the card, its plain version on the
   CPU), amcx's ``"pallas"`` counterpart. Its random numbers are a
-  documented pure function of (seed, path, step), not the TPU's.
+  documented pure function of (seed, path, step), not the TPU's;
+- ``"sobol"`` / ``"sobol-bridge"``: scrambled-Sobol points from scipy's
+  direction numbers, a new scramble per seed, through
+  `amcx_torch.ops.sobol_pallas.sobol_gbm_paths` (kernel 11 on the card, its
+  plain version on the CPU), one Sobol dimension a step or in
+  Brownian-bridge order (amcx's ``simulate_gbm_qmc_device``).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 from . import tracing
 from .ops.gbm_multi import gbm_multi_paths, gbm_multi_paths_reference
 from .ops.lsmc_megakernel import closed_form_frame
-from .types import MarketParams, SimConfig
+from .types import SOBOL_BACKENDS, MarketParams, SimConfig
 
 __all__ = [
     "simulate_gbm",
@@ -95,16 +100,22 @@ def simulate_gbm(
     """Simulate GBM paths on ``device``; returns time-major
     ``(n_steps+1, n_paths)``.
 
-    ``seed``: an integer in [0, 2⁶⁴) for either backend, or (``"torch"``
+    ``seed``: an integer in [0, 2⁶⁴) for every backend, or (``"torch"``
     backend only) a ``torch.Generator`` on ``device``.
     """
     with tracing.span("pathgen"):
         device = torch.device(device)
+        if sim.backend != "torch" and isinstance(seed, torch.Generator):
+            raise TypeError(f"the {sim.backend} backend takes an integer seed, not a Generator")
+        if sim.backend in SOBOL_BACKENDS:
+            from .ops.sobol_pallas import sobol_gbm_paths
+
+            return sobol_gbm_paths(seed, market.S0, market.r, market.sigma, market.q, T,
+                                   sim.n_steps, sim.n_paths,
+                                   brownian_bridge=sim.backend == "sobol-bridge", device=device)
         if sim.backend == "philox":
             from .ops.gbm import gbm_paths
 
-            if isinstance(seed, torch.Generator):
-                raise TypeError("the philox backend takes an integer seed, not a Generator")
             if sim.antithetic:
                 raise NotImplementedError(
                     "antithetic philox paths are not ported yet (ROADMAP B1 options)")

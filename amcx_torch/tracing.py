@@ -28,6 +28,11 @@ The spans of the pricing entries, at the layer boundaries of ``PERF.md``:
                           (``closed_form_rows``; built on a new market or
                           grid only)
 ``pathgen``               ``simulate_gbm``, ``simulate_gbm_multi``
+``pathgen.tables``        the Sobol backends' direction tables of a new
+                          seed (`ops.sobol_pallas._device_tables`: the
+                          scramble of scipy's direction numbers and the
+                          tables' factors on the host, their upload, the
+                          tables on the device); a cached seed opens none
 ``induction``             the induction entries the two entries call
                           (kernels 2, 6 and 7, the fused and the reference
                           engines), price and stderr included

@@ -2,11 +2,13 @@
 
 Same fields, defaults and validation as `amcx.types`; plain frozen
 dataclasses (PyTorch runs eagerly, so there is no pytree registration and
-no static/dynamic split). ``SimConfig.backend`` names the port's two path
+no static/dynamic split). ``SimConfig.backend`` names the port's path
 simulators: ``"torch"`` (``torch.randn`` driven by a ``torch.Generator``,
-the counterpart of amcx's ``"xla"``) and ``"philox"`` (the counter-based
+the counterpart of amcx's ``"xla"``), ``"philox"`` (the counter-based
 Philox4x32-10 pathgen of `amcx_torch.ops.gbm`, the counterpart of amcx's
-``"pallas"``).
+``"pallas"``), and ``"sobol"`` / ``"sobol-bridge"`` (scrambled-Sobol points
+through `amcx_torch.ops.sobol_pallas`, one dimension a step or in
+Brownian-bridge order: amcx's ``price --qmc [--brownian-bridge]``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,28 @@ __all__ = [
     "OptionType",
     "ExerciseType",
 ]
+
+BACKENDS = ("torch", "philox", "sobol", "sobol-bridge")
+SOBOL_BACKENDS = ("sobol", "sobol-bridge")
+SOBOL_LANES = 512  # paths per column of the Sobol kernel's tables: the low 9 bits of a path
+# the dense bridge matrix the Sobol kernel's plain version sums (and its f64
+# host builder) stays small: 4 MB of f32 at the cap
+BRIDGE_MAX_STEPS = 1024
+
+
+def check_sobol_grid(n_steps: int, n_paths: int, bridge: bool, who: str) -> None:
+    """Raise where the Sobol pathgen cannot draw the grid: ``n_paths`` a
+    multiple of :data:`SOBOL_LANES` in [512, 2^30] (the period of scipy's
+    30-bit points) and, in bridge order, at most :data:`BRIDGE_MAX_STEPS`
+    steps. ``who`` begins the message."""
+    if n_steps < 1:
+        raise ValueError(f"{who} takes n_steps >= 1, got {n_steps}")
+    if n_paths % SOBOL_LANES or not SOBOL_LANES <= n_paths <= 2 ** 30:
+        raise ValueError(f"{who} takes n_paths a multiple of {SOBOL_LANES} in "
+                         f"[{SOBOL_LANES}, 2^30], got {n_paths}")
+    if bridge and n_steps > BRIDGE_MAX_STEPS:
+        raise ValueError(f"{who} takes at most {BRIDGE_MAX_STEPS} steps in bridge order, "
+                         f"got {n_steps}")
 
 OptionType = str  # "put" | "call"
 ExerciseType = str  # "european" | "american"
@@ -120,15 +144,19 @@ class SimConfig:
     """Path simulation configuration.
 
     ``antithetic`` pairs path i with path i + n_paths/2 (negated normals).
-    ``backend``: ``"torch"`` (``torch.randn``) or ``"philox"`` (the
-    counter-based CUDA pathgen kernel; its plain version on the CPU).
+    ``backend``: ``"torch"`` (``torch.randn``), ``"philox"`` (the
+    counter-based CUDA pathgen kernel; its plain version on the CPU), or
+    ``"sobol"`` / ``"sobol-bridge"`` (the scrambled-Sobol kernel in
+    increment or Brownian-bridge order, a new scramble per seed; float32,
+    no antithetic mirror, ``n_paths`` a multiple of 512 up to 2³⁰, and in
+    bridge order at most ``BRIDGE_MAX_STEPS`` steps).
     """
 
     n_paths: int = 100_000
     n_steps: int = 50
     dtype: str = "float32"
     antithetic: bool = False
-    backend: str = "torch"  # "torch" | "philox"
+    backend: str = "torch"  # "torch" | "philox" | "sobol" | "sobol-bridge"
 
     def __post_init__(self):
         if self.n_paths < 1 or self.n_steps < 1:
@@ -137,8 +165,20 @@ class SimConfig:
             )
         if self.antithetic and self.n_paths % 2 != 0:
             raise ValueError("antithetic sampling requires an even n_paths")
-        if self.backend not in ("torch", "philox"):
-            raise ValueError(f"backend must be 'torch' or 'philox', got {self.backend!r}")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {', '.join(map(repr, BACKENDS))}, "
+                             f"got {self.backend!r}")
+        if self.backend in SOBOL_BACKENDS:
+            self._check_sobol()
+
+    def _check_sobol(self):
+        who = f"backend {self.backend!r}"
+        if self.dtype != "float32":
+            raise ValueError(f"{who} emits float32 paths, got {self.dtype!r}")
+        if self.antithetic:
+            raise ValueError(f"{who}: scrambled-Sobol points have no antithetic mirror; "
+                             "use antithetic=False")
+        check_sobol_grid(self.n_steps, self.n_paths, self.backend == "sobol-bridge", who)
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -61,7 +61,12 @@ width:
   coefficients) against its plain version at 1,048,576 x 100, bit for bit,
   then ``price_option(engine="mega", surface_stats=True)`` (each of kernel
   1, kernel 2 and the exposure kernel launched once; the price and stderr
-  the bits of the call without the profile).
+  the bits of the call without the profile);
+- phase 20: randomized-QMC pricing through the public entry,
+  ``price_option(engine="mega")`` with ``SimConfig(backend="sobol-bridge")``
+  at 1,048,576 x 100: a new seed builds its direction tables once and
+  launches ``sobol_gbm`` and ``lsmc_mega`` once each; the same seed again
+  builds nothing and copies nothing to the card.
 
 It times the pricings, each kernel, each plain version and, where one
 PyTorch call computes the same function, that call, with CUDA events, and
@@ -868,6 +873,78 @@ def _ccr_phase(torch, dev, amcx_torch):
     return {"launches": launches["ccr_exposures"], "max_abs_err": err, "ms": ms,
             "plain_ms": ms_plain, "device_us": prof and prof["device_us_per_call"],
             "design_floor_ms": floor_ms, "bound": bound}
+
+
+def _rqmc_phase(torch, dev, amcx_torch):
+    """Phase 20: randomized-QMC pricing through the public entry,
+    ``price_option(engine="mega")`` with ``SimConfig(backend="sobol-bridge")``
+    on the flagship put at 1M x 100: one pricing on a new seed builds its
+    tables once and launches kernel 11 and kernel 2 once each; the same seed
+    again builds nothing, copies nothing to the card and gives the same
+    bits. Prints the price against CRR-2000 and the times of a pricing on a
+    new seed (host clock, values on the host), of the ``pathgen.tables``
+    span, and of a pricing on a cached seed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from amcx_torch import tracing
+    from amcx_torch.ops.lsmc_megakernel import lsmc_price_megakernel
+    from amcx_torch.ops.sobol_pallas import sobol_gbm_paths
+
+    market = amcx_torch.MarketParams(S0, R, SIGMA)
+    product = amcx_torch.ProductSpec(K=STRIKE, T=T, option_type="put", exercise="american")
+    spec = amcx_torch.RegressionSpec(degree=4)
+    sim = amcx_torch.SimConfig(n_paths=N_PATHS, n_steps=N_STEPS, backend="sobol-bridge")
+    crr = amcx_torch.crr_price(S0, STRIKE, T, R, SIGMA, 2000, option_type="put", american=True)
+
+    def pricing(seed):
+        res = amcx_torch.price_option(seed, market, product, spec, sim, engine="mega", device=dev)
+        return torch.stack([res.price, res.stderr]).tolist()
+
+    seed = SEED + 7000
+    pricing(seed - 1)  # the bridge schedule and the frame rows, once per grid
+    torch.cuda.synchronize()
+    counts = (sobol_gbm_paths.launches, lsmc_price_megakernel.launches,
+              sobol_gbm_paths.table_builds)
+    first = pricing(seed)
+    new = [b - a for a, b in zip(counts, (sobol_gbm_paths.launches,
+                                          lsmc_price_megakernel.launches,
+                                          sobol_gbm_paths.table_builds))]
+    _require(new == [1, 1, 1], f"RQMC pricing on a new seed: kernel 11, kernel 2 and table "
+                               f"builds {new} (want 1, 1, 1)")
+    builds = sobol_gbm_paths.table_builds
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = pricing(seed)
+        torch.cuda.synchronize()
+    h2d = [e.name for e in prof.events() if "HtoD" in e.name]
+    _require(sobol_gbm_paths.table_builds == builds and not h2d,
+             f"RQMC pricing on a cached seed: table builds {sobol_gbm_paths.table_builds - builds}"
+             f", host-to-device copies {h2d}")
+    _require(again == first, "RQMC pricing on a cached seed: the same bits")
+    p_err = abs(first[0] - crr)
+    _require(p_err <= QMC_CRR_TOL, f"RQMC |price - CRR-2000| {p_err:.5f} <= {QMC_CRR_TOL}")
+
+    def host_ms(seeds):
+        times = []
+        for s in seeds:
+            t0 = time.perf_counter()
+            pricing(s)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    new_ms = host_ms(range(seed + 1, seed + 21))
+    tracing.drain()
+    with tracing.recording():
+        for s in range(seed + 21, seed + 41):
+            pricing(s)
+    tables_ms = statistics.median((sp.end_ns - sp.start_ns) * 1e-6 for sp in tracing.drain()
+                                  if sp.name == "pathgen.tables")
+    cached_ms = host_ms([seed] * 20)
+    print(f"phase 20 RQMC price_option(engine='mega', backend='sobol-bridge') {N_PATHS}x"
+          f"{N_STEPS} American put: price {first[0]:.5f} (MC stderr formula {first[1]:.5f}) "
+          f"CRR-2000 {crr:.5f} |err| {p_err:.5f} | new seed: kernel 11, kernel 2, table builds "
+          f"{new} | cached seed: 0 builds, 0 host-to-device copies, same bits | ms a pricing "
+          f"(median of 20, host clock to the values on the host): new seed {new_ms:.3f}, "
+          f"pathgen.tables span {tables_ms:.3f}, cached seed {cached_ms:.3f}", flush=True)
 
 
 def main():
@@ -1884,6 +1961,7 @@ def main():
     sw = _swing_phases(torch, dev, amcx_torch)
     qmc = _qmc_phases(torch, dev, amcx_torch, sass)
     ccr = _ccr_phase(torch, dev, amcx_torch)
+    _rqmc_phase(torch, dev, amcx_torch)
 
     # ---- bounds: bytes each kernel must move and its arithmetic ----------
     P4, k4 = 20, 5  # step kernels and mega induction: Chebyshev degree 4
