@@ -16,10 +16,10 @@
 //                   with B the (n_steps, n_steps) bridge matrix carrying
 //                   sqrt(dt), summed in ascending s
 // and S[0] = S0, S[t] = S0 exp(cum_t), time-major (n_steps+1, n_paths) f32.
-// The tables come from scipy's scrambled engine on the host
-// (ops/sobol_pallas.py, _direction_tables); the XOR over the index bits
-// factors over the bit ranges 0..8 and 9..29, so one XOR per element
-// rebuilds the point in natural order.
+// The tables are scipy's scrambled engine's (ops/sobol_pallas.py,
+// _direction_tables), built on the card by sobol_tables_kernel below; the
+// XOR over the index bits factors over the bit ranges 0..8 and 9..29, so
+// one XOR per element rebuilds the point in natural order.
 //
 // Bound on the H100 (1M paths x 100 steps): the store of the path array (4
 // B per path-step, 424 MB, about 0.13 ms at 3.35 TB/s; the tables add 1
@@ -314,6 +314,140 @@ sobol_bridge_kernel(const uint32_t* __restrict__ u_hi, const uint32_t* __restric
   }
 }
 
+// ---- a new seed's direction tables ------------------------------------
+//
+// Replaces: the host build of ops/sobol_pallas.py (_scramble ->
+// _scrambled_numbers -> _table_factors -> _xor_tables) and its upload. It
+// ports no TPU kernel: amcx builds the tables on the host too.
+//
+// scipy's qmc.Sobol(d, scramble=True, seed) draws its scramble from
+// np.random.default_rng(seed) as rng.integers(0, 2, size, dtype=uint32):
+// Lemire's method with a range of 2, which never rejects, so draw i is bit
+// 31 of 32-bit word i of numpy's PCG64, the low half (i even) or the high
+// half (i odd) of its 64-bit output i / 2 + 1. That output is the XSL-RR
+// rotation rotr64(hi ^ lo, hi >> 58) of the 128-bit LCG state after i / 2 +
+// 1 steps of s <- s M + inc (mod 2^128). The draws come in the engine's
+// order: the shift (n_steps, bits), then the lower-triangular matrices
+// (n_steps, bits, bits), every entry drawn, those above the diagonal
+// included. So a thread reaches any draw from the seeded (state, inc) by
+// jump-ahead (Brown's algorithm: O(log k) compositions of the affine step)
+// and then steps.
+//
+// Block (d, y) rebuilds dimension d's scramble and writes its share of the
+// tables: thread r <= bits reads row r of the draws (r = 0 the shift, r =
+// 1 + p row p of L), one jump to the row's first word and bits / 2 steps;
+// threads j < bits take scrambled number j as the parities of the rows of L
+// AND the direction number (bit bits-1-p from row p, as _scramble); then
+//   u_lo[d, i] = XOR of numbers[b] over the set bits b of i (b < 9),
+//   u_hi[d, c] = shift XOR the XOR of numbers[9 + b] over the set bits b of c,
+// every number left-aligned to 30 bits, u_hi's columns grid-strided over
+// the y blocks. Bound: the stores of u_hi, 4 n_steps n_paths / 512 bytes
+// (0.8 MB at 1M x 100, ~0.25 us at 3.35 TB/s), beside ~1.5k dependent
+// integer operations of the longest draw thread; the launch sets the time.
+constexpr int kTableThreads = 256;
+constexpr int kMaxBits = 30;  // the numbers are left-aligned to 30 bits
+constexpr int kTableColsPerBlock = 4096;  // u_hi columns a block (y) at least
+
+struct U128 {
+  uint64_t hi, lo;
+};
+
+__device__ __forceinline__ U128 mul128(U128 a, U128 b) {
+  return {__umul64hi(a.lo, b.lo) + a.lo * b.hi + a.hi * b.lo, a.lo * b.lo};
+}
+
+__device__ __forceinline__ U128 add128(U128 a, U128 b) {
+  const uint64_t lo = a.lo + b.lo;
+  return {a.hi + b.hi + (lo < a.lo ? 1u : 0u), lo};
+}
+
+// numpy's PCG64 multiplier (PCG_DEFAULT_MULTIPLIER_128)
+__device__ __forceinline__ U128 pcg_mult() {
+  return {0x2360ED051FC65DA4ull, 0x4385DF649FCCF645ull};
+}
+
+// The state k LCG steps after s.
+__device__ U128 pcg_advance(U128 s, U128 inc, uint64_t k) {
+  U128 acc_mult = {0u, 1u}, acc_plus = {0u, 0u}, cur_mult = pcg_mult(), cur_plus = inc;
+  for (; k != 0u; k >>= 1) {
+    if (k & 1u) {
+      acc_mult = mul128(acc_mult, cur_mult);
+      acc_plus = add128(mul128(acc_plus, cur_mult), cur_plus);
+    }
+    cur_plus = mul128(add128(cur_mult, {0u, 1u}), cur_plus);
+    cur_mult = mul128(cur_mult, cur_mult);
+  }
+  return add128(mul128(acc_mult, s), acc_plus);
+}
+
+__device__ __forceinline__ uint64_t pcg_output(U128 s) {
+  const uint64_t x = s.hi ^ s.lo;
+  const unsigned rot = static_cast<unsigned>(s.hi >> 58);
+  return (x >> rot) | (x << ((64u - rot) & 63u));
+}
+
+// Row r of dimension d's draws as an integer: r = 0 the shift (draw b at
+// bit b), r = 1 + p row p of L (draw q < p at bit bits-1-q, 1 at bit
+// bits-1-p, the draws on and above the diagonal dropped).
+__device__ uint32_t draw_row(U128 state, U128 inc, int d, int r, int n_steps, int bits) {
+  const uint64_t first = r == 0 ? static_cast<uint64_t>(d) * bits
+                                : static_cast<uint64_t>(n_steps) * bits +
+                                      (static_cast<uint64_t>(d) * bits + (r - 1)) * bits;
+  U128 s = pcg_advance(state, inc, first / 2 + 1);
+  uint64_t word = pcg_output(s);
+  uint32_t row = 0u;
+  for (int b = 0; b < bits; ++b) {
+    const uint64_t i = first + b;
+    if (b > 0 && (i & 1u) == 0u) {
+      s = add128(mul128(s, pcg_mult()), inc);
+      word = pcg_output(s);
+    }
+    const uint32_t bit = static_cast<uint32_t>(word >> ((i & 1u) ? 63 : 31)) & 1u;
+    if (r == 0) {
+      row |= bit << b;
+    } else if (b < r - 1) {
+      row |= bit << (bits - 1 - b);
+    }
+  }
+  return r == 0 ? row : row | (1u << (bits - r));
+}
+
+__global__ void __launch_bounds__(kTableThreads)
+sobol_tables_kernel(const uint32_t* __restrict__ sv, U128 state, U128 inc, int n_steps,
+                    int bits, int n_cols, uint32_t* __restrict__ u_hi,
+                    uint32_t* __restrict__ u_lo) {
+  __shared__ uint32_t rows[kMaxBits + 1];  // the shift, then the rows of L
+  __shared__ uint32_t numbers[kMaxBits];
+  const int d = blockIdx.x;
+  const int t = threadIdx.x;
+  const int align = kMaxBits - bits;
+  if (t <= bits) rows[t] = draw_row(state, inc, d, t, n_steps, bits);
+  __syncthreads();
+  if (t < bits) {
+    const uint32_t v = __ldg(sv + static_cast<size_t>(d) * bits + t);
+    uint32_t x = 0u;
+    for (int p = 0; p < bits; ++p) {
+      x |= (static_cast<uint32_t>(__popc(rows[1 + p] & v)) & 1u) << (bits - 1 - p);
+    }
+    numbers[t] = x << align;
+  }
+  __syncthreads();
+  if (blockIdx.y == 0) {
+    for (int i = t; i < kLanes; i += kTableThreads) {
+      uint32_t v = 0u;
+      for (int m = i; m != 0; m &= m - 1) v ^= numbers[__ffs(m) - 1];
+      u_lo[d * kLanes + i] = v;
+    }
+  }
+  const uint32_t shift = rows[0] << align;
+  uint32_t* hi = u_hi + static_cast<size_t>(d) * n_cols;
+  for (int c = blockIdx.y * kTableThreads + t; c < n_cols; c += gridDim.y * kTableThreads) {
+    uint32_t v = shift;
+    for (int m = c; m != 0; m &= m - 1) v ^= numbers[kLowBits + __ffs(m) - 1];
+    hi[c] = v;
+  }
+}
+
 }  // namespace
 
 // u_hi (n_steps, n_paths / 512) and u_lo (n_steps, 512) uint32 tables;
@@ -352,5 +486,26 @@ extern "C" int amcx_sobol_gbm_paths(const unsigned int* u_hi, const unsigned int
   sobol_bridge_kernel<<<n_paths / kLanes, kBridgeThreads, smem, s>>>(
       u_hi, u_lo, row_ptr, reinterpret_cast<const int2*>(entries), out, n_steps, n_paths, S0,
       drift_dt, vol);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A new seed's tables: sv (n_steps, bits) uint32, scipy's unscrambled
+// direction numbers; (state, inc) the seed's PCG64 state and increment
+// (np.random.PCG64(seed).state), each as its high and low 64 bits; u_hi
+// (n_steps, n_paths / 512) and u_lo (n_steps, 512) uint32 outputs. n_paths a
+// multiple of 512 within the 2^bits points, 9 <= bits <= 30. Returns a
+// cudaError_t.
+extern "C" int amcx_sobol_tables(const unsigned int* sv, unsigned long long state_hi,
+                                 unsigned long long state_lo, unsigned long long inc_hi,
+                                 unsigned long long inc_lo, int n_steps, int bits, int n_paths,
+                                 unsigned int* u_hi, unsigned int* u_lo, void* stream) {
+  if (n_steps < 1 || bits < kLowBits || bits > kMaxBits || n_paths < kLanes ||
+      n_paths % kLanes != 0 || (n_paths - 1) >> bits != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_cols = n_paths / kLanes;
+  const dim3 grid(n_steps, (n_cols + kTableColsPerBlock - 1) / kTableColsPerBlock);
+  sobol_tables_kernel<<<grid, kTableThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      sv, U128{state_hi, state_lo}, U128{inc_hi, inc_lo}, n_steps, bits, n_cols, u_hi, u_lo);
   return static_cast<int>(cudaGetLastError());
 }

@@ -66,8 +66,8 @@ Routes, each on fixed inputs made from fixed seeds:
   bits of each order. It also prints each order on its own: ms by CUDA
   events, the wrapper's host time, and the device time by name, so the
   kernel's time stands apart from any host-to-device copy, and a new
-  seed's table work (the host's scramble, then the whole build: the
-  scramble, its upload and the tables made on the card).
+  seed's table build (the host's ms to the call's return, the device µs
+  by CUDA events).
 
 - ``ccr`` (the exposure kernel): the CCR profile of the flagship put
   (1,048,576 Philox paths x 100 steps of ``gbm``, the all-paths fit)
@@ -326,21 +326,25 @@ def _qmc(torch, amcx_torch, dev):
                      for bridge in (False, True))
 
     def tables():
-        # a new seed's table work, medians over 5 seeds: the host's scramble
-        # of scipy's direction numbers, and the whole build (the scramble,
-        # its upload and the tables on the card, to a synchronise)
-        from amcx_torch.ops.sobol_pallas import _device_tables, _scramble
+        # a new seed's table build (_device_tables, uncached), medians over 5
+        # seeds: the host's ms from the call to its return, and the device
+        # µs between CUDA events around it, recorded behind a sleep on the
+        # stream so that the host's enqueue is not counted
+        from amcx_torch.ops.sobol_pallas import _device_tables
 
-        parts = {"scramble_ms": [], "tables_ms": []}
+        parts = {"launch_ms": [], "device_us": []}
         for seed in range(7001, 7006):
-            t0 = time.perf_counter()
-            _scramble(seed, args[6])
-            t1 = time.perf_counter()
-            _device_tables.__wrapped__(seed, args[6], args[7], dev)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            for key, dt in zip(parts, (t1 - t0, t2 - t1)):
-                parts[key].append(dt * 1e3)
+            torch.cuda._sleep(10_000_000)
+            start.record()
+            t0 = time.perf_counter()
+            _device_tables.__wrapped__(seed, args[6], args[7], dev)
+            t1 = time.perf_counter()
+            end.record()
+            end.synchronize()
+            parts["launch_ms"].append((t1 - t0) * 1e3)
+            parts["device_us"].append(start.elapsed_time(end) * 1e3)
         return {k: statistics.median(v) for k, v in parts.items()}
 
     def by_order(split):

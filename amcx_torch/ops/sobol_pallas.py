@@ -2,20 +2,22 @@
 plain version.
 
 Port of `amcx.ops.sobol_pallas` (``_sobol_gbm_kernel`` via
-``sobol_gbm_paths``), under amcx's module name. The host derives the
-scrambled direction numbers once per (seed, n_steps, n_paths): scipy's
-engine's, with its scramble's draws replayed and applied as one vectorised
-product (:func:`_scramble`, :func:`_direction_tables`); the kernel
+``sobol_gbm_paths``), under amcx's module name. The scrambled direction
+numbers are scipy's engine's, derived once per (seed, n_steps, n_paths):
+on the card by a second kernel (:func:`sobol_tables`, which replays the
+engine's PCG64 draws by jump-ahead from the seeded state), on the CPU by
+the plain version (its draws replayed and applied as one vectorised
+product, :func:`_scramble`, :func:`_direction_tables`); the kernel
 (``csrc/sobol_gbm.cu``) rebuilds each point as ``u_hi[j, p >> 9] ^ u_lo[j, p & 511]``, maps it to a
 uniform and by Acklam's inverse CDF (:func:`norm_ppf`) to a normal, and
 writes the time-major ``(n_steps+1, n_paths)`` f32 path array, either by a
 running log-sum (increment order) or by the Brownian-bridge matrix (bridge
 order, `amcx_torch.qmc.brownian_bridge_matrix`). In bridge order the
 kernel sums only B's nonzeros, walked by a schedule the host builds once
-per (n_steps, T) (:func:`_bridge_schedule`). A new seed's tables are built and
-put on the device under the program span ``pathgen.tables``, counted by
-``sobol_gbm_paths.table_builds``; a cached seed opens no span and copies
-nothing.
+per (n_steps, T) (:func:`_bridge_schedule`). A new seed's tables are built on
+the device under the program span ``pathgen.tables``, counted by
+``sobol_gbm_paths.table_builds``; a cached seed opens no span and launches
+and copies nothing.
 
 :func:`sobol_gbm_paths_reference` computes the same function in plain torch
 with the kernel's operation order: a loop over steps for the running sum,
@@ -40,10 +42,11 @@ from ..types import BRIDGE_MAX_STEPS, SOBOL_LANES as LANES, MarketParams, SimCon
     check_sobol_grid
 
 __all__ = ["sobol_gbm_paths", "sobol_gbm_paths_reference", "paths_from_tables_reference",
-           "simulate_gbm_qmc_device", "norm_ppf", "BRIDGE_MAX_STEPS"]
+           "sobol_tables", "simulate_gbm_qmc_device", "norm_ppf", "BRIDGE_MAX_STEPS"]
 
 _LOW_BITS = 9  # the path index's bits that pick a u_lo column (LANES = 2**_LOW_BITS)
 _SLOT_BITS = 8  # csrc/sobol_gbm.cu kSlotBits
+_U64 = (1 << 64) - 1
 
 # Acklam's inverse normal CDF coefficients
 _A = (-3.969683028665376e+01, 2.209460984245205e+02, -2.759285104469687e+02,
@@ -193,8 +196,8 @@ def _direction_tables(seed: int, n_steps: int, n_paths: int):
     """The factored XOR tables of scipy's scrambled engine on the host:
     :func:`_xor_tables` as uint32 arrays, left-aligned to 30 bits. amcx's
     tables without the 128-column padding of ``u_hi``. Read-only (cached)."""
-    factors = torch.from_numpy(_table_factors(seed, n_steps, n_paths).view(np.int32))
-    tables = tuple(t.numpy().view(np.uint32) for t in _xor_tables(factors, n_paths))
+    tables = tuple(t.numpy().view(np.uint32)
+                   for t in sobol_tables(seed, n_steps, n_paths, device="cpu"))
     for t in tables:
         t.flags.writeable = False
     return tables
@@ -305,19 +308,14 @@ def _cuda_device(device) -> torch.device:
 
 @functools.lru_cache(maxsize=8)
 def _device_tables(seed: int, n_steps: int, n_paths: int, device: torch.device):
-    """The direction tables as int32 tensors on ``device``, built once per
-    (seed, n_steps, n_paths, device) inside the ``pathgen.tables`` span and
-    counted by ``sobol_gbm_paths.table_builds``: the host scrambles the
-    direction numbers and builds the tables' small factors, the device
-    builds the tables from them (on the card after one small copy from
-    pinned memory, which the host does not wait for). A call with a cached seed opens no span and copies
-    nothing."""
+    """The direction tables as int32 tensors on ``device``
+    (:func:`sobol_tables`), built once per (seed, n_steps, n_paths, device)
+    inside the ``pathgen.tables`` span and counted by
+    ``sobol_gbm_paths.table_builds``. A call with a cached seed opens no
+    span, launches nothing and copies nothing."""
     with tracing.span("pathgen.tables"):
         sobol_gbm_paths.table_builds += 1
-        factors = torch.from_numpy(_table_factors(seed, n_steps, n_paths).view(np.int32))
-        if device.type != "cpu":
-            factors = factors.pin_memory().to(device, non_blocking=True)
-        return _xor_tables(factors, n_paths)
+        return sobol_tables(seed, n_steps, n_paths, device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -328,12 +326,75 @@ def _device_schedule(n_steps: int, T: float, device: torch.device):
             torch.from_numpy(entries.copy()).to(device), n_slots)
 
 
+@functools.lru_cache(maxsize=8)
+def _device_directions(n_steps: int, device: torch.device):
+    """scipy's unscrambled direction numbers (:func:`_joe_kuo`) on the card
+    as int32, once per (n_steps, device), and ``bits``."""
+    sv, bits = _joe_kuo(n_steps)
+    return torch.from_numpy(sv.view(np.int32).copy()).to(device), bits
+
+
+def _pcg64_state(seed: int):
+    """The 128-bit state and increment of ``np.random.default_rng(seed)``'s
+    bit generator before its first draw, each as (high, low) 64-bit words:
+    ``(state_hi, state_lo, inc_hi, inc_lo)``."""
+    st = np.random.PCG64(seed).state["state"]
+    return st["state"] >> 64, st["state"] & _U64, st["inc"] >> 64, st["inc"] & _U64
+
+
 @functools.lru_cache(maxsize=None)
 def _sobol_fn():
     from . import _build
 
     Vp, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _build.function("amcx_sobol_gbm_paths", [Vp, Vp, Vp, Vp, Vp, I, I, F, F, F, I, Vp])
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_fn():
+    from . import _build
+
+    Vp, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+    return _build.function("amcx_sobol_tables", [Vp, U, U, U, U, I, I, I, Vp, Vp, Vp])
+
+
+def sobol_tables(seed: int, n_steps: int, n_paths: int, device="cuda"):
+    """The direction tables of scipy's ``qmc.Sobol(d=n_steps, scramble=True,
+    seed=seed)`` for ``n_paths`` points: ``u_hi`` ``(n_steps, n_paths/512)``
+    (the digital shift folded in) and ``u_lo`` ``(n_steps, 512)``, int32 on
+    ``device``, left-aligned to 30 bits (:func:`_direction_tables`' bits).
+
+    On a CUDA device one launch of ``csrc/sobol_gbm.cu``'s table kernel on
+    the current stream: the host passes the seed's PCG64 state and
+    increment, the card replays the scramble's draws, the scramble and both
+    tables; the direction numbers are put on the card once per (n_steps,
+    device). No host table, no copy, no synchronise. On the CPU the plain
+    version (:func:`_table_factors`, :func:`_xor_tables`).
+    ``sobol_tables.launches`` counts the kernel launches.
+    """
+    from . import _build
+
+    device = torch.device(device)
+    if device.type == "cpu":
+        factors = torch.from_numpy(_table_factors(seed, n_steps, n_paths).view(np.int32))
+        return _xor_tables(factors, n_paths)
+    if device.type != "cuda":
+        raise ValueError(f"sobol_tables runs on 'cpu' or 'cuda', got {device}")
+    device = _cuda_device(device)
+    sv, bits = _device_directions(n_steps, device)
+    if n_paths > 1 << bits:
+        raise ValueError(f"n_paths exceeds the {bits}-bit Sobol period")
+    u_hi = torch.empty((n_steps, n_paths // LANES), dtype=torch.int32, device=device)
+    u_lo = torch.empty((n_steps, LANES), dtype=torch.int32, device=device)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)  # current_stream's handle
+    rc = _tables_fn()(sv.data_ptr(), *_pcg64_state(int(seed)), n_steps, bits, n_paths,
+                      u_hi.data_ptr(), u_lo.data_ptr(), stream)
+    sobol_tables.launches += 1
+    _build.check(rc, "amcx_sobol_tables")
+    return u_hi, u_lo
+
+
+sobol_tables.launches = 0
 
 
 def _launch(hi, lo, schedule, out, n_steps: int, n_paths: int, S0: float, drift_dt: float,
@@ -365,8 +426,8 @@ def sobol_gbm_paths(seed, S0, r, sigma, q, T, n_steps: int, n_paths: int,
     :data:`BRIDGE_MAX_STEPS` steps). On a CUDA device this launches the
     kernel (``csrc/sobol_gbm.cu``) on the current stream, or raises; on the
     CPU it runs the plain version (:func:`paths_from_tables_reference`, the
-    bits of :func:`sobol_gbm_paths_reference`). The tables are built on the
-    host once per (seed, n_steps, n_paths) and kept per device
+    bits of :func:`sobol_gbm_paths_reference`). The tables are built once
+    per (seed, n_steps, n_paths) on the device and kept there
     (:func:`_device_tables`), the bridge schedule once per (n_steps, T).
     ``sobol_gbm_paths.launches`` counts the kernel launches,
     ``sobol_gbm_paths.table_builds`` the tables built for a device.

@@ -29,10 +29,11 @@ The spans of the pricing entries, at the layer boundaries of ``PERF.md``:
                           grid only)
 ``pathgen``               ``simulate_gbm``, ``simulate_gbm_multi``
 ``pathgen.tables``        the Sobol backends' direction tables of a new
-                          seed (`ops.sobol_pallas._device_tables`: the
-                          scramble of scipy's direction numbers and the
-                          tables' factors on the host, their upload, the
-                          tables on the device); a cached seed opens none
+                          seed (`ops.sobol_pallas._device_tables`: on the
+                          card the seed's PCG64 state on the host and one
+                          launch of the table kernel, which replays the
+                          scramble and writes both tables); a cached seed
+                          opens none
 ``induction``             the induction entries the two entries call
                           (kernels 2, 6 and 7, the fused and the reference
                           engines), price and stderr included

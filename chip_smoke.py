@@ -64,7 +64,8 @@ width:
   the bits of the call without the profile);
 - phase 20: randomized-QMC pricing through the public entry,
   ``price_option(engine="mega")`` with ``SimConfig(backend="sobol-bridge")``
-  at 1,048,576 x 100: a new seed builds its direction tables once and
+  at 1,048,576 x 100: a new seed builds its direction tables once on the
+  card (the table kernel of ``sobol_gbm``, no host-to-device copy) and
   launches ``sobol_gbm`` and ``lsmc_mega`` once each; the same seed again
   builds nothing and copies nothing to the card.
 
@@ -630,7 +631,8 @@ def _qmc_phases(torch, dev, amcx_torch, sass):
     from amcx_torch.ops.lsmc_megakernel import lsmc_price_megakernel
     from amcx_torch.ops.sobol_pallas import (BRIDGE_MAX_STEPS, _bits_to_uniform,
                                              _bridge_schedule, _direction_tables, _in_tail,
-                                             sobol_gbm_paths, sobol_gbm_paths_reference)
+                                             sobol_gbm_paths, sobol_gbm_paths_reference,
+                                             sobol_tables)
 
     seed = 2026
     args = (seed, S0, R, SIGMA, 0.0, T, N_STEPS, N_PATHS)
@@ -732,15 +734,17 @@ def _qmc_phases(torch, dev, amcx_torch, sass):
                      f"QMC bridge European |err| {abs(euro - bs):.5f} <= {QMC_BS_TOL}")
         seeds = iter(range(seed + 10 + 100 * bridge, seed + 1000))  # no cached tables
         route_ms = _time_ms(torch, lambda b=bridge: route(next(seeds), b)[1][0], 5, 1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _direction_tables.__wrapped__(seed + 999, N_STEPS, N_PATHS)
+        sobol_tables(seed + 999, N_STEPS, N_PATHS, dev)
+        torch.cuda.synchronize()
         tables_ms = (time.perf_counter() - t0) * 1e3
         print(f"phase 18 QMC route {mode} order {N_PATHS}x{N_STEPS} American put: price "
               f"{float(price):.5f} (MC stderr formula {float(stderr):.5f}) CRR-2000 {crr:.5f} "
               f"|err| {p_err:.5f} | European {euro:.5f} Black-Scholes {bs:.5f} |err| "
               f"{abs(euro - bs):.5f} | launches {launches[bridge]} | route {route_ms:.3f} "
-              f"ms (median of 5, a new seed each: the host's direction tables, "
-              f"{tables_ms:.1f} ms on their own, included)", flush=True)
+              f"ms (median of 5, a new seed each: its direction tables built on the card, "
+              f"{tables_ms:.3f} ms on their own to a synchronise, included)", flush=True)
     del runs
 
     # kernel 11 writes the (T+1, n) paths and reads the two tables; per
@@ -879,16 +883,18 @@ def _rqmc_phase(torch, dev, amcx_torch):
     """Phase 20: randomized-QMC pricing through the public entry,
     ``price_option(engine="mega")`` with ``SimConfig(backend="sobol-bridge")``
     on the flagship put at 1M x 100: one pricing on a new seed builds its
-    tables once and launches kernel 11 and kernel 2 once each; the same seed
-    again builds nothing, copies nothing to the card and gives the same
-    bits. Prints the price against CRR-2000 and the times of a pricing on a
-    new seed (host clock, values on the host), of the ``pathgen.tables``
-    span, and of a pricing on a cached seed."""
+    tables once on the card (one launch of the table kernel, no
+    host-to-device copy) and launches kernel 11 and kernel 2 once each; the
+    same seed again builds nothing, copies nothing to the card and gives the
+    same bits. Prints the price against CRR-2000, the table kernel's device
+    µs, and the times of a pricing on a new seed (host clock, values on the
+    host), of the ``pathgen.tables`` span, and of a pricing on a cached
+    seed."""
     from torch.profiler import ProfilerActivity, profile
 
     from amcx_torch import tracing
     from amcx_torch.ops.lsmc_megakernel import lsmc_price_megakernel
-    from amcx_torch.ops.sobol_pallas import sobol_gbm_paths
+    from amcx_torch.ops.sobol_pallas import sobol_gbm_paths, sobol_tables
 
     market = amcx_torch.MarketParams(S0, R, SIGMA)
     product = amcx_torch.ProductSpec(K=STRIKE, T=T, option_type="put", exercise="american")
@@ -903,14 +909,16 @@ def _rqmc_phase(torch, dev, amcx_torch):
     seed = SEED + 7000
     pricing(seed - 1)  # the bridge schedule and the frame rows, once per grid
     torch.cuda.synchronize()
-    counts = (sobol_gbm_paths.launches, lsmc_price_megakernel.launches,
-              sobol_gbm_paths.table_builds)
+
+    def counts():
+        return (sobol_gbm_paths.launches, lsmc_price_megakernel.launches,
+                sobol_gbm_paths.table_builds, sobol_tables.launches)
+
+    before = counts()
     first = pricing(seed)
-    new = [b - a for a, b in zip(counts, (sobol_gbm_paths.launches,
-                                          lsmc_price_megakernel.launches,
-                                          sobol_gbm_paths.table_builds))]
-    _require(new == [1, 1, 1], f"RQMC pricing on a new seed: kernel 11, kernel 2 and table "
-                               f"builds {new} (want 1, 1, 1)")
+    new = [b - a for a, b in zip(before, counts())]
+    _require(new == [1, 1, 1, 1], f"RQMC pricing on a new seed: kernel 11, kernel 2, table "
+                                  f"builds and table kernels {new} (want 1, 1, 1, 1)")
     builds = sobol_gbm_paths.table_builds
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         again = pricing(seed)
@@ -920,6 +928,19 @@ def _rqmc_phase(torch, dev, amcx_torch):
              f"RQMC pricing on a cached seed: table builds {sobol_gbm_paths.table_builds - builds}"
              f", host-to-device copies {h2d}")
     _require(again == first, "RQMC pricing on a cached seed: the same bits")
+    # new seeds under the profiler (which may drop the first launches of a
+    # window): no host-to-device copy, and the table kernel's device time
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for s in range(seed + 100, seed + 110):
+            pricing(s)
+        torch.cuda.synchronize()
+    h2d = [e.name for e in prof.events() if "HtoD" in e.name]
+    _require(not h2d, f"RQMC pricing on a new seed: host-to-device copies {h2d}")
+    table_us = [e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "sobol_tables_kernel" in e.name]
+    table_text = (f"{statistics.median(table_us):.1f} us a launch ({len(table_us)} of 10 "
+                  f"recorded)" if table_us else "no device activity recorded")
     p_err = abs(first[0] - crr)
     _require(p_err <= QMC_CRR_TOL, f"RQMC |price - CRR-2000| {p_err:.5f} <= {QMC_CRR_TOL}")
 
@@ -941,8 +962,10 @@ def _rqmc_phase(torch, dev, amcx_torch):
     cached_ms = host_ms([seed] * 20)
     print(f"phase 20 RQMC price_option(engine='mega', backend='sobol-bridge') {N_PATHS}x"
           f"{N_STEPS} American put: price {first[0]:.5f} (MC stderr formula {first[1]:.5f}) "
-          f"CRR-2000 {crr:.5f} |err| {p_err:.5f} | new seed: kernel 11, kernel 2, table builds "
-          f"{new} | cached seed: 0 builds, 0 host-to-device copies, same bits | ms a pricing "
+          f"CRR-2000 {crr:.5f} |err| {p_err:.5f} | new seed: kernel 11, kernel 2, table "
+          f"builds, table kernels {new}, 0 host-to-device copies, table kernel "
+          f"{table_text} | cached seed: 0 builds, 0 host-to-device "
+          f"copies, same bits | ms a pricing "
           f"(median of 20, host clock to the values on the host): new seed {new_ms:.3f}, "
           f"pathgen.tables span {tables_ms:.3f}, cached seed {cached_ms:.3f}", flush=True)
 

@@ -1503,6 +1503,81 @@ def test_sobol_kernel_cached_seed_copies_nothing(cuda_device):
         assert torch.equal(first, second)
 
 
+# a new seed's tables built on the card (sobol_tables_kernel) against the
+# host's plain build, bit for bit: one dimension of 512 points, the
+# cell's 100 x 2^20, 1,000 steps (with the paths in increment order), a
+# ragged 3 x 512 paths and 2^30 paths (u_hi's columns over 512 blocks)
+@pytest.mark.parametrize("seed", [7, 2 ** 31 + 4321, 2 ** 41 + 99])
+@pytest.mark.parametrize("n_steps, n_paths", [(1, 512), (24, 16_384), (100, 1 << 20),
+                                              (1000, 4096), (100, 3 * 512), (2, 1 << 30)])
+def test_sobol_table_kernel_matches_plain(cuda_device, seed, n_steps, n_paths):
+    before = tsp.sobol_tables.launches
+    hi, lo = tsp.sobol_tables(seed, n_steps, n_paths, cuda_device)
+    want_hi, want_lo = tsp._direction_tables(seed, n_steps, n_paths)
+    torch.cuda.synchronize()
+    assert tsp.sobol_tables.launches == before + 1
+    assert hi.shape == (n_steps, n_paths // 512) and lo.shape == (n_steps, 512)
+    assert np.array_equal(hi.cpu().numpy().view(np.uint32), want_hi)
+    assert np.array_equal(lo.cpu().numpy().view(np.uint32), want_lo)
+    if n_steps == 1000:
+        args = (seed, 100.0, 0.01, 0.2, 0.0, 1.0, n_steps, n_paths)
+        ker = tsp.sobol_gbm_paths(*args, device=cuda_device)
+        assert torch.equal(ker, tsp.sobol_gbm_paths_reference(*args, device=cuda_device))
+
+
+def test_sobol_new_seed_builds_on_the_card_without_a_copy(cuda_device):
+    # a new seed: one table kernel, one table build, no host-to-device copy
+    # and no wait but the test's own synchronise; the same seed again:
+    # nothing launched, the same tensors
+    from torch.profiler import ProfilerActivity, profile
+
+    n_steps, n_paths, seed = 100, 1 << 20, 2 ** 40 + 21
+    tsp._device_tables.cache_clear()
+    tsp.sobol_tables(seed + 1, n_steps, n_paths, cuda_device)  # the direction numbers, once
+    torch.cuda.synchronize()
+
+    def counts():
+        return tsp.sobol_tables.launches, tsp.sobol_gbm_paths.table_builds
+
+    def traced():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tables = tsp._device_tables(seed, n_steps, n_paths, cuda_device)
+            torch.cuda.synchronize()
+        events = prof.events()
+        device = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        host = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+        return tables, device, host
+
+    before = counts()
+    first, device, host = traced()
+    assert counts() == (before[0] + 1, before[1] + 1)
+    assert [n for n in device if "sobol_tables_kernel" in n] and \
+        not [n for n in device if "sobol_tables_kernel" not in n]
+    assert not [n for n in device + host if "HtoD" in n or n.startswith("cudaMemcpy")]
+    assert not [n for n in host if "Synchronize" in n and n != "cudaDeviceSynchronize"]
+    again, device, host = traced()
+    assert counts() == (before[0] + 1, before[1] + 1) and not device
+    assert again[0] is first[0] and again[1] is first[1]
+
+
+# price_option(engine="mega") of the flagship put (1M x 100) at seed 2^31 +
+# 4321, priced on an NVIDIA H100 80GB HBM3 with the tables the host built
+# before the card built them: float.hex of the price and stderr
+RQMC_MEGA_BITS = {
+    "sobol": ("0x1.e069f40000000p+2", "0x1.183fdc0000000p-7"),
+    "sobol-bridge": ("0x1.e075700000000p+2", "0x1.1897ba0000000p-7"),
+}
+
+
+@pytest.mark.parametrize("backend", sorted(RQMC_MEGA_BITS))
+def test_rqmc_mega_keeps_the_host_tables_bits(cuda_device, backend):
+    sim = at.SimConfig(n_paths=1 << 20, n_steps=100, backend=backend)
+    product = at.ProductSpec(K=K, T=1.0, option_type="put", exercise="american")
+    res = at.price_option(2 ** 31 + 4321, at.MarketParams(S0, R, SIGMA), product,
+                          at.RegressionSpec(degree=4), sim, engine="mega", device=cuda_device)
+    assert (float(res.price).hex(), float(res.stderr).hex()) == RQMC_MEGA_BITS[backend]
+
+
 # ---- the CCR exposure kernel (csrc/ccr_exposures.cu) ----
 
 def _ccr_inputs(dev, seed, n, T=100, basis="chebyshev", degree=4):

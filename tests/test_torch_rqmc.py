@@ -30,6 +30,9 @@ on the CPU (kernel 11's and kernel 2's plain versions).
   ``engine="fusedpath"`` refuses the backends; a Generator seed is refused.
 - A new seed builds its tables once, inside the ``pathgen.tables`` span; a
   cached seed builds none and opens no span.
+- The card's table kernel replays the scramble's draws from numpy's PCG64
+  state by jump-ahead: a plain model of its indexing equals
+  ``rng.integers``' draws and ``_scramble``'s numbers.
 """
 
 import sys
@@ -129,6 +132,89 @@ def test_scramble_is_scipys_engine(n_steps):
         sv, shift, bits = tsp._scramble(seed, n_steps)
         assert bits == eng.bits
         assert np.array_equal(sv, eng._sv) and np.array_equal(shift, eng._shift)
+
+
+# A plain model of the card's table kernel (csrc/sobol_gbm.cu,
+# sobol_tables_kernel) in Python integers: draw i of the scramble is bit 31
+# of 32-bit word i of numpy's PCG64 (Lemire's method never rejects at a
+# range of 2), the low half (i even) or the high half (i odd) of output
+# i // 2 + 1, reached by jump-ahead from the seeded state; each row of a
+# dimension's draws (the shift, then the rows of L) by one jump and steps.
+PCG_MULT = 0x2360ED051FC65DA4_4385DF649FCCF645
+MASK128, MASK64 = (1 << 128) - 1, (1 << 64) - 1
+
+
+def _pcg_advance(state, inc, k):
+    """The state k LCG steps on (Brown's jump-ahead, as ``pcg_advance``)."""
+    acc_mult, acc_plus, cur_mult, cur_plus = 1, 0, PCG_MULT, inc
+    while k:
+        if k & 1:
+            acc_mult, acc_plus = acc_mult * cur_mult & MASK128, \
+                (acc_plus * cur_mult + cur_plus) & MASK128
+        cur_plus, cur_mult = (cur_mult + 1) * cur_plus & MASK128, cur_mult * cur_mult & MASK128
+        k >>= 1
+    return (acc_mult * state + acc_plus) & MASK128
+
+
+def _pcg_output(state):
+    x, rot = ((state >> 64) ^ state) & MASK64, state >> 122
+    return ((x >> rot) | (x << (64 - rot))) & MASK64
+
+
+def _model_draw(state, inc, i):
+    return _pcg_output(_pcg_advance(state, inc, i // 2 + 1)) >> (63 if i & 1 else 31) & 1
+
+
+def _model_row(state, inc, d, r, n_steps, bits):
+    """Row r of dimension d's draws as ``draw_row`` packs it: r = 0 the
+    shift, r = 1 + p row p of L with its unit diagonal."""
+    first = d * bits if r == 0 else n_steps * bits + (d * bits + r - 1) * bits
+    s = _pcg_advance(state, inc, first // 2 + 1)
+    row = 0
+    for b in range(bits):
+        if b and (first + b) % 2 == 0:
+            s = (s * PCG_MULT + inc) & MASK128
+        bit = _pcg_output(s) >> (63 if (first + b) & 1 else 31) & 1
+        row |= bit << b if r == 0 else (bit << (bits - 1 - b) if b < r - 1 else 0)
+    return row if r == 0 else row | 1 << (bits - r)
+
+
+def _model_scramble(seed, n_steps, dims, sv, bits):
+    """The scrambled direction numbers and shift of ``dims`` from the model."""
+    st = np.random.PCG64(seed).state["state"]
+    out_sv, out_shift = [], []
+    for d in dims:
+        rows = [_model_row(st["state"], st["inc"], d, r, n_steps, bits) for r in range(bits + 1)]
+        out_sv.append([sum((bin(rows[1 + p] & int(v)).count("1") & 1) << (bits - 1 - p)
+                           for p in range(bits)) for v in sv[d]])
+        out_shift.append(rows[0])
+    return np.array(out_sv, dtype=np.uint32), np.array(out_shift, dtype=np.uint32)
+
+
+@pytest.mark.parametrize("n_steps", [1, 24, 100, 1000])
+@pytest.mark.parametrize("seed", [7, 2 ** 31 + 4321, 2 ** 41 + 99])
+def test_table_kernels_draw_model_is_scipys_scramble(seed, n_steps):
+    # the model's draws equal rng.integers' at the first and last draw of
+    # the shift block, the first of the matrices', each dimension's first
+    # of both and the last; its (sv, shift) equal _scramble's in full up to
+    # 100 steps, at the first, a middle and the last dimension at 1,000
+    sv, bits = tsp._joe_kuo(n_steps)
+    rng = np.random.default_rng(seed)
+    draws = np.concatenate([rng.integers(0, 2, size=(n_steps, bits), dtype=np.uint32).ravel(),
+                            rng.integers(0, 2, size=(n_steps, bits, bits),
+                                         dtype=np.uint32).ravel()])
+    n_shift = n_steps * bits
+    picks = {0, n_shift - 1, n_shift, draws.size - 1}
+    picks |= {d * bits for d in range(n_steps)} | {n_shift + d * bits * bits
+                                                   for d in range(n_steps)}
+    st = np.random.PCG64(seed).state["state"]
+    assert [_model_draw(st["state"], st["inc"], i) for i in sorted(picks)] == \
+        [int(draws[i]) for i in sorted(picks)]
+    dims = range(n_steps) if n_steps <= 100 else [0, n_steps // 2, n_steps - 1]
+    want_sv, want_shift, _ = tsp._scramble(seed, n_steps)
+    got_sv, got_shift = _model_scramble(seed, n_steps, dims, sv, bits)
+    assert np.array_equal(got_sv, want_sv[list(dims)])
+    assert np.array_equal(got_shift, want_shift[list(dims)])
 
 
 def test_backend_paths_match_the_plain_reference():
